@@ -1,0 +1,619 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch/CUDA port (``disq_tpu_torch``) on one GPU.
+
+Run from the root of a checkout, on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py [--seed 0] [--records 2000000]
+
+It builds the two CUDA kernels from ``disq_tpu_torch/csrc``, synthesizes
+an unsorted paired-end BAM from the seed (150 bp reads over 3 references,
+compressed with stdlib zlib into standard BGZF blocks), and drives the
+port's main path through its public entry points on ``cuda``:
+
+    ReadsStorage.make_default().split_size(64 << 20).read(path)
+    .count(), .flagstat(), write(ds, out, BaiWriteOption.ENABLE, sort=True)
+
+It then checks the results against the generator (counts, flagstat,
+sort permutation, the sorted BAM re-read record for record, every output
+block inflating with zlib), shows that the main path launched both
+kernels, holds each kernel against its plain version on the card, and
+times both. Any failed phase exits non-zero. The last lines of standard
+output are the card's name and power limit, one JSON line of per-kernel
+numbers, and ``{"ok": true, "device": {...}}``.
+
+It imports neither ``jax`` nor the JAX package, and writes only under
+``.smoke/`` in the checkout, which it removes at the end.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import struct
+import subprocess
+import sys
+import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+REFS = (("chr1", 248956422), ("chr2", 242193529), ("chr3", 198295559))
+READ_LEN = 150
+NAME_LEN = 28          # "SIM:1:FC0:1:1101:00000:00000"
+TAG_BYTES = 12         # RG:Z:grpK + NUL, NM:C:n
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+MAX_PAYLOAD = 0xFF00
+
+
+class PhaseError(Exception):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise PhaseError(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- input synthesis (independent of the read path) -------------------------
+
+
+def reg2bin(beg: np.ndarray, end: np.ndarray) -> np.ndarray:
+    """SAM spec §5.3 reg2bin over 0-based half-open [beg, end)."""
+    end = end - 1
+    out = np.zeros(len(beg), np.int64)
+    done = np.zeros(len(beg), bool)
+    for shift, offset in ((14, 4681), (17, 585), (20, 73), (23, 9), (26, 1)):
+        hit = ~done & ((beg >> shift) == (end >> shift))
+        out[hit] = offset + (beg[hit] >> shift)
+        done |= hit
+    return out
+
+
+def digits(values: np.ndarray, width: int) -> np.ndarray:
+    """(n, width) ASCII digits of non-negative ints, zero padded."""
+    p = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return ((values[:, None] // p) % 10 + 48).astype(np.uint8)
+
+
+def synthesize(n: int, seed: int) -> dict:
+    """Columns of ``n`` paired 150 bp reads in unsorted (pair) order:
+    mapped proper pairs, pairs with one mate unmapped, fully unmapped
+    pairs, soft clips and deletions, duplicates, secondary,
+    supplementary and QC-failed reads, RG and NM tags."""
+    rng = np.random.default_rng(seed)
+    pairs = n // 2
+    ref_len = np.array([ln for _, ln in REFS], np.int64)
+    rid_p = rng.integers(0, len(REFS), pairs)
+    pos1 = (rng.random(pairs) * (ref_len[rid_p] - 2000)).astype(np.int64)
+    insert = np.clip(rng.normal(350, 60, pairs), 160, 900).astype(np.int64)
+    pos2 = pos1 + insert - READ_LEN
+    kind = rng.random(pairs)
+    half = kind < 0.03            # read2 unmapped, placed at its mate
+    gone = kind > 0.99            # both unmapped, unplaced
+
+    refid = np.repeat(rid_p, 2)
+    pos = np.stack([pos1, pos2], 1).ravel()
+    flag = np.tile(np.array([0x1 | 0x2 | 0x20 | 0x40, 0x1 | 0x2 | 0x10 | 0x80],
+                            np.int64), pairs)
+    r1, r2 = np.arange(0, n, 2), np.arange(1, n, 2)
+    # read2 unmapped: placed at read1, no proper pair
+    flag[r2[half]] = 0x1 | 0x4 | 0x20 | 0x80
+    flag[r1[half]] = 0x1 | 0x8 | 0x40
+    pos[r2[half]] = pos1[half]
+    both = np.concatenate([r1[gone], r2[gone]])
+    flag[r1[gone]] = 0x1 | 0x4 | 0x8 | 0x40
+    flag[r2[gone]] = 0x1 | 0x4 | 0x8 | 0x80
+    refid[both] = -1
+    pos[both] = -1
+    mapped = (flag & 0x4) == 0
+    for bit, frac in ((0x400, 0.06), (0x200, 0.004), (0x100, 0.01),
+                      (0x800, 0.005)):
+        flag[mapped & (rng.random(n) < frac)] |= bit
+    mate = np.arange(n) ^ 1
+    next_refid, next_pos = refid[mate], pos[mate]
+    proper = (flag & 0x2) != 0
+    tlen = np.where(proper, np.where((flag & 0x40) != 0, 1, -1)
+                    * np.repeat(insert, 2), 0)
+    mapq = np.where(mapped, rng.integers(0, 61, n), 0)
+
+    # CIGAR: 150M, soft clip at either end, or a short deletion
+    ck = rng.random(n)
+    clip = rng.integers(1, 40, n)
+    dl = rng.integers(1, 6, n)
+    at = rng.integers(20, 130, n)
+    ncig = np.where(ck < 0.8, 1, np.where(ck < 0.92, 2, 3))
+    ncig[~mapped] = 0
+    op = np.zeros((n, 3), np.int64)  # (len << 4) | code; M=0 D=2 S=4
+    op[:, 0] = READ_LEN << 4
+    lead = rng.random(n) < 0.5
+    c2 = ncig == 2
+    op[c2 & lead, 0] = (clip[c2 & lead] << 4) | 4
+    op[c2 & lead, 1] = (READ_LEN - clip[c2 & lead]) << 4
+    op[c2 & ~lead, 0] = (READ_LEN - clip[c2 & ~lead]) << 4
+    op[c2 & ~lead, 1] = (clip[c2 & ~lead] << 4) | 4
+    c3 = ncig == 3
+    op[c3, 0] = at[c3] << 4
+    op[c3, 1] = (dl[c3] << 4) | 2
+    op[c3, 2] = (READ_LEN - at[c3]) << 4
+    span = np.where(c2, READ_LEN - clip, np.where(c3, READ_LEN + dl, READ_LEN))
+    bin_ = np.where(mapped, reg2bin(np.maximum(pos, 0),
+                                    np.maximum(pos, 0) + span), 4680)
+    half_placed = ~mapped & (refid >= 0)
+    bin_[half_placed] = reg2bin(pos[half_placed], pos[half_placed] + 1)
+
+    pair_id = np.arange(n) // 2
+    names = np.concatenate([
+        np.frombuffer(b"SIM:1:FC0:", np.uint8)[None].repeat(n, 0),
+        digits(1 + pair_id % 4, 1), np.full((n, 1), ord(":"), np.uint8),
+        digits(1101 + (pair_id // 4) % 16, 4), np.full((n, 1), ord(":"), np.uint8),
+        digits((pair_id // 64) % 100000, 5), np.full((n, 1), ord(":"), np.uint8),
+        digits((pair_id * 7919) % 100000, 5),
+    ], axis=1)
+    seq = np.array([1, 2, 4, 8], np.uint8)[rng.integers(0, 4, (n, READ_LEN))]
+    qual = np.clip(rng.normal(34, 6, (n, READ_LEN)), 2, 41).astype(np.uint8)
+    qual[:, -10:] = np.minimum(qual[:, -10:], 20)
+    tags = np.zeros((n, TAG_BYTES), np.uint8)
+    tags[:, 0:3] = np.frombuffer(b"RGZ", np.uint8)
+    tags[:, 3:6] = np.frombuffer(b"grp", np.uint8)
+    tags[:, 6] = 48 + pair_id % 4
+    tags[:, 8:11] = np.frombuffer(b"NMC", np.uint8)
+    tags[:, 11] = np.where(c3, dl, 0) + rng.integers(0, 4, n)
+    return dict(refid=refid.astype(np.int32), pos=pos.astype(np.int32),
+                mapq=mapq.astype(np.uint8), bin=bin_.astype(np.uint16),
+                flag=flag.astype(np.uint16),
+                next_refid=next_refid.astype(np.int32),
+                next_pos=next_pos.astype(np.int32), tlen=tlen.astype(np.int32),
+                ncig=ncig, cig=op.astype(np.uint32), names=names, seq=seq,
+                qual=qual, tags=tags)
+
+
+def encode_chunk(g: dict, lo: int, hi: int) -> bytes:
+    """BAM record bytes of records [lo, hi), by vectorized scatter."""
+    c = hi - lo
+    ncig = g["ncig"][lo:hi]
+    size = 36 + (NAME_LEN + 1) + 4 * ncig + (READ_LEN + 1) // 2 + READ_LEN + TAG_BYTES
+    start = np.zeros(c, np.int64)
+    np.cumsum(size[:-1], out=start[1:])
+    buf = np.zeros(int(size.sum()), np.uint8)
+    fixed = np.zeros(c, dtype=[
+        ("bs", "<i4"), ("refid", "<i4"), ("pos", "<i4"), ("lrn", "u1"),
+        ("mapq", "u1"), ("bin", "<u2"), ("ncig", "<u2"), ("flag", "<u2"),
+        ("lseq", "<i4"), ("nref", "<i4"), ("npos", "<i4"), ("tlen", "<i4")])
+    fixed["bs"] = size - 4
+    for k, src in (("refid", "refid"), ("pos", "pos"), ("mapq", "mapq"),
+                   ("bin", "bin"), ("flag", "flag"), ("nref", "next_refid"),
+                   ("npos", "next_pos"), ("tlen", "tlen")):
+        fixed[k] = g[src][lo:hi]
+    fixed["lrn"] = NAME_LEN + 1
+    fixed["ncig"] = ncig
+    fixed["lseq"] = READ_LEN
+
+    def put(at, cols):
+        buf[at[:, None] + np.arange(cols.shape[1])] = cols
+
+    put(start, fixed.view(np.uint8).reshape(c, 36))
+    put(start + 36, g["names"][lo:hi])
+    at = start + 36 + NAME_LEN + 1
+    cig = g["cig"][lo:hi]
+    for k in range(3):
+        m = ncig > k
+        put(at[m] + 4 * k, cig[m, k:k + 1].copy().view(np.uint8))
+    at = at + 4 * ncig
+    seq = g["seq"][lo:hi]
+    put(at, (seq[:, 0::2] << 4) | seq[:, 1::2])
+    at = at + READ_LEN // 2
+    put(at, g["qual"][lo:hi])
+    put(at + READ_LEN, g["tags"][lo:hi])
+    return buf.tobytes()
+
+
+def bam_header(sort_order: str = "unsorted") -> bytes:
+    text = f"@HD\tVN:1.6\tSO:{sort_order}\n" + "".join(
+        f"@SQ\tSN:{n}\tLN:{ln}\n" for n, ln in REFS) + \
+        "".join(f"@RG\tID:grp{k}\tSM:sim\n" for k in range(4))
+    tb = text.encode()
+    out = b"BAM\x01" + struct.pack("<i", len(tb)) + tb + struct.pack("<i", len(REFS))
+    for n, ln in REFS:
+        nb = n.encode() + b"\x00"
+        out += struct.pack("<i", len(nb)) + nb + struct.pack("<i", ln)
+    return out
+
+
+EOF_BLOCK = bytes.fromhex("1f8b08040000000000ff0600424302001b0003000000000000000000")
+
+
+def bgzf_block(payload: bytes) -> bytes:
+    c = zlib.compressobj(6, zlib.DEFLATED, -15, 8)
+    comp = c.compress(payload) + c.flush()
+    return (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x06\x00BC\x02\x00"
+            + struct.pack("<H", len(comp) + 25) + comp
+            + struct.pack("<II", zlib.crc32(payload), len(payload)))
+
+
+def write_bam(path: str, g: dict, n: int) -> dict:
+    """Encode and BGZF-compress the synthesized records (thread pool)."""
+    with ThreadPoolExecutor(8) as pool:
+        step = 100_000
+        parts = list(pool.map(lambda lo: encode_chunk(g, lo, min(lo + step, n)),
+                              range(0, n, step)))
+        payload = bam_header() + b"".join(parts)
+        del parts
+        mv = memoryview(payload)
+        blocks = list(pool.map(
+            lambda o: bgzf_block(mv[o: o + MAX_PAYLOAD]),
+            range(0, len(payload), MAX_PAYLOAD)))
+    with open(path, "wb") as f:
+        for b in blocks:
+            f.write(b)
+        f.write(EOF_BLOCK)
+    return {"decoded_bytes": len(payload), "blocks": len(blocks),
+            "file_bytes": os.path.getsize(path)}
+
+
+def walk_blocks(data: bytes):
+    """(offset, total size) of every BGZF block, by the BSIZE chain."""
+    out, p = [], 0
+    while p < len(data):
+        check(data[p:p + 4] == b"\x1f\x8b\x08\x04", f"no BGZF block at {p}")
+        xlen = struct.unpack_from("<H", data, p + 10)[0]
+        q, bsize = p + 12, None
+        while q < p + 12 + xlen:
+            if data[q:q + 2] == b"BC":
+                bsize = struct.unpack_from("<H", data, q + 4)[0]
+            q += 4 + struct.unpack_from("<H", data, q + 2)[0]
+        check(bsize is not None, f"no BC field at {p}")
+        out.append((p, bsize + 1, 12 + xlen))
+        p += bsize + 1
+    return out
+
+
+def zlib_check_all(data: bytes) -> int:
+    """Inflate every block with zlib, checking CRC and ISIZE; returns
+    the decoded byte count."""
+    def one(blk):
+        p, total, hdr = blk
+        raw = zlib.decompress(data[p + hdr: p + total - 8], -15)
+        crc, isize = struct.unpack_from("<II", data, p + total - 8)
+        check(zlib.crc32(raw) == crc and len(raw) == isize,
+              f"block at {p} fails CRC/ISIZE")
+        return len(raw)
+
+    with ThreadPoolExecutor(8) as pool:
+        return sum(pool.map(one, walk_blocks(data)))
+
+
+def numpy_flagstat(flag: np.ndarray) -> dict:
+    f = flag.astype(np.int64)
+    primary = (f & 0x900) == 0
+    paired = primary & ((f & 1) != 0)
+    mapped = (f & 4) == 0
+    mate_unmapped = (f & 8) != 0
+    return {
+        "total": int(len(f)), "secondary": int(((f & 0x100) != 0).sum()),
+        "supplementary": int(((f & 0x800) != 0).sum()),
+        "duplicates": int(((f & 0x400) != 0).sum()),
+        "mapped": int(mapped.sum()), "paired": int(paired.sum()),
+        "read1": int((paired & ((f & 0x40) != 0)).sum()),
+        "read2": int((paired & ((f & 0x80) != 0)).sum()),
+        "proper_pair": int((paired & ((f & 2) != 0) & mapped).sum()),
+        "with_mate_mapped": int((paired & mapped & ~mate_unmapped).sum()),
+        "singletons": int((paired & mapped & mate_unmapped).sum()),
+        "qc_fail": int(((f & 0x200) != 0).sum()),
+    }
+
+
+def coordinate_keys(refid, pos):
+    rid = np.where(refid < 0, 0x7FFFFFFF, refid.astype(np.int64))
+    return (rid.astype(np.uint64) << np.uint64(32)) | \
+        ((pos.astype(np.int64) + 1).astype(np.uint64) & np.uint64(0xFFFFFFFF))
+
+
+# -- timing ------------------------------------------------------------------
+
+
+def cuda_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phases ------------------------------------------------------------------
+
+
+def inflate_inputs(torch, data: bytes, blocks, dev):
+    """Kernel inputs for decoding ``blocks`` of ``data``."""
+    pay_off = np.array([p + h for p, _, h in blocks], np.int64)
+    pay_len = np.array([t - h - 8 for _, t, h in blocks], np.int64)
+    usize = np.array([struct.unpack_from("<I", data, p + t - 4)[0]
+                      for p, t, _ in blocks], np.int64)
+    out_off = np.concatenate([[0], np.cumsum(usize)]).astype(np.int64)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    comp = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    return (comp, t(pay_off), t(pay_len), t(out_off)), int(out_off[-1]), \
+        int(pay_len.sum()), int(out_off[-1])
+
+
+def run(args) -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise PhaseError("CUDA is not available")
+    sys.path.insert(0, HERE)
+    try:
+        import disq_tpu_torch as port
+    except ImportError as e:
+        raise PhaseError(f"the disq_tpu_torch package is missing: {e}")
+    from disq_tpu_torch.ops import cuda_build, inflate_cases
+    from disq_tpu_torch.ops import inflate_simd as B1
+    from disq_tpu_torch.ops import parse as B2
+    from disq_tpu_torch.runtime import counters
+
+    from disq_tpu_torch.native import _load as load_host_library
+
+    dev = torch.device("cuda")
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    torch.zeros(1, device=dev)  # the CUDA context, outside every timing
+    load_host_library()  # the host codec library, built from native/
+    log(f"setup: CUDA context and host library {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    build_s = cuda_build.build(["inflate", "parse"])
+    log(f"build: {json.dumps({k: round(v, 3) for k, v in build_s.items()})} "
+        f"wall {time.perf_counter() - t0:.3f}s")
+
+    work = os.path.join(HERE, ".smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    src, dst = os.path.join(work, "in.bam"), os.path.join(work, "sorted.bam")
+    n = args.records
+    t0 = time.perf_counter()
+    g = synthesize(n, args.seed)
+    info = write_bam(src, g, n)
+    log(f"synth: {n} reads, {info['decoded_bytes']} decoded bytes, "
+        f"{info['blocks']} BGZF blocks, {info['file_bytes']} file bytes, "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # -- the main path ------------------------------------------------------
+    counters.reset()
+    B1.last_stats.update(device_lanes=0, host_big=0, host_fallback=0)
+    storage = port.ReadsStorage.make_default().split_size(args.split_size)
+    t0 = time.perf_counter()
+    ds = storage.read(src)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    count = ds.count()
+    fstat = ds.flagstat()
+    t1 = time.perf_counter()
+    storage.write(ds, dst, port.BaiWriteOption.ENABLE, sort=True)
+    write_s = time.perf_counter() - t1
+    main = counters.snapshot()
+    stats = dict(B1.last_stats)
+    n_splits = -(-info["file_bytes"] // args.split_size)
+    log(f"main path: read {read_s:.3f}s ({n / read_s:.0f} rec/s, "
+        f"{info['decoded_bytes'] / read_s / 1e6:.1f} MB/s decoded), "
+        f"sort+write {write_s:.3f}s ({n / write_s:.0f} rec/s), "
+        f"{n_splits} splits, counters {json.dumps(main)}, "
+        f"inflate stats {json.dumps(stats)}")
+
+    # -- results against the generator -------------------------------------
+    check(type(ds.reads).__name__ == "ColumnarBatch" and ds.reads.device_backed,
+          "the read did not stay on the device")
+    check(count == n, f"count {count} != {n}")
+    check(fstat == numpy_flagstat(g["flag"]), f"flagstat {fstat}")
+    perm_want = np.argsort(coordinate_keys(g["refid"], g["pos"]), kind="stable")
+    perm = ds.reads.sort_permutation()
+    check(np.array_equal(perm, perm_want), "sort permutation differs")
+    launches = main["launches"]
+    check(launches.get("inflate", 0) > 0, "inflate kernel never launched")
+    check(launches.get("parse", 0) > 0, "parse kernel never launched")
+    check(stats["host_big"] == 0 and stats["host_fallback"] == 0,
+          f"host blocks on the main path: {stats}")
+    check(stats["device_lanes"] >= info["blocks"],
+          "not every block was inflated (and CRC-checked) on the device")
+    check(sum(main["host_fallback_blocks"].values()) == 0, "host fallback")
+
+    out_data = open(dst, "rb").read()
+    decoded = zlib_check_all(out_data)
+    want = (info["decoded_bytes"] - len(bam_header())
+            + len(bam_header("coordinate")))
+    check(decoded == want, f"sorted BAM decodes to {decoded} bytes, want {want}")
+    bai = open(dst + ".bai", "rb").read()
+    check(bai[:4] == b"BAI\x01" and struct.unpack_from("<i", bai, 4)[0] == len(REFS),
+          "BAI header")
+    back = storage.read(dst)
+    check(back.header.sort_order == "coordinate", "sorted header")
+    check(back.count() == n, "re-read count")
+    rb = back.reads.to_read_batch()
+    for col in ("refid", "pos", "mapq", "bin", "flag", "next_refid",
+                "next_pos", "tlen"):
+        check(np.array_equal(getattr(back.reads, col), g[col][perm_want]),
+              f"re-read column {col}")
+        check(np.array_equal(getattr(rb, col), g[col][perm_want]),
+              f"re-read host column {col}")
+    check(np.array_equal(rb.names.reshape(n, NAME_LEN), g["names"][perm_want]),
+          "names")
+    ncig = g["ncig"][perm_want]
+    cig_want = g["cig"][perm_want][np.arange(3)[None, :] < ncig[:, None]]
+    check(np.array_equal(rb.cigars, cig_want), "cigars")
+    check(np.array_equal(rb.seqs.reshape(n, READ_LEN), g["seq"][perm_want]), "seqs")
+    check(np.array_equal(rb.quals.reshape(n, READ_LEN), g["qual"][perm_want]),
+          "quals")
+    check(np.array_equal(rb.tags.reshape(n, TAG_BYTES), g["tags"][perm_want]),
+          "tags")
+    del rb, back
+    log("results: count, flagstat, sort permutation, sorted BAM + BAI: ok")
+
+    # -- kernels against their plain versions ------------------------------
+    data = open(src, "rb").read()
+    blocks = walk_blocks(data)[:-1]  # drop the EOF block
+    # the whole file in one launch: the blob for B2, checked against zlib
+    ins, total, _, _ = inflate_inputs(torch, data, blocks, dev)
+    blob, out_len, status = B1.inflate(*ins, total)
+    torch.cuda.synchronize()
+    check(int(status.abs().max()) == 0, "whole-file inflate flagged a block")
+    host_blob = blob.cpu().numpy()
+    with ThreadPoolExecutor(8) as pool:
+        zl = b"".join(pool.map(
+            lambda b: zlib.decompress(data[b[0] + b[2]: b[0] + b[1] - 8], -15),
+            blocks))
+    check(host_blob.tobytes() == zl, "whole-file inflate differs from zlib")
+    del zl
+
+    # B1 sample: status cases, well-formed cases, and file blocks
+    rng = np.random.default_rng(args.seed + 1)
+    cases = [(p, u) for _, p, u, _ in inflate_cases.status_cases()]
+    cases += [(p, len(d)) for _, p, d in inflate_cases.good_cases(args.seed)]
+    for i in rng.choice(len(blocks), 10, replace=False):
+        p, t, h = blocks[i]
+        cases.append((data[p + h: p + t - 8],
+                       struct.unpack_from("<I", data, p + t - 4)[0]))
+    for level in (1, 9, 0):
+        raw = host_blob[1_000_000 + level * MAX_PAYLOAD:][:MAX_PAYLOAD].tobytes()
+        c = zlib.compressobj(level, zlib.DEFLATED, -15, 8)
+        cases.append((c.compress(raw) + c.flush(), len(raw)))
+    sample = b"".join(p for p, _ in cases)
+    s_blocks, at = [], 0
+    for p, u in cases:
+        s_blocks.append((at, len(p), 0, u))
+        at += len(p)
+    s_args = (torch.frombuffer(bytearray(sample), dtype=torch.uint8).to(dev),
+              *(torch.tensor(v, dtype=torch.int64, device=dev) for v in (
+                  [b[0] for b in s_blocks], [b[1] for b in s_blocks],
+                  np.concatenate([[0], np.cumsum([b[3] for b in s_blocks])]).tolist())))
+    s_total = sum(b[3] for b in s_blocks)
+    k_out, k_len, k_st = B1.inflate(*s_args, s_total)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_out, p_len, p_st = B1.inflate_plain(*s_args, s_total)
+    b1_plain_ms = (time.perf_counter() - t0) * 1e3
+    b1_sample_ms = cuda_ms(torch, lambda: B1.inflate(*s_args, s_total), 1, 3)
+    ok = (p_st == 0)
+    oo = s_args[3].cpu().numpy()
+    byte_mask = torch.zeros(s_total, dtype=torch.bool, device=dev)
+    for i in np.nonzero(ok.cpu().numpy())[0]:
+        byte_mask[oo[i]: oo[i + 1]] = True
+    b1_err = max(
+        int((k_out.int() - p_out.int()).abs()[byte_mask].max()) if byte_mask.any() else 0,
+        int((k_st - p_st).abs().max()), int((k_len - p_len).abs().max()))
+    b1_mismatch = int((k_st != p_st).sum() + (k_len != p_len).sum())
+    codes = sorted(set(p_st.tolist()))
+    check(b1_err == 0 and b1_mismatch == 0, "inflate kernel != plain version")
+    check(set(range(9)) <= set(codes), f"status codes covered: {codes}")
+
+    # B1 at the main path's shape: the first split's blocks
+    first = [b for b in blocks if b[0] < args.split_size]
+    lo, hi = first[0][0], first[-1][0] + first[-1][1]
+    shifted = [(p - lo, t, h) for p, t, h in first]
+    m_ins, m_total, m_in, m_out = inflate_inputs(
+        torch, data[lo:hi], shifted, dev)
+    b1_ms = cuda_ms(torch, lambda: B1.inflate(*m_ins, m_total), 1, 5)
+    b1_bytes = m_in + m_out + 8 * (3 * len(first) + 1) + 8 * len(first)
+    log(f"inflate: sample of {len(cases)} payloads, codes {codes}, kernel "
+        f"{b1_sample_ms:.3f} ms vs plain {b1_plain_ms:.1f} ms; split 0: "
+        f"{len(first)} blocks {m_in} -> {m_out} bytes in {b1_ms:.3f} ms")
+
+    # B2 on every record of the file
+    header_len = len(bam_header())
+    from disq_tpu_torch.bam.codec import scan_record_offsets
+
+    offs = scan_record_offsets(host_blob[header_len:]) + header_len
+    check(len(offs) - 1 == n, "record scan of the whole file")
+    starts = torch.from_numpy(offs[:-1].copy()).to(dev)
+    k_cols = B2.parse_records(blob, starts)
+    p_cols = B2.parse_records_plain(blob, starts)
+    torch.cuda.synchronize()
+    b2_err = int((k_cols.long() - p_cols.long()).abs().max())
+    b2_mismatch = int((k_cols != p_cols).any(0).sum())
+    check(b2_err == 0 and b2_mismatch == 0, "parse kernel != plain version")
+    k = dict(zip(B2._FIELD_ORDER, k_cols.cpu().numpy()))
+    for col in ("refid", "pos", "mapq", "bin", "flag", "next_refid",
+                "next_pos", "tlen"):
+        check(np.array_equal(k[col].astype(g[col].dtype), g[col]),
+              f"parse column {col} vs generator")
+    # main-path shape: one split's records
+    per = -(-n // n_splits)
+    s_starts = starts[:per].contiguous()
+    b2_ms = cuda_ms(torch, lambda: B2.parse_records(blob, s_starts), 3, 20)
+    b2_plain_ms = cuda_ms(torch, lambda: B2.parse_records_plain(blob, s_starts), 1, 3)
+    b2_bytes = per * (8 + 36 + 12 * 4)
+    log(f"parse: all {n} records exact; {per} records: kernel {b2_ms:.3f} ms, "
+        f"plain {b2_plain_ms:.3f} ms")
+
+    kernels = [
+        {"name": "inflate", "route": "cuda",
+         "source": "disq_tpu_torch/csrc/inflate.cu",
+         "replaces": "disq_tpu/ops/inflate_simd.py:325",
+         "launches": launches.get("inflate", 0), "max_abs_err": b1_err,
+         "ms": round(b1_ms, 4), "plain_ms": round(b1_plain_ms, 4),
+         "bound_ms": round(b1_bytes / HBM_BYTES_PER_S * 1e3, 6),
+         "bound_by": "bytes", "library_ms": None,
+         "mismatches": b1_mismatch, "tolerance": 0,
+         "shape": {"blocks": len(first), "bytes_in": m_in, "bytes_out": m_out},
+         "plain_on": f"sample of {len(cases)} payloads",
+         "ms_on_plain_sample": round(b1_sample_ms, 4)},
+        {"name": "parse", "route": "cuda",
+         "source": "disq_tpu_torch/csrc/parse.cu",
+         "replaces": "disq_tpu/ops/parse.py:70",
+         "launches": launches.get("parse", 0), "max_abs_err": b2_err,
+         "ms": round(b2_ms, 4), "plain_ms": round(b2_plain_ms, 4),
+         "bound_ms": round(b2_bytes / HBM_BYTES_PER_S * 1e3, 6),
+         "bound_by": "bytes", "library_ms": None,
+         "mismatches": b2_mismatch, "tolerance": 0, "shape": {"records": per},
+         "plain_on": "the same inputs"},
+    ]
+    e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
+           "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
+           "read_records_per_s": round(n / read_s, 1),
+           "sort_write_records_per_s": round(n / write_s, 1),
+           "splits": n_splits, "build_s": {k: round(v, 3) for k, v in build_s.items()}}
+    log(f"e2e: {json.dumps(e2e)}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"card": card, "kernels": kernels,
+            "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                       "count": torch.cuda.device_count()}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--records", type=int, default=2_000_000)
+    ap.add_argument("--split-size", type=int, default=64 << 20)
+    args = ap.parse_args(argv)
+    try:
+        res = run(args)
+    except PhaseError as e:
+        print(f"FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(res["card"])
+    print(json.dumps({"kernels": res["kernels"]}))
+    print(json.dumps({"ok": True, "device": res["device"]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,164 @@
+"""Public API — ``ReadsStorage`` and ``ReadsDataset``, as in ``disq_tpu``.
+
+Usage::
+
+    storage = ReadsStorage.make_default().split_size(64 << 20)
+    ds = storage.read("sample.bam")      # on cuda
+    ds.count(); ds.flagstat()
+    storage.write(ds, "sorted.bam", BaiWriteOption.ENABLE, sort=True)
+
+Entry points run on ``cuda`` unless the caller asks for another device
+(``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
+and without an explicit CPU request, ``read`` and ``write`` raise. On
+``cuda`` the device route (inflate and parse kernels, device-resident
+columns) is the read path; on the CPU the host codec reads, unless
+``.resident_decode()`` asks for the device route's plain versions.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+
+class WriteOption:
+    """Marker base for varargs write options."""
+
+
+class ReadsFormatWriteOption(WriteOption, enum.Enum):
+    BAM = "bam"
+    CRAM = "cram"
+    SAM = "sam"
+
+
+class FileCardinalityWriteOption(WriteOption, enum.Enum):
+    SINGLE = "single"
+    MULTIPLE = "multiple"
+
+
+@dataclass(frozen=True)
+class TempPartsDirectoryWriteOption(WriteOption):
+    """Staging dir for headerless part files before the merge."""
+
+    path: str
+
+
+class BaiWriteOption(WriteOption, enum.Enum):
+    ENABLE = True
+    DISABLE = False
+
+
+class SbiWriteOption(WriteOption, enum.Enum):
+    ENABLE = True
+    DISABLE = False
+
+
+def option_enabled(options: Sequence[WriteOption], cls) -> bool:
+    for o in options:
+        if isinstance(o, cls):
+            return bool(o.value)
+    return False
+
+
+def _opt(options, cls, default):
+    found = [o for o in options if isinstance(o, cls)]
+    if len(found) > 1:
+        raise ValueError(f"duplicate {cls.__name__}")
+    return found[0] if found else default
+
+
+def _infer_cardinality(path: str) -> FileCardinalityWriteOption:
+    """A file extension ⇒ one merged file; otherwise a directory of
+    per-shard files."""
+    if path.lower().endswith((".bam", ".cram", ".sam")):
+        return FileCardinalityWriteOption.SINGLE
+    return FileCardinalityWriteOption.MULTIPLE
+
+
+@dataclass
+class ReadsDataset:
+    """Header + columnar read batch (a host ``ReadBatch`` or a
+    device-backed ``ColumnarBatch``)."""
+
+    header: "SamHeader"
+    reads: object
+
+    def count(self) -> int:
+        return int(self.reads.count)
+
+    def flagstat(self) -> dict:
+        """Per-category read counts; a device-backed dataset reduces its
+        device flag column."""
+        from disq_tpu_torch.ops.flagstat import flagstat_counts
+        from disq_tpu_torch.runtime.columnar import ColumnarBatch
+
+        if isinstance(self.reads, ColumnarBatch):
+            return self.reads.flagstat()
+        return flagstat_counts(np.asarray(self.reads.flag))
+
+    def coordinate_sorted(self) -> "ReadsDataset":
+        from disq_tpu_torch.sort.coordinate import coordinate_sort_batch
+
+        return ReadsDataset(header=self.header.with_sort_order("coordinate"),
+                            reads=coordinate_sort_batch(self.reads))
+
+
+class ReadsStorage:
+    """Entry point for reads (builder-style config, then read/write)."""
+
+    def __init__(self, device=None) -> None:
+        self._split_size: int = 128 * 1024 * 1024
+        self._num_shards: Optional[int] = None
+        self._device = device
+        self._resident_decode = False
+
+    @classmethod
+    def make_default(cls, device=None) -> "ReadsStorage":
+        return cls(device)
+
+    def split_size(self, n: int) -> "ReadsStorage":
+        self._split_size = n
+        return self
+
+    def num_shards(self, n: int) -> "ReadsStorage":
+        """Write-shard count override (default: visible CUDA devices)."""
+        self._num_shards = n
+        return self
+
+    def device(self, device) -> "ReadsStorage":
+        self._device = device
+        return self
+
+    def resident_decode(self, enable: bool = True) -> "ReadsStorage":
+        """Take the device route on the CPU too (its kernels' plain
+        versions); on ``cuda`` it is always taken."""
+        self._resident_decode = enable
+        return self
+
+    def _resolved_device(self) -> torch.device:
+        from disq_tpu_torch.util import resolve_device
+
+        return resolve_device(self._device)
+
+    def read(self, path: str) -> ReadsDataset:
+        from disq_tpu_torch.formats import sam_format_from_path
+
+        self._resolved_device()
+        return sam_format_from_path(path).make_source(self).get_reads(path)
+
+    def write(self, dataset: ReadsDataset, path: str, *options: WriteOption,
+              sort: bool = False) -> None:
+        from disq_tpu_torch.formats import sam_format_from_write_options
+
+        self._resolved_device()
+        if sort:
+            dataset = dataset.coordinate_sorted()
+        fmt = sam_format_from_write_options(
+            path, _opt(options, ReadsFormatWriteOption, None))
+        cardinality = _opt(options, FileCardinalityWriteOption,
+                           _infer_cardinality(path))
+        fmt.make_sink(self, cardinality).save(dataset, path, options)

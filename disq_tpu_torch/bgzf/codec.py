@@ -1,0 +1,337 @@
+"""BGZF inflate/deflate.
+
+Two inflate routes share this module's block framing:
+
+- the host route (``inflate_blocks``): the threaded C++ batch inflater
+  when built, else per-block zlib;
+- the device route (``inflate_blocks_device``): the shard's compressed
+  bytes go to the device once and the hand-written inflate kernel
+  (``ops/inflate_simd.py``) writes every block straight to its final
+  offset in one decoded device blob. The blob comes back to the host
+  once for the CRC check and the record scan, and stays on the device
+  for the parse kernel. On ``cuda`` this is the read path's default.
+
+**Canonical deflate pin**: raw DEFLATE, zlib level 6, memLevel 8,
+default strategy — every BGZF byte this package writes uses exactly
+these parameters, so writes are byte-identical to the reference's.
+"""
+
+from __future__ import annotations
+
+import io
+import struct
+import zlib
+from typing import BinaryIO, Sequence, Tuple
+
+import numpy as np
+
+from disq_tpu_torch.bgzf.block import (
+    BGZF_EOF_MARKER,
+    BGZF_FOOTER_SIZE,
+    BGZF_HEADER_SIZE,
+    BGZF_MAX_PAYLOAD,
+    BgzfBlock,
+    build_block_header,
+    make_virtual_offset,
+    parse_block_header,
+)
+
+CANONICAL_LEVEL = 6
+CANONICAL_MEMLEVEL = 8
+
+
+def inflate_block(data: bytes, offset: int = 0, verify_crc: bool = True) -> bytes:
+    """Inflate one BGZF block whose header begins at ``offset``."""
+    total = parse_block_header(data, offset)
+    xlen = struct.unpack_from("<H", data, offset + 10)[0]
+    hdr_len = 12 + xlen
+    payload = data[offset + hdr_len: offset + total - BGZF_FOOTER_SIZE]
+    crc, isize = struct.unpack_from("<II", data, offset + total - BGZF_FOOTER_SIZE)
+    try:
+        out = zlib.decompress(payload, wbits=-15, bufsize=isize or 1)
+    except zlib.error as e:
+        raise ValueError(f"corrupt DEFLATE stream in BGZF block: {e}") from e
+    if len(out) != isize:
+        raise ValueError(f"BGZF ISIZE mismatch: {len(out)} != {isize}")
+    if verify_crc and zlib.crc32(out) != crc:
+        raise ValueError("BGZF CRC mismatch")
+    return out
+
+
+def _block_arrays(data, blocks: Sequence[BgzfBlock], base: int):
+    """(block offsets, header lengths, csizes, usizes) of ``blocks``
+    within the staged buffer ``data`` (which starts at file offset
+    ``base``); header length = 12 + XLEN, which varies across writers."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    off = np.array([b.pos - base for b in blocks], dtype=np.int64)
+    csize = np.array([b.csize for b in blocks], dtype=np.int64)
+    usize = np.array([b.usize for b in blocks], dtype=np.int64)
+    xlen = arr[off + 10].astype(np.int64) | (arr[off + 11].astype(np.int64) << 8)
+    return arr, off, 12 + xlen, csize, usize
+
+
+def inflate_blocks(data: bytes, blocks: Sequence[BgzfBlock], base: int = 0,
+                   verify_crc: bool = True) -> np.ndarray:
+    """Host route: inflate many blocks of a staged buffer into one uint8
+    array. ``base`` is the file offset of ``data[0]``."""
+    if not blocks:
+        return np.empty(0, dtype=np.uint8)
+    try:
+        from disq_tpu_torch.native import inflate_blocks_native
+
+        arr, off, hdr, csize, usize = _block_arrays(data, blocks, base)
+        return inflate_blocks_native(arr, off, hdr, csize, usize,
+                                     verify_crc=verify_crc)
+    except ImportError:
+        pass
+    parts = [inflate_block(data, b.pos - base, verify_crc=verify_crc)
+             for b in blocks]
+    return np.frombuffer(b"".join(parts), dtype=np.uint8)
+
+
+def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
+                          base: int, device, verify_crc: bool = True):
+    """Device route: returns ``(host blob, device blob)``, the same
+    decoded bytes on both sides. Raises ``ValueError`` when the kernel
+    flags a block (nonzero status) or a CRC does not match — the
+    caller's strict-policy path then names the corrupt block."""
+    import torch
+
+    from disq_tpu_torch.ops.inflate_simd import inflate_payloads_device
+    from disq_tpu_torch.runtime import counters
+
+    if not blocks:
+        empty = np.empty(0, dtype=np.uint8)
+        return empty, torch.empty(0, dtype=torch.uint8, device=device)
+    arr, off, hdr, csize, usize = _block_arrays(data, blocks, base)
+    pay_off = off + hdr
+    pay_len = csize - hdr - BGZF_FOOTER_SIZE
+    blob_dev, out_off = inflate_payloads_device(
+        arr, pay_off, pay_len, usize, device)
+    blob = blob_dev.cpu().numpy()
+    if blob_dev.is_cuda:
+        counters.book_transfer("d2h", blob.nbytes)
+    if verify_crc:
+        _verify_block_crcs(data, blocks, base, blob, out_off)
+    return blob, blob_dev
+
+
+def _verify_block_crcs(data, blocks, base, blob, offsets) -> None:
+    """CRC check of device-decoded output against the BGZF footers over
+    zero-copy blob slices; big batches fan out over the shared pool
+    (``zlib.crc32`` releases the GIL)."""
+
+    def check(i: int) -> None:
+        b = blocks[i]
+        crc = struct.unpack_from(
+            "<I", data, b.pos - base + b.csize - BGZF_FOOTER_SIZE)[0]
+        if zlib.crc32(blob[int(offsets[i]): int(offsets[i + 1])]) != crc:
+            raise ValueError(f"BGZF CRC mismatch at block {i}")
+
+    if len(blocks) >= 32:
+        from disq_tpu_torch.util import shared_host_pool
+
+        for _ in shared_host_pool().map(check, range(len(blocks))):
+            pass
+    else:
+        for i in range(len(blocks)):
+            check(i)
+
+
+def deflate_blob(blob: bytes) -> Tuple[bytes, np.ndarray]:
+    """Deflate a payload into canonical BGZF blocks of ≤65280 payload
+    bytes (no terminator); returns (compressed bytes, per-block
+    compressed sizes) — the sizes make write-side virtual offsets plain
+    array arithmetic. Native-threaded when built, else zlib on the
+    shared pool (same bytes either way)."""
+    if len(blob) == 0:
+        return b"", np.zeros(0, dtype=np.int64)
+    pay_off = np.arange(0, len(blob) + BGZF_MAX_PAYLOAD, BGZF_MAX_PAYLOAD,
+                        dtype=np.int64)
+    pay_off[-1] = len(blob)
+    try:
+        from disq_tpu_torch.native import deflate_blocks_native
+
+        rows, sizes = deflate_blocks_native(blob, pay_off,
+                                            level=CANONICAL_LEVEL)
+        out_off = np.zeros(len(sizes) + 1, dtype=np.int64)
+        np.cumsum(sizes, out=out_off[1:])
+        out = np.empty(int(out_off[-1]), dtype=np.uint8)
+        chunk = 256  # rows per prefix-mask gather: ≤16 MiB of mask
+        cols = np.arange(rows.shape[1])
+        for lo in range(0, rows.shape[0], chunk):
+            hi = min(lo + chunk, rows.shape[0])
+            keep = cols < sizes[lo:hi, None]
+            out[out_off[lo]: out_off[hi]] = rows[lo:hi][keep]
+        return out.tobytes(), sizes.astype(np.int64)
+    except ImportError:
+        pass
+    from disq_tpu_torch.util import shared_host_pool
+
+    mv = memoryview(blob)
+    parts = list(shared_host_pool().map(
+        lambda i: deflate_block(mv[int(pay_off[i]): int(pay_off[i + 1])]),
+        range(len(pay_off) - 1)))
+    return b"".join(parts), np.array([len(p) for p in parts], dtype=np.int64)
+
+
+def deflate_block(payload) -> bytes:
+    """Payload (≤65280 bytes) → one complete canonical BGZF block."""
+    if len(payload) > BGZF_MAX_PAYLOAD:
+        raise ValueError(f"payload too large for one BGZF block: {len(payload)}")
+    c = zlib.compressobj(CANONICAL_LEVEL, zlib.DEFLATED, -15, CANONICAL_MEMLEVEL)
+    comp = c.compress(payload) + c.flush()
+    total = BGZF_HEADER_SIZE + len(comp) + BGZF_FOOTER_SIZE
+    if total > 0x10000:
+        # incompressible worst case: store at level 0 (DEFLATE framing)
+        c = zlib.compressobj(0, zlib.DEFLATED, -15, CANONICAL_MEMLEVEL)
+        comp = c.compress(payload) + c.flush()
+        total = BGZF_HEADER_SIZE + len(comp) + BGZF_FOOTER_SIZE
+    return (
+        build_block_header(total)
+        + comp
+        + struct.pack("<II", zlib.crc32(payload), len(payload))
+    )
+
+
+def compress_to_bgzf(data: bytes, with_terminator: bool = True) -> bytes:
+    """Whole buffer → BGZF bytes (blocks of ≤65280 payload)."""
+    comp, _ = deflate_blob(data)
+    return comp + BGZF_EOF_MARKER if with_terminator else comp
+
+
+class BgzfWriter:
+    """Streaming BGZF writer with virtual-offset tracking: buffers
+    payload to 65280 bytes and emits canonical blocks;
+    ``tell_virtual()`` is the virtual offset of the next byte."""
+
+    def __init__(self, stream: BinaryIO, write_terminator: bool = True):
+        self._stream = stream
+        self._buf = bytearray()
+        self._block_start = 0
+        self._terminate = write_terminator
+        self._closed = False
+
+    def tell_virtual(self) -> int:
+        return make_virtual_offset(self._block_start, len(self._buf))
+
+    def write(self, data: bytes) -> int:
+        view = memoryview(data)
+        while view:
+            take = min(BGZF_MAX_PAYLOAD - len(self._buf), len(view))
+            self._buf += view[:take]
+            view = view[take:]
+            if len(self._buf) == BGZF_MAX_PAYLOAD:
+                self._flush_block()
+        return len(data)
+
+    def _flush_block(self) -> None:
+        if not self._buf:
+            return
+        block = deflate_block(bytes(self._buf))
+        self._stream.write(block)
+        self._block_start += len(block)
+        self._buf.clear()
+
+    def flush(self) -> None:
+        self._flush_block()
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._flush_block()
+        if self._terminate:
+            self._stream.write(BGZF_EOF_MARKER)
+        self._stream.flush()
+        self._closed = True
+
+    def __enter__(self) -> "BgzfWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class BgzfReader(io.RawIOBase):
+    """Seekable decompressed view of a BGZF stream with virtual-offset
+    seek; used by the header read and the record guesser."""
+
+    def __init__(self, stream: BinaryIO):
+        self._stream = stream
+        self._block_start = 0
+        self._next_block = 0
+        self._ublock = b""
+        self._upos = 0
+        self._eof = False
+
+    def _read_full(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            chunk = self._stream.read(n - len(out))
+            if not chunk:
+                break
+            out += chunk
+        return out
+
+    def _load_block_at(self, file_offset: int) -> bool:
+        self._stream.seek(file_offset)
+        header = self._read_full(BGZF_HEADER_SIZE)
+        if not header:
+            self._eof = True
+            self._ublock = b""
+            self._upos = 0
+            self._block_start = file_offset
+            return False
+        if len(header) < BGZF_HEADER_SIZE:
+            raise ValueError(f"BGZF file ends mid-header at {file_offset}")
+        total = parse_block_header(header)
+        rest = self._read_full(total - BGZF_HEADER_SIZE)
+        if len(rest) < total - BGZF_HEADER_SIZE:
+            raise ValueError(f"BGZF file ends mid-block at {file_offset}")
+        self._ublock = inflate_block(header + rest)
+        self._upos = 0
+        self._block_start = file_offset
+        self._next_block = file_offset + total
+        self._eof = False
+        return True
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return True
+
+    def tell_virtual(self) -> int:
+        if self._upos == len(self._ublock) and not self._eof:
+            # at the end of a block == the start of the next
+            return make_virtual_offset(self._next_block, 0)
+        return make_virtual_offset(self._block_start, self._upos)
+
+    def seek_virtual(self, voffset: int) -> None:
+        coffset, uoffset = voffset >> 16, voffset & 0xFFFF
+        if coffset != self._block_start or not self._ublock:
+            if not self._load_block_at(coffset) and uoffset != 0:
+                raise ValueError(f"virtual offset past EOF: {voffset:#x}")
+        if uoffset > len(self._ublock):
+            raise ValueError(f"uoffset beyond block: {voffset:#x}")
+        self._upos = uoffset
+
+    def read(self, n: int = -1) -> bytes:
+        out = bytearray()
+        while n != 0:
+            if self._upos >= len(self._ublock):
+                if self._eof or not self._load_block_at(self._next_block):
+                    break
+            avail = len(self._ublock) - self._upos
+            take = avail if n < 0 else min(n, avail)
+            out += self._ublock[self._upos: self._upos + take]
+            self._upos += take
+            if n > 0:
+                n -= take
+        return bytes(out)
+
+    def read_exact(self, n: int) -> bytes:
+        data = self.read(n)
+        if len(data) != n:
+            raise EOFError(f"wanted {n} bytes, got {len(data)}")
+        return data

@@ -1,0 +1,324 @@
+"""BAI index: build / serialize / parse / query / merge.
+
+Replaces htsjdk's ``BAMIndexer`` + ``BAMIndexMerger`` (SURVEY.md §2.8).
+Format per SAM spec §5.2 (all little-endian):
+
+    magic "BAI\\1" · n_ref i32 ·
+    per ref: n_bin i32 · { bin u32 · n_chunk i32 · {beg u64 · end u64}* }*
+             n_intv i32 · ioffset u64[n_intv]
+    · n_no_coor u64 (optional)
+
+plus the htsjdk/samtools metadata pseudo-bin 37450 per ref (2 pseudo-
+chunks: (ref_beg, ref_end) and (n_mapped, n_unmapped)).
+
+Build is vectorized: bins come from ``reg2bin`` applied to whole columns;
+(ref, bin) grouping and chunk-run detection are numpy segment ops over
+the *sorted* batch — the "segmented scan over sorted virtual offsets"
+design from BASELINE.json's north star.
+
+Canonical-encoder pins (BASELINE.md: byte-identity is defined against
+THIS encoder): bins emitted in ascending bin-id order, metadata bin last;
+adjacent chunks merged when the next chunk begins in the same compressed
+block the previous one ends in (``beg >> 16 <= prev_end >> 16``); linear
+index holes forward-filled with the previous window's offset.
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+BAI_MAGIC = b"BAI\x01"
+METADATA_BIN = 37450  # htsjdk/samtools pseudo-bin
+MAX_BINS = 37450     # bins 0..37449 are real
+LINEAR_SHIFT = 14    # 16 KiB linear-index windows
+
+
+def reg2bin(beg, end) -> np.ndarray:
+    """Vectorized SAM-spec reg2bin over 0-based half-open [beg, end)."""
+    beg = np.asarray(beg, dtype=np.int64)
+    end = np.asarray(end, dtype=np.int64) - 1
+    out = np.zeros_like(beg)
+    for shift, offset in (
+        (14, 4681), (17, 585), (20, 73), (23, 9), (26, 1)
+    ):
+        match = (beg >> shift) == (end >> shift)
+        val = offset + (beg >> shift)
+        out = np.where((out == 0) & match, val, out)
+    # A region entirely within one 16kb window matched at shift 14 first;
+    # np.where chain keeps the smallest (deepest) matching level because we
+    # fill only where still 0 and iterate deepest-first.
+    return out.astype(np.uint32)
+
+
+def bins_from_cigars(cigars_f, cigar_offsets, pos) -> np.ndarray:
+    """Record bins for a whole batch from flat CIGAR words + offsets:
+    segment-sum the reference-consuming ops (M/D/N/=/X) into per-record
+    spans and reg2bin them. The one implementation shared by every
+    codec that must recompute bin (SAM text parse, CRAM decode — the
+    per-record scalar version was the hottest line of both)."""
+    cigars_f = np.asarray(cigars_f)
+    ops4 = cigars_f & 0xF
+    consume = ((ops4 == 0) | (ops4 == 2) | (ops4 == 3)
+               | (ops4 == 7) | (ops4 == 8))
+    contrib = np.where(consume, cigars_f >> 4, 0).astype(np.int64)
+    ccum = np.zeros(len(cigars_f) + 1, dtype=np.int64)
+    np.cumsum(contrib, out=ccum[1:])
+    span = ccum[cigar_offsets[1:]] - ccum[cigar_offsets[:-1]]
+    beg = np.maximum(np.asarray(pos, np.int64), 0)
+    return reg2bin(beg, beg + np.maximum(span, 1))
+
+
+def reg2bins(beg: int, end: int) -> List[int]:
+    """All bins overlapping [beg, end) — the query-side companion."""
+    end -= 1
+    bins = [0]
+    for shift, offset in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        bins.extend(range(offset + (beg >> shift), offset + (end >> shift) + 1))
+    return bins
+
+
+@dataclass
+class RefIndex:
+    bins: Dict[int, List[Tuple[int, int]]] = field(default_factory=dict)
+    linear: np.ndarray = field(default_factory=lambda: np.zeros(0, dtype=np.uint64))
+    # metadata pseudo-bin content
+    ref_beg: int = 0
+    ref_end: int = 0
+    n_mapped: int = 0
+    n_unmapped: int = 0
+
+
+@dataclass
+class BaiIndex:
+    refs: List[RefIndex]
+    n_no_coor: int = 0
+
+    # -- serialization ------------------------------------------------------
+
+    def to_bytes(self, with_metadata: bool = True) -> bytes:
+        out = bytearray()
+        out += BAI_MAGIC
+        out += struct.pack("<i", len(self.refs))
+        for r in self.refs:
+            bin_ids = sorted(r.bins)
+            n_bin = len(bin_ids) + (1 if with_metadata and (r.n_mapped or r.n_unmapped) else 0)
+            out += struct.pack("<i", n_bin)
+            for b in bin_ids:
+                chunks = r.bins[b]
+                out += struct.pack("<Ii", b, len(chunks))
+                for beg, end in chunks:
+                    out += struct.pack("<QQ", beg, end)
+            if with_metadata and (r.n_mapped or r.n_unmapped):
+                out += struct.pack("<Ii", METADATA_BIN, 2)
+                out += struct.pack("<QQ", r.ref_beg, r.ref_end)
+                out += struct.pack("<QQ", r.n_mapped, r.n_unmapped)
+            out += struct.pack("<i", len(r.linear))
+            out += r.linear.astype("<u8").tobytes()
+        out += struct.pack("<Q", self.n_no_coor)
+        return bytes(out)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "BaiIndex":
+        if data[:4] != BAI_MAGIC:
+            raise ValueError("not a BAI index")
+        (n_ref,) = struct.unpack_from("<i", data, 4)
+        p = 8
+        refs = []
+        for _ in range(n_ref):
+            (n_bin,) = struct.unpack_from("<i", data, p)
+            p += 4
+            r = RefIndex()
+            for _ in range(n_bin):
+                b, n_chunk = struct.unpack_from("<Ii", data, p)
+                p += 8
+                chunks = []
+                for _ in range(n_chunk):
+                    beg, end = struct.unpack_from("<QQ", data, p)
+                    p += 16
+                    chunks.append((beg, end))
+                if b == METADATA_BIN and n_chunk == 2:
+                    r.ref_beg, r.ref_end = chunks[0]
+                    r.n_mapped, r.n_unmapped = chunks[1]
+                else:
+                    r.bins[b] = chunks
+            (n_intv,) = struct.unpack_from("<i", data, p)
+            p += 4
+            r.linear = np.frombuffer(data, dtype="<u8", count=n_intv, offset=p).copy()
+            p += 8 * n_intv
+            refs.append(r)
+        n_no_coor = 0
+        if p + 8 <= len(data):
+            (n_no_coor,) = struct.unpack_from("<Q", data, p)
+        return cls(refs, n_no_coor)
+
+    # -- query (traversal support, SURVEY.md §3.2) --------------------------
+
+    def chunks_for_interval(
+        self, refid: int, beg: int, end: int
+    ) -> List[Tuple[int, int]]:
+        """Coalesced chunk list possibly containing records overlapping
+        0-based half-open [beg, end) on ``refid``."""
+        if refid < 0 or refid >= len(self.refs):
+            return []
+        r = self.refs[refid]
+        window = beg >> LINEAR_SHIFT
+        min_off = int(r.linear[window]) if window < len(r.linear) else 0
+        chunks = []
+        for b in reg2bins(beg, end):
+            for cb, ce in r.bins.get(b, ()):
+                if ce > min_off:
+                    chunks.append((max(cb, min_off), ce))
+        chunks.sort()
+        merged: List[Tuple[int, int]] = []
+        for cb, ce in chunks:
+            if merged and cb >> 16 <= merged[-1][1] >> 16:
+                merged[-1] = (merged[-1][0], max(merged[-1][1], ce))
+            else:
+                merged.append((cb, ce))
+        return merged
+
+
+def build_bai(
+    refid: np.ndarray,
+    pos: np.ndarray,
+    end: np.ndarray,
+    flag: np.ndarray,
+    voffsets: np.ndarray,
+    end_voffsets: np.ndarray,
+    n_ref: int,
+    ref_lengths: Optional[Sequence[int]] = None,
+) -> BaiIndex:
+    """Build a BAI from coordinate-sorted columns.
+
+    ``voffsets``/``end_voffsets``: virtual offsets of each record's start
+    and one-past-end in the output BAM. ``end``: 0-based exclusive
+    alignment ends (``ReadBatch.alignment_ends``).
+    """
+    n = len(refid)
+    refs = [RefIndex() for _ in range(n_ref)]
+    placed = refid >= 0
+    n_no_coor = int(n - placed.sum())
+    if n == 0 or not placed.any():
+        for r in refs:
+            r.linear = np.zeros(0, dtype=np.uint64)
+        return BaiIndex(refs, n_no_coor)
+
+    idx = np.nonzero(placed)[0]
+    rid = refid[idx].astype(np.int64)
+    if not (np.diff(rid) >= 0).all():
+        raise ValueError("build_bai requires coordinate-sorted input")
+    rpos = pos[idx].astype(np.int64)
+    rend = np.maximum(end[idx].astype(np.int64), rpos + 1)
+    rbin = reg2bin(rpos, rend).astype(np.int64)
+    rvo = voffsets[idx].astype(np.uint64)
+    revo = end_voffsets[idx].astype(np.uint64)
+    unmapped_flag = (flag[idx].astype(np.int64) & 0x4) != 0
+
+    # --- group records into chunk runs: a new chunk starts where the
+    # (refid, bin) pair changes (records are position-sorted, so equal
+    # pairs are *not* necessarily adjacent — runs capture that).
+    key_change = np.empty(len(idx), dtype=bool)
+    key_change[0] = True
+    key_change[1:] = (np.diff(rid) != 0) | (np.diff(rbin) != 0)
+    run_ids = np.cumsum(key_change) - 1
+    run_starts = np.nonzero(key_change)[0]
+    run_ends = np.append(run_starts[1:], len(idx)) - 1
+    run_ref = rid[run_starts]
+    run_bin = rbin[run_starts]
+    run_beg = rvo[run_starts]
+    run_end = revo[run_ends]
+
+    for r_i in range(len(run_starts)):
+        ref = refs[int(run_ref[r_i])]
+        chunks = ref.bins.setdefault(int(run_bin[r_i]), [])
+        beg, endv = int(run_beg[r_i]), int(run_end[r_i])
+        if chunks and beg >> 16 <= chunks[-1][1] >> 16:
+            chunks[-1] = (chunks[-1][0], max(chunks[-1][1], endv))
+        else:
+            chunks.append((beg, endv))
+
+    # --- per-ref metadata + linear index
+    for ref_i in range(n_ref):
+        sel = rid == ref_i
+        if not sel.any():
+            continue
+        r = refs[ref_i]
+        r.ref_beg = int(rvo[sel].min())
+        r.ref_end = int(revo[sel].max())
+        r.n_mapped = int((~unmapped_flag[sel]).sum())
+        r.n_unmapped = int(unmapped_flag[sel].sum())
+        # linear: min start-voffset over each 16kb window spanned
+        w_lo = rpos[sel] >> LINEAR_SHIFT
+        w_hi = (rend[sel] - 1) >> LINEAR_SHIFT
+        n_win = int(w_hi.max()) + 1
+        linear = np.full(n_win, np.iinfo(np.uint64).max, dtype=np.uint64)
+        vo = rvo[sel]
+        spans = (w_hi - w_lo + 1).astype(np.int64)
+        seg = np.repeat(np.arange(len(vo)), spans)
+        win_off = np.zeros(len(vo) + 1, dtype=np.int64)
+        np.cumsum(spans, out=win_off[1:])
+        within = np.arange(int(spans.sum()), dtype=np.int64) - win_off[seg]
+        windows = w_lo[seg] + within
+        np.minimum.at(linear, windows, vo[seg])
+        # forward-fill holes (canonical choice; zeros for leading holes)
+        holes = linear == np.iinfo(np.uint64).max
+        if holes.any():
+            last = np.where(holes, -1, np.arange(n_win))
+            np.maximum.accumulate(last, out=last)
+            linear = np.where(
+                last >= 0, linear[np.maximum(last, 0)], np.uint64(0)
+            )
+        r.linear = linear
+    return BaiIndex(refs, n_no_coor)
+
+
+def merge_bai_fragments(
+    fragments: Sequence[BaiIndex], part_starts: Sequence[int]
+) -> BaiIndex:
+    """Offset-shift merge of per-part BAI fragments (ref: htsjdk
+    ``BAMIndexMerger`` via ``IndexFileMerger``, SURVEY.md §2.2): every
+    virtual offset in fragment k shifts by ``part_starts[k] << 16``."""
+    if not fragments:
+        return BaiIndex([])
+    n_ref = len(fragments[0].refs)
+    out = BaiIndex([RefIndex() for _ in range(n_ref)], 0)
+    for frag, start in zip(fragments, part_starts):
+        shift = start << 16
+        out.n_no_coor += frag.n_no_coor
+        for ref_i, r in enumerate(frag.refs):
+            o = out.refs[ref_i]
+            for b, chunks in r.bins.items():
+                tgt = o.bins.setdefault(b, [])
+                for beg, end in chunks:
+                    beg, end = beg + shift, end + shift
+                    if tgt and beg >> 16 <= tgt[-1][1] >> 16:
+                        tgt[-1] = (tgt[-1][0], max(tgt[-1][1], end))
+                    else:
+                        tgt.append((beg, end))
+            if r.n_mapped or r.n_unmapped:
+                rb, re = r.ref_beg + shift, r.ref_end + shift
+                if o.n_mapped or o.n_unmapped:
+                    o.ref_beg = min(o.ref_beg, rb)
+                    o.ref_end = max(o.ref_end, re)
+                else:
+                    o.ref_beg, o.ref_end = rb, re
+                o.n_mapped += r.n_mapped
+                o.n_unmapped += r.n_unmapped
+            if len(r.linear):
+                shifted = np.where(
+                    r.linear > 0, r.linear + np.uint64(shift), np.uint64(0)
+                )
+                if len(o.linear) < len(shifted):
+                    o.linear = np.pad(o.linear, (0, len(shifted) - len(o.linear)))
+                merged = o.linear.copy()
+                m = shifted > 0
+                sub = merged[: len(shifted)]
+                take = m & ((sub == 0) | (shifted < sub))
+                sub[take] = shifted[take]
+                merged[: len(shifted)] = sub
+                o.linear = merged
+    return out

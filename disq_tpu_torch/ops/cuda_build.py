@@ -1,0 +1,107 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, loaded with ``ctypes``. The
+build happens at first use — when a CUDA tensor first reaches a kernel
+wrapper, or when ``build()`` is called — never at import, so importing
+the kernel modules on a machine without ``nvcc`` builds nothing. The
+output goes to the package's git-ignored ``_build`` directory, named by
+a digest of the source and flags, so a stale library is never loaded.
+A failed build raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Sequence
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+# where the CUDA toolkit installs nvcc when it is not on PATH
+NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists(NVCC_DEFAULT):
+        return NVCC_DEFAULT
+    raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
+
+
+def library_path(name: str) -> str:
+    with open(source_path(name), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build(names: Sequence[str]) -> Dict[str, float]:
+    """Compile every named kernel library that is not built yet, all
+    ``nvcc`` processes started together; returns the seconds each took
+    (0.0 for one already built). Raises with the compiler's output when
+    any build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    seconds = {}
+    for name in names:
+        target = library_path(name)
+        if os.path.exists(target):
+            seconds[name] = 0.0
+            continue
+        tmp = f"{target}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT),
+                       tmp, target, time.perf_counter())
+    errors = []
+    for name, (proc, tmp, target, t0) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exited {proc.returncode}\n"
+                          f"{out.decode(errors='replace')}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            continue
+        os.replace(tmp, target)
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            _libs[name] = lib
+    return lib
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise when a kernel's C entry reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name!r} launch failed: "
+                           f"cudaError {rc}")

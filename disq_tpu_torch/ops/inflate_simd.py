@@ -1,0 +1,410 @@
+"""Device raw-DEFLATE inflate of BGZF payloads (kernel B1).
+
+``inflate(comp, pay_off, pay_len, out_off, total)`` decodes every
+payload ``comp[pay_off[i] : pay_off[i] + pay_len[i]]`` into
+``out[out_off[i] : out_off[i + 1]]`` and reports per block the bytes
+written (``out_len``) and a status code:
+
+  0 ok · 1 bad BTYPE · 2 stored LEN/NLEN mismatch · 3 bad Huffman code ·
+  4 bad distance · 5 output overflow · 6 ran past the compressed
+  payload · 7 code-length repeat overflow · 8 ISIZE mismatch
+
+These are the reference's codes (``disq_tpu/ops/inflate_simd.py``) with
+the reference's decoder rules: bit-serial canonical Huffman decode with
+no completeness check on the code set, bits past the payload read as
+zero and the stream counted as overrun once more than 8 bytes past its
+end are consumed, distances over the output written so far or over
+32 KiB rejected. Two differences follow from writing each block at its
+final offset: a block's output capacity is its own ISIZE (a stream
+decoding to more bytes reports 5 where the reference's shared lane
+buffer may only see 8), and status 8 is set by the kernel itself.
+
+On a CUDA tensor ``inflate`` launches the CUDA kernel
+(``csrc/inflate.cu``); on a CPU tensor it runs ``inflate_plain``, the
+plain Python decoder below, which computes the same bytes and codes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from disq_tpu_torch.runtime import counters
+
+# RFC 1951 §3.2.5: length codes 257..285.
+_LBASE = np.array(
+    [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51,
+     59, 67, 83, 99, 115, 131, 163, 195, 227, 258], dtype=np.int32)
+_LEXT = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4,
+     4, 5, 5, 5, 5, 0], dtype=np.int32)
+# Distance codes 0..29 (padded to 32).
+_DBASE = np.array(
+    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385,
+     513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385,
+     24577, 0, 0], dtype=np.int32)
+_DEXT = np.array(
+    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10,
+     10, 11, 11, 12, 12, 13, 13, 0, 0], dtype=np.int32)
+# RFC 1951 §3.2.7: order of the code-length code lengths.
+_CLORDER = np.array(
+    [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15],
+    dtype=np.int32)
+_NLIT = 288
+_NDIST = 32
+# RFC 1951 §3.2.6: fixed-Huffman code lengths, literal/length then distance.
+_FIXED_LENS = np.concatenate(
+    [np.full(144, 8), np.full(112, 9), np.full(24, 7), np.full(8, 8),
+     np.full(_NDIST, 5)]
+).astype(np.int32)
+
+STATUS_NAMES = (
+    "ok", "bad BTYPE", "stored LEN mismatch", "bad Huffman code",
+    "bad distance", "output overflow", "input overrun",
+    "code-length repeat overflow", "ISIZE mismatch",
+)
+OK, BAD_BTYPE, BAD_STORED, BAD_CODE, BAD_DIST = 0, 1, 2, 3, 4
+OUT_OVERFLOW, IN_OVERRUN, REPEAT_OVERFLOW, ISIZE_MISMATCH = 5, 6, 7, 8
+
+# Cumulative dispatch counts (callers snapshot before/after):
+# device_lanes = blocks decoded in the kernel; host_big = blocks routed
+# to the host for size (always 0: every BGZF payload fits the kernel);
+# host_fallback = blocks the kernel flagged, which the host re-inflates
+# on the strict error path.
+last_stats = {"device_lanes": 0, "host_big": 0, "host_fallback": 0}
+
+_LB, _LX, _DB, _DX = (t.tolist() for t in (_LBASE, _LEXT, _DBASE, _DEXT))
+_CLO = _CLORDER.tolist()
+
+
+# -- the plain version ------------------------------------------------------
+
+
+class _Bits:
+    """LSB-first bit reader over a payload; bits past its end read as
+    zero. ``pos`` counts consumed bits."""
+
+    __slots__ = ("buf", "pos")
+
+    def __init__(self, buf: bytes) -> None:
+        self.buf = buf
+        self.pos = 0
+
+    def peek(self, n: int) -> int:
+        byte = self.pos >> 3
+        v = int.from_bytes(self.buf[byte: byte + 4], "little")
+        return (v >> (self.pos & 7)) & ((1 << n) - 1)
+
+    def take(self, n: int) -> int:
+        v = self.peek(n) if n else 0
+        self.pos += n
+        return v
+
+
+def _canonical(lens) -> Tuple[List[int], List[int]]:
+    """Per-length counts and the (length, symbol)-sorted symbol list of
+    a canonical code (puff's ``construct``, without its completeness
+    check — the reference kernel has none)."""
+    cnt = [0] * 16
+    for ln in lens:
+        cnt[ln] += 1
+    offs = [0] * 17
+    for ln in range(1, 16):
+        offs[ln + 1] = offs[ln] + cnt[ln]
+    syms = [0] * offs[16]
+    for s, ln in enumerate(lens):
+        if ln:
+            syms[offs[ln]] = s
+            offs[ln] += 1
+    return cnt, syms
+
+
+def _decode(bits: _Bits, table, maxbits: int) -> Tuple[int, int]:
+    """Canonical bit-serial decode of one symbol: (symbol, code length),
+    or (-1, 0) when no code of up to ``maxbits`` bits matches."""
+    cnt, syms = table
+    v = bits.peek(maxbits)
+    code = first = index = 0
+    for ln in range(1, maxbits + 1):
+        code |= (v >> (ln - 1)) & 1
+        count = cnt[ln]
+        if first <= code < first + count:
+            return syms[index + code - first], ln
+        index += count
+        first = (first + count) << 1
+        code <<= 1
+    return -1, 0
+
+
+_FIXED_LIT = _canonical(_FIXED_LENS[:_NLIT].tolist())
+_FIXED_DIST = _canonical(_FIXED_LENS[_NLIT:].tolist())
+
+
+def inflate_raw(payload: bytes, cap: int) -> Tuple[bytes, int]:
+    """Decode one raw-DEFLATE payload into at most ``cap`` bytes; returns
+    (bytes written, status). The steps — header, stored LEN, NLEN, each
+    stored chunk up to the next 4-byte output boundary, each code-length
+    code, each symbol with its extra bits, each distance — are the
+    reference kernel's; after each, a stream that has consumed more
+    than 8 bytes past its end reports 6, over any other fault of that
+    step."""
+    bits = _Bits(bytes(payload))
+    out = bytearray()
+    limit = (len(payload) + 8) * 8
+    status = OK
+    if len(payload):
+        status = _inflate_stream(bits, out, cap, limit)
+    if status == OK and len(out) != cap:
+        status = ISIZE_MISMATCH
+    return bytes(out), status
+
+
+def _inflate_stream(bits: _Bits, out: bytearray, cap: int, limit: int) -> int:
+    while True:
+        hdr = bits.take(3)
+        bfinal, btype = hdr & 1, hdr >> 1
+        if btype == 0:
+            bits.pos += (-bits.pos) & 7
+        if bits.pos > limit:
+            return IN_OVERRUN
+        if btype == 3:
+            return BAD_BTYPE
+        if btype == 0:
+            status = _stored(bits, out, cap, limit)
+        else:
+            if btype == 1:
+                lit, dist = _FIXED_LIT, _FIXED_DIST
+            else:
+                tables = _dynamic_tables(bits, limit)
+                if isinstance(tables, int):
+                    return tables
+                lit, dist = tables
+            status = _codes(bits, out, cap, limit, lit, dist)
+        if status != OK:
+            return status
+        if bfinal:
+            return OK
+
+
+def _stored(bits: _Bits, out: bytearray, cap: int, limit: int) -> int:
+    length = bits.take(16)
+    if bits.pos > limit:
+        return IN_OVERRUN
+    nlen = bits.take(16)
+    if bits.pos > limit:
+        return IN_OVERRUN
+    if nlen ^ 0xFFFF != length:
+        return BAD_STORED
+    while length:
+        k = min(4 - (len(out) & 3), length)
+        chunk = bits.take(8 * k)
+        length -= k
+        for j in range(k):
+            if len(out) >= cap:
+                return IN_OVERRUN if bits.pos > limit else OUT_OVERFLOW
+            out.append((chunk >> (8 * j)) & 0xFF)
+        if bits.pos > limit:
+            return IN_OVERRUN
+    return OK
+
+
+def _dynamic_tables(bits: _Bits, limit: int):
+    """Read a dynamic block's code tables: (lit table, dist table), or a
+    status code."""
+    v = bits.take(14)
+    if bits.pos > limit:
+        return IN_OVERRUN
+    hlit, hdist, hclen = (v & 31) + 257, ((v >> 5) & 31) + 1, ((v >> 10) & 15) + 4
+    cl_lens = [0] * 19
+    for i in range(hclen):
+        cl_lens[_CLO[i]] = bits.take(3)
+        if bits.pos > limit:
+            return IN_OVERRUN
+    cl = _canonical(cl_lens)
+    total = hlit + hdist
+    lens = [0] * (_NLIT + _NDIST)
+    nread = prev = 0
+    while nread < total:
+        sym, nb = _decode(bits, cl, 7)
+        if sym < 0:
+            return BAD_CODE
+        if sym <= 15:
+            bits.pos += nb
+            lens[nread] = prev = sym
+            nread += 1
+            if bits.pos > limit:
+                return IN_OVERRUN
+            continue
+        bits.pos += nb
+        if sym == 16:
+            rep, val = 3 + bits.take(2), prev
+        elif sym == 17:
+            rep, val = 3 + bits.take(3), 0
+        else:
+            rep, val = 11 + bits.take(7), 0
+        if bits.pos > limit:
+            return IN_OVERRUN
+        if sym == 16 and nread == 0:
+            return REPEAT_OVERFLOW
+        for _ in range(rep):
+            if nread >= total:
+                return REPEAT_OVERFLOW
+            lens[nread] = prev = val
+            nread += 1
+    return _canonical(lens[:hlit]), _canonical(lens[hlit:total])
+
+
+def _codes(bits: _Bits, out: bytearray, cap: int, limit: int,
+           lit, dist) -> int:
+    """Decode literal/length and distance symbols up to end-of-block."""
+    while True:
+        sym, nb = _decode(bits, lit, 15)
+        if sym < 0:
+            return BAD_CODE
+        bits.pos += nb
+        if sym < 256:
+            if len(out) >= cap:
+                return IN_OVERRUN if bits.pos > limit else OUT_OVERFLOW
+            out.append(sym)
+            if bits.pos > limit:
+                return IN_OVERRUN
+            continue
+        if sym == 256:
+            return IN_OVERRUN if bits.pos > limit else OK
+        if sym > 285:
+            return IN_OVERRUN if bits.pos > limit else BAD_CODE
+        li = sym - 257
+        length = _LB[li] + bits.take(_LX[li])
+        if bits.pos > limit:
+            return IN_OVERRUN
+        dsym, nb = _decode(bits, dist, 15)
+        if dsym < 0:
+            return BAD_CODE
+        bits.pos += nb
+        if dsym > 29:
+            return IN_OVERRUN if bits.pos > limit else BAD_CODE
+        d = _DB[dsym] + bits.take(_DX[dsym])
+        if bits.pos > limit:
+            return IN_OVERRUN
+        if d > len(out) or d > 32768:
+            return BAD_DIST
+        for _ in range(length):
+            if len(out) >= cap:
+                return OUT_OVERFLOW
+            out.append(out[-d])
+
+
+def inflate_plain(comp: torch.Tensor, pay_off: torch.Tensor,
+                  pay_len: torch.Tensor, out_off: torch.Tensor, total: int):
+    """The plain version of the kernel: ``inflate_raw`` per block on the
+    host, results on the inputs' device."""
+    data = comp.cpu().numpy().tobytes()
+    po, pl, oo = (t.cpu().numpy() for t in (pay_off, pay_len, out_off))
+    n = len(po)
+    out = np.zeros(total, dtype=np.uint8)
+    out_len = np.zeros(n, dtype=np.int32)
+    status = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        lo, cap = int(oo[i]), int(oo[i + 1] - oo[i])
+        got, status[i] = inflate_raw(data[po[i]: po[i] + pl[i]], cap)
+        out[lo: lo + len(got)] = np.frombuffer(got, dtype=np.uint8)
+        out_len[i] = len(got)
+    dev = comp.device
+    return (torch.from_numpy(out).to(dev), torch.from_numpy(out_len).to(dev),
+            torch.from_numpy(status).to(dev))
+
+
+# -- the kernel wrapper -----------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype, device) -> None:
+    if t.dtype != dtype or t.device != device or not t.is_contiguous() \
+            or t.dim() != 1:
+        raise ValueError(
+            f"{name}: want a contiguous 1-D {dtype} tensor on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _lib():
+    from disq_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("inflate")
+    if lib.disq_inflate_launch.argtypes is None:
+        lib.disq_inflate_launch.restype = ctypes.c_int
+        lib.disq_inflate_launch.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int64, ctypes.c_void_p]
+    return lib
+
+
+def inflate(comp: torch.Tensor, pay_off: torch.Tensor, pay_len: torch.Tensor,
+            out_off: torch.Tensor, total: int):
+    """Decode payloads into one blob: returns ``(out uint8[total],
+    out_len int32[n], status int32[n])``. ``out_off`` holds the n+1
+    block output offsets and ``total == out_off[-1]``."""
+    dev = comp.device
+    _check("comp", comp, torch.uint8, dev)
+    for name, t in (("pay_off", pay_off), ("pay_len", pay_len),
+                    ("out_off", out_off)):
+        _check(name, t, torch.int64, dev)
+    n = pay_off.numel()
+    if pay_len.numel() != n or out_off.numel() != n + 1:
+        raise ValueError("pay_off, pay_len and out_off disagree on the "
+                         "block count")
+    if dev.type == "cpu":
+        return inflate_plain(comp, pay_off, pay_len, out_off, total)
+    if dev.type != "cuda":
+        raise ValueError(f"inflate runs on cuda or cpu, not {dev}")
+    out = torch.empty(total, dtype=torch.uint8, device=dev)
+    out_len = torch.empty(n, dtype=torch.int32, device=dev)
+    status = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        lib = _lib()
+        with torch.cuda.device(dev):
+            rc = lib.disq_inflate_launch(
+                comp.data_ptr(), pay_off.data_ptr(), pay_len.data_ptr(),
+                out_off.data_ptr(), out.data_ptr(), out_len.data_ptr(),
+                status.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream)
+        from disq_tpu_torch.ops.cuda_build import check_launch
+
+        check_launch("inflate", rc)
+        counters.book_launch("inflate")
+    return out, out_len, status
+
+
+# -- host side of the device route ------------------------------------------
+
+
+def inflate_payloads_device(data: np.ndarray, pay_off: np.ndarray,
+                            pay_len: np.ndarray, usizes: np.ndarray, device):
+    """Upload a shard's compressed bytes once, decode every payload into
+    one device blob at its ISIZE-prefix-sum offset, and check the
+    statuses; returns ``(device blob, out_off)``. A flagged block raises
+    ``ValueError`` naming it — corrupt input, for the caller's strict
+    error path."""
+    device = torch.device(device)
+    n = len(pay_off)
+    out_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.asarray(usizes, dtype=np.int64), out=out_off[1:])
+    from disq_tpu_torch.runtime.device_pipeline import upload
+
+    comp, po, pl, oo = (
+        upload(np.asarray(a, dtype=dt), device)
+        for a, dt in ((data, np.uint8), (pay_off, np.int64),
+                      (pay_len, np.int64), (out_off, np.int64)))
+    blob, _out_len, status = inflate(comp, po, pl, oo, int(out_off[-1]))
+    st = status.cpu().numpy()
+    if device.type == "cuda":
+        counters.book_transfer("d2h", st.nbytes)
+    bad = np.nonzero(st)[0]
+    last_stats["device_lanes"] += n - len(bad)
+    if len(bad):
+        last_stats["host_fallback"] += len(bad)
+        counters.book_host_fallback("flagged", len(bad))
+        i = int(bad[0])
+        raise ValueError(
+            f"device inflate failed at block {i}: status {int(st[i])} "
+            f"({STATUS_NAMES[int(st[i])]})")
+    return blob, out_off

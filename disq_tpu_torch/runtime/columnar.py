@@ -1,0 +1,309 @@
+"""ColumnarBatch — a record batch whose fixed columns live on a device.
+
+The read path's device route parses each decoded shard into fixed
+columns with the parse kernel and keeps them as int32 tensors on the
+device:
+
+- **Lazy d2h.** Attribute access (``batch.pos``, ``batch.flag``, …)
+  copies that one column to the host once, in ``ReadBatch`` dtypes;
+  repeated access returns the cached copy.
+- **Device consumers.** ``flagstat()`` reduces the device flag column
+  and brings back 12 counts; ``sort_permutation()`` builds the
+  coordinate keys and sorts them on the device and brings back only
+  the permutation.
+- **Host interop.** Ragged columns (names / cigars / seqs / quals /
+  tags) come lazily from the host copy of the decoded blob, which the
+  read path holds anyway for the CRC check and the record scan;
+  ``to_read_batch()`` / ``take()`` materialize a plain ``ReadBatch``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from disq_tpu_torch.bam.columnar import FIXED_COLUMNS, RAGGED_COLUMNS, ReadBatch
+from disq_tpu_torch.runtime import counters
+
+_COL_DTYPE = {
+    "refid": np.int32, "pos": np.int32, "mapq": np.uint8,
+    "bin": np.uint16, "flag": np.uint16, "next_refid": np.int32,
+    "next_pos": np.int32, "tlen": np.int32,
+}
+
+
+def record_check(cols: Dict[str, torch.Tensor], rec_len: torch.Tensor,
+                 n_ref: Optional[int]) -> bool:
+    """Eager corrupt-record test mirroring the host parser
+    (``bam/codec.decode_records``): impossible refIDs (when ``n_ref`` is
+    known) or record sections overflowing their record. One boolean
+    crosses d2h."""
+    lseq = cols["l_seq"].to(torch.int64)
+    neg = lseq < 0
+    over = lseq > rec_len
+    lseq_c = torch.minimum(lseq.clamp(min=0), rec_len)
+    head = (36 + cols["l_read_name"].to(torch.int64)
+            + 4 * cols["n_cigar"].to(torch.int64) + (lseq_c + 1) // 2)
+    bad = neg | over | (head > rec_len - lseq_c)
+    if n_ref is not None:
+        refid, nref = cols["refid"], cols["next_refid"]
+        bad = bad | (refid >= n_ref) | (refid < -1) \
+            | (nref >= n_ref) | (nref < -1)
+    return bool(bad.any())
+
+
+def coordinate_key(refid: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """int64 coordinate key, the same value as ``sort/coordinate.
+    coordinate_keys``: (refid, unmapped −1 mapped to 0x7FFFFFFF) in the
+    high 32 bits, pos + 1 in the low 32."""
+    rid = refid.to(torch.int64)
+    rid = torch.where(rid < 0, torch.full_like(rid, 0x7FFFFFFF), rid)
+    return (rid << 32) | ((pos.to(torch.int64) + 1) & 0xFFFFFFFF)
+
+
+class ColumnarBatch:
+    """N alignment records with fixed columns on a device (or a thin
+    wrapper over a host ``ReadBatch``). Duck-compatible with
+    ``ReadBatch``: every column attribute returns a host numpy array."""
+
+    def __init__(self) -> None:
+        self._n = 0
+        self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._blob: Optional[np.ndarray] = None
+        self._blob_parts: Optional[List[np.ndarray]] = None
+        self._offsets: Optional[np.ndarray] = None
+        self._n_ref: Optional[int] = None
+        self._cache: Dict[str, np.ndarray] = {}
+        self._ragged_rb: Optional[ReadBatch] = None
+        self._rb: Optional[ReadBatch] = None
+        # lazy builds and fetches happen once even under threads
+        self._lock = threading.RLock()
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_host(cls, batch: ReadBatch) -> "ColumnarBatch":
+        self = cls()
+        self._n = batch.count
+        self._rb = batch
+        self._ragged_rb = batch
+        return self
+
+    @classmethod
+    def from_blob(
+        cls,
+        blob: np.ndarray,
+        offsets: np.ndarray,
+        device_blob: torch.Tensor,
+        n_ref: Optional[int] = None,
+        origin: int = 0,
+    ) -> "ColumnarBatch":
+        """Parse the records at ``offsets`` into columns on
+        ``device_blob``'s device, in place from ``device_blob`` (the
+        inflate kernel's output, rebased by ``origin``); ``blob`` is its
+        host copy, kept for the ragged columns. Raises ``ValueError``
+        like the host parser on a corrupt record."""
+        from disq_tpu_torch.runtime.device_pipeline import (
+            parse_columns_resident,
+            upload,
+        )
+
+        n = len(offsets) - 1
+        if n <= 0:
+            return cls.from_host(ReadBatch.empty())
+        self = cls()
+        self._n = n
+        self._blob = blob
+        self._offsets = np.asarray(offsets, dtype=np.int64)
+        self._n_ref = n_ref
+        cols = parse_columns_resident(device_blob, self._offsets, origin)
+        rec_len = upload(np.diff(self._offsets), device_blob.device)
+        if record_check(cols, rec_len, n_ref):
+            # the host parser is the authority on the error message
+            from disq_tpu_torch.bam.codec import decode_records
+
+            decode_records(blob, self._offsets, n_ref=n_ref)
+            raise ValueError(
+                "device record check flagged a record that the host "
+                "parser accepts")
+        self._dev = {k: cols[k] for k in FIXED_COLUMNS}
+        return self
+
+    # -- identity -----------------------------------------------------------
+
+    @property
+    def device_backed(self) -> bool:
+        return self._dev is not None
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        return None if self._dev is None else self._dev["flag"].device
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    def __len__(self) -> int:
+        return self._n
+
+    def device_columns(self) -> Dict[str, torch.Tensor]:
+        """The fixed columns as device int32 tensors (no copy)."""
+        if self._dev is None:
+            raise ValueError("host-backed batch has no device columns")
+        return dict(self._dev)
+
+    # -- lazy column access -------------------------------------------------
+
+    def _fetch_col(self, name: str) -> np.ndarray:
+        arr = self._cache.get(name)
+        if arr is not None:
+            return arr
+        with self._lock:
+            arr = self._cache.get(name)
+            if arr is not None:
+                return arr
+            if self._dev is None:
+                if self._rb is not None:
+                    return getattr(self._rb, name)
+                if self._blob is not None or self._blob_parts:
+                    return getattr(self._ragged_source(), name)
+                raise RuntimeError(
+                    f"column {name!r} of a released ColumnarBatch")
+            col = self._dev[name]
+            raw = col.cpu().numpy()
+            if col.is_cuda:
+                counters.book_transfer("d2h", raw.nbytes)
+            arr = raw.astype(_COL_DTYPE[name])
+            self._cache[name] = arr
+            return arr
+
+    refid = property(lambda self: self._fetch_col("refid"))
+    pos = property(lambda self: self._fetch_col("pos"))
+    mapq = property(lambda self: self._fetch_col("mapq"))
+    bin = property(lambda self: self._fetch_col("bin"))
+    flag = property(lambda self: self._fetch_col("flag"))
+    next_refid = property(lambda self: self._fetch_col("next_refid"))
+    next_pos = property(lambda self: self._fetch_col("next_pos"))
+    tlen = property(lambda self: self._fetch_col("tlen"))
+
+    # -- ragged columns (host blob, parsed lazily once) ---------------------
+
+    def _host_blob(self) -> Optional[np.ndarray]:
+        with self._lock:
+            if self._blob is None and self._blob_parts is not None:
+                self._blob = np.concatenate(self._blob_parts)
+                self._blob_parts = None
+            return self._blob
+
+    def _ragged_source(self) -> ReadBatch:
+        if self._ragged_rb is None:
+            with self._lock:
+                if self._ragged_rb is None:
+                    from disq_tpu_torch.bam.codec import decode_records
+
+                    self._ragged_rb = decode_records(
+                        self._host_blob(), self._offsets, n_ref=self._n_ref)
+        return self._ragged_rb
+
+    def __getattr__(self, name: str):
+        if name in RAGGED_COLUMNS:
+            return getattr(self._ragged_source(), name)
+        raise AttributeError(name)
+
+    # -- ReadBatch interop --------------------------------------------------
+
+    def to_read_batch(self) -> ReadBatch:
+        """One plain ``ReadBatch``. The ragged columns need the host
+        parse anyway, and its fixed columns equal the device-parsed ones
+        (the parity contract), so no fixed column is fetched for this."""
+        if self._rb is None:
+            with self._lock:
+                if self._rb is None:
+                    self._rb = self._ragged_source()
+        return self._rb
+
+    def take(self, indices: np.ndarray) -> ReadBatch:
+        return self.to_read_batch().take(indices)
+
+    def slice(self, start: int, stop: int) -> ReadBatch:
+        return self.to_read_batch().slice(start, stop)
+
+    def alignment_ends(self) -> np.ndarray:
+        return self._ragged_source().alignment_ends()
+
+    # -- device consumers ---------------------------------------------------
+
+    def flagstat(self) -> Dict[str, int]:
+        """flagstat over the device flag column: 12 counts cross d2h."""
+        from disq_tpu_torch.ops.flagstat import flagstat_counts
+
+        if self._dev is None:
+            return flagstat_counts(np.asarray(self.flag))
+        return flagstat_counts(self._dev["flag"])
+
+    def sort_permutation(self) -> np.ndarray:
+        """Coordinate-sort permutation: keys and one stable sort on the
+        device; only the int64 order crosses d2h. Equal to
+        ``np.argsort(coordinate_keys(refid, pos), kind="stable")``."""
+        if self._dev is None:
+            from disq_tpu_torch.sort.coordinate import coordinate_keys
+
+            return np.argsort(coordinate_keys(self.refid, self.pos),
+                              kind="stable")
+        key = coordinate_key(self._dev["refid"], self._dev["pos"])
+        order = torch.sort(key, stable=True).indices.cpu().numpy()
+        if key.is_cuda:
+            counters.book_transfer("d2h", order.nbytes)
+        return order
+
+    # -- concat / release ---------------------------------------------------
+
+    @classmethod
+    def concat(cls, batches: Sequence) -> "ReadBatch | ColumnarBatch":
+        """Concatenate shards: all device-backed ⇒ the fixed columns
+        concatenate on the device and host blobs join lazily; otherwise
+        everything materializes into one host ``ReadBatch``. Consuming:
+        device-backed inputs are released into the result."""
+        batches = [b for b in batches if len(b)]
+        if not batches:
+            return ReadBatch.empty()
+        if len(batches) == 1:
+            return batches[0]
+        if all(isinstance(b, ColumnarBatch) and b.device_backed
+               for b in batches):
+            self = cls()
+            self._n = sum(b._n for b in batches)
+            self._n_ref = batches[0]._n_ref
+            self._dev = {name: torch.cat([b._dev[name] for b in batches])
+                         for name in FIXED_COLUMNS}
+            parts: List[np.ndarray] = []
+            for b in batches:
+                parts.extend(b._blob_parts if b._blob_parts is not None
+                             else [b._blob])
+            self._blob_parts = parts
+            offs = np.zeros(self._n + 1, dtype=np.int64)
+            at, base = 1, 0
+            for b in batches:
+                offs[at: at + b._n] = b._offsets[1:] + base
+                at += b._n
+                base += int(b._offsets[-1])
+            self._offsets = offs
+            for b in batches:
+                b.release()
+            return self
+        return ReadBatch.concat([as_read_batch(b) for b in batches])
+
+    def release(self) -> None:
+        """Drop the device columns (host caches and blob stay)."""
+        with self._lock:
+            self._dev = None
+
+
+def as_read_batch(batch) -> ReadBatch:
+    """Whatever a source emitted, as a plain host ``ReadBatch``."""
+    if isinstance(batch, ColumnarBatch):
+        return batch.to_read_batch()
+    return batch
