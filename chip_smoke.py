@@ -5,21 +5,32 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed 0] [--records 2000000]
 
-It builds the two CUDA kernels from ``disq_tpu_torch/csrc``, synthesizes
-an unsorted paired-end BAM from the seed (150 bp reads over 3 references,
-compressed with stdlib zlib into standard BGZF blocks), and drives the
-port's main path through its public entry points on ``cuda``:
+It builds the four CUDA kernels from ``disq_tpu_torch/csrc`` (one
+``nvcc`` each, all started together), synthesizes an unsorted paired-end
+BAM from the seed (150 bp reads over 3 references, compressed with
+stdlib zlib into standard BGZF blocks), and drives the port's two paths
+through their public entry points on ``cuda``:
 
-    ReadsStorage.make_default().split_size(64 << 20).read(path)
-    .count(), .flagstat(), write(ds, out, BaiWriteOption.ENABLE, sort=True)
+    storage = ReadsStorage.make_default().split_size(64 << 20)
+    ds = storage.read(path); ds.count(); ds.flagstat()
+    storage.write(ds, out, BaiWriteOption.ENABLE, sort=True)       # BAM
+    storage.write(ds.coordinate_sorted(), out_cram, CraiWriteOption.ENABLE)
+    cr = storage.read(out_cram); cr.count(); cr.flagstat()         # CRAM
 
-It then checks the results against the generator (counts, flagstat,
+The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
+quality scores are order-0 rANS streams (one per 10,000-record
+container), which the read decodes on the card: kernel B3, and B5 on a
+second read under ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``.
+
+It checks each path's results against the generator (counts, flagstat,
 sort permutation, the sorted BAM re-read record for record, every output
-block inflating with zlib), shows that the main path launched both
-kernels, holds each kernel against its plain version on the card, and
-times both. Any failed phase exits non-zero. The last lines of standard
-output are the card's name and power limit, one JSON line of per-kernel
-numbers, and ``{"ok": true, "device": {...}}``.
+block inflating with zlib, the CRAM read column for column), shows from
+the launch counts (zeroed just before each path, read just after) that
+each path went through its kernels, holds each kernel against its plain
+version on the card (B3 also against the native host decoder on every
+stream of the file), and times them. Any failed phase exits non-zero.
+The last lines of standard output are the card's name and power limit,
+one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
 It imports neither ``jax`` nor the JAX package, and writes only under
 ``.smoke/`` in the checkout, which it removes at the end.
@@ -28,6 +39,7 @@ It imports neither ``jax`` nor the JAX package, and writes only under
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import os
 import shutil
@@ -47,6 +59,7 @@ READ_LEN = 150
 NAME_LEN = 28          # "SIM:1:FC0:1:1101:00000:00000"
 TAG_BYTES = 12         # RG:Z:grpK + NUL, NM:C:n
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+SCALAR_OPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 MAX_PAYLOAD = 0xFF00
 
 
@@ -357,6 +370,303 @@ def inflate_inputs(torch, data: bytes, blocks, dev):
         int(pay_len.sum()), int(out_off[-1])
 
 
+# -- the CRAM path -----------------------------------------------------------
+
+
+def crai_container_offsets(path: str) -> list:
+    """Container offsets a ``.crai`` lists (gzip text, one line per
+    slice, the container's byte offset in field 4)."""
+    text = gzip.decompress(open(path, "rb").read()).decode()
+    return [int(line.split("\t")[3]) for line in text.splitlines() if line]
+
+
+def qs_streams(path: str, offsets: list) -> list:
+    """The QS block's compressed bytes (a full rANS stream) of each data
+    container at ``offsets``, parsed with the port's block reader."""
+    from disq_tpu_torch.cram.codec import CID, read_stored_blocks
+    from disq_tpu_torch.cram.structure import read_container_header_at
+    from disq_tpu_torch.fsw.filesystem import PosixFileSystemWrapper
+
+    fs = PosixFileSystemWrapper()
+    length = fs.get_file_length(path)
+    out = []
+    for off in offsets:
+        hdr, hdr_size = read_container_header_at(fs, path, off, length)
+        blocks = read_stored_blocks(fs.read_range(path, off + hdr_size,
+                                                  hdr.length))
+        qs = [b for b in blocks if b.content_id == CID["QS"]]
+        check(len(qs) == 1 and qs[0].is_rans0,
+              f"container at {off}: QS is not one order-0 rANS block")
+        out.append(qs[0].comp)
+    return out
+
+
+def rans_sample(g: dict, seed: int):
+    """Streams for the kernel-vs-plain check: tiny, empty and
+    single-symbol streams, 64 KiB slices of the generator's quality bytes
+    (native order-0 encoder), and truncated copies that must flag
+    status 6. Returns (raws, valid streams, truncated streams)."""
+    from disq_tpu_torch.native import rans_encode0_native
+
+    rng = np.random.default_rng(seed)
+    raws = [b"", b"x", b"ab", bytes(range(5)), b"A" * 4096, b"\x00" * 3]
+    q = g["qual"].reshape(-1)
+    for start in rng.integers(0, len(q) - 65536, 8):
+        raws.append(q[start: start + 65536].tobytes())
+    streams = [rans_encode0_native(r) for r in raws]
+    truncated = []
+    for k, cut in ((6, 1), (7, 40), (8, 5000), (9, 1)):
+        enc = bytearray(streams[k])
+        comp = struct.unpack_from("<I", enc, 1)[0]
+        struct.pack_into("<I", enc, 1, comp - cut)
+        truncated.append(bytes(enc[: 9 + comp - cut]))
+    return raws, streams, truncated
+
+
+RANS_OPS_PER_SYMBOL = 10   # mask, 3 table reads, shift, mul, add, sub, renorm
+
+
+def rans_bound(ren_off: np.ndarray, out_off: np.ndarray):
+    """(bound ms, "bytes" or "operations") of a rANS decode: the bytes it
+    must move (each renorm byte and table read once: offsets 16, states
+    16, freqs 1024 per stream; each output byte, ``used`` and ``status``
+    written once) over the memory rate, against its 32-bit scalar
+    operations (``RANS_OPS_PER_SYMBOL`` per output byte) over the
+    card's scalar rate."""
+    n = len(ren_off) - 1
+    nbytes = int(ren_off[-1] + out_off[-1]) + n * (16 + 16 + 1024 + 12)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = int(out_off[-1]) * RANS_OPS_PER_SYMBOL / SCALAR_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_against_plain(torch, kernel, plain, staged, total: int,
+                        n_truncated: int):
+    """Kernel and plain version on the same staged streams: returns
+    (max abs error, mismatches, the plain version's ms); the last
+    ``n_truncated`` streams must flag status 6, the others 0."""
+    k_out, k_used, k_st = kernel(*staged, total)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_out, p_used, p_st = plain(*staged)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((k_out.int() - p_out.int()).abs().max()),
+              int((k_used - p_used).abs().max()),
+              int((k_st - p_st).abs().max()))
+    mismatches = int((k_out != p_out).sum() + (k_used != p_used).sum()
+                     + (k_st != p_st).sum())
+    st = k_st.cpu().numpy()
+    want = np.zeros(len(st), dtype=st.dtype)
+    want[len(st) - n_truncated:] = 6
+    check(np.array_equal(st, want), f"statuses: {st.tolist()}")
+    return err, mismatches, plain_ms
+
+
+def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
+    """Write the sorted dataset as CRAM, read it back on the card through
+    B3 and (legacy knob) B5, and hold both kernels against their plain
+    versions and B3 against the native decoder; returns (kernel entries,
+    e2e fields)."""
+    from disq_tpu_torch.native import rans_decode_native
+    from disq_tpu_torch.ops import rans as B5
+    from disq_tpu_torch.ops import rans_simd as B3
+    from disq_tpu_torch.runtime import counters
+
+    n = args.records
+    cram = os.path.join(work, "sorted.cram")
+    # quality scores as order-0 rANS: the streams the device decodes
+    os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
+    sorted_ds = ds.coordinate_sorted()
+    t0 = time.perf_counter()
+    storage.write(sorted_ds, cram, port.CraiWriteOption.ENABLE)
+    cram_write_s = time.perf_counter() - t0
+    del sorted_ds
+    offsets = crai_container_offsets(cram + ".crai")
+    file_bytes = os.path.getsize(cram)
+    splits_with_streams = len({off // args.split_size for off in offsets})
+    log(f"cram write: {cram_write_s:.3f}s ({n / cram_write_s:.0f} rec/s), "
+        f"{len(offsets)} containers, {file_bytes} file bytes, "
+        f"{splits_with_streams} splits hold order-0 streams")
+
+    # -- the CRAM read on cuda (B3) -----------------------------------------
+    counters.reset()
+    B3.last_stats.update(device_lanes=0, host_big=0, host_fallback=0)
+    t0 = time.perf_counter()
+    cr = storage.read(cram)
+    torch.cuda.synchronize()
+    cram_read_s = time.perf_counter() - t0
+    count, fstat = cr.count(), cr.flagstat()
+    main = counters.snapshot()
+    stats = dict(B3.last_stats)
+    log(f"cram read: {cram_read_s:.3f}s ({n / cram_read_s:.0f} rec/s), "
+        f"counters {json.dumps(main)}, rans_simd stats {json.dumps(stats)}")
+    check(count == n, f"cram count {count} != {n}")
+    check(fstat == numpy_flagstat(g["flag"]), f"cram flagstat {fstat}")
+    rb = cr.reads
+    refid = g["refid"][perm_want]
+    for col in ("refid", "pos", "mapq", "bin", "flag", "next_refid",
+                "next_pos", "tlen"):
+        want = g[col][perm_want]
+        if col == "bin":
+            # CRAM stores no bin: the reader recomputes it from the CIGAR
+            # at max(pos, 0), as the reference does, so unplaced reads
+            # get reg2bin(0, 1)
+            want = np.where(refid < 0, reg2bin(np.zeros(1, np.int64),
+                                               np.ones(1, np.int64))[0], want)
+        check(np.array_equal(getattr(rb, col), want.astype(g[col].dtype)),
+              f"cram column {col}")
+    check(np.array_equal(rb.names.reshape(n, NAME_LEN), g["names"][perm_want]),
+          "cram names")
+    ncig = g["ncig"][perm_want]
+    cig_want = g["cig"][perm_want][np.arange(3)[None, :] < ncig[:, None]]
+    check(np.array_equal(rb.cigars, cig_want), "cram cigars")
+    check(np.array_equal(rb.seqs.reshape(n, READ_LEN), g["seq"][perm_want]),
+          "cram seqs")
+    check(np.array_equal(rb.quals.reshape(n, READ_LEN), g["qual"][perm_want]),
+          "cram quals")
+    check(np.array_equal(rb.tags.reshape(n, TAG_BYTES), g["tags"][perm_want]),
+          "cram tags")
+    launches = main["launches"]
+    check(splits_with_streams > 0, "no split holds an order-0 stream")
+    check(launches.get("rans_simd", 0) == splits_with_streams,
+          f"rans_simd launches {launches.get('rans_simd', 0)} != "
+          f"{splits_with_streams} splits holding order-0 streams")
+    check(stats["host_big"] == 0 and stats["host_fallback"] == 0,
+          f"host streams on the CRAM path: {stats}")
+    check(stats["device_lanes"] == len(offsets),
+          "not every QS stream was decoded on the device")
+    check(main["host_rans_streams"].get("rans0", 0) == 0,
+          "an order-0 stream reached the host decoder")
+    log("cram results: count, flagstat and every column exact")
+
+    # -- B3 against the native decoder on every QS stream -------------------
+    streams = qs_streams(cram, offsets)
+    got = B3.rans0_decode_simd(streams, dev)
+    bad = sum(a != rans_decode_native(s) for a, s in zip(got, streams))
+    check(bad == 0, f"B3 differs from the native decoder on {bad} streams")
+    del got
+    log(f"rans_simd vs native: all {len(streams)} QS streams exact "
+        f"({sum(len(s) for s in streams)} stream bytes)")
+
+    # -- both kernels against their plain versions on a sample -------------
+    raws, sample, truncated = rans_sample(g, args.seed + 2)
+    check(B3.rans0_decode_simd(sample, dev) == raws, "B3 on the sample")
+    check(B5.rans0_decode_device(sample, dev) == raws, "B5 on the sample")
+    for t in truncated:
+        for fn in (B3.rans0_decode_simd, B5.rans0_decode_device):
+            try:
+                fn([t], dev)
+            except ValueError as e:
+                check("overran stream 0" in str(e), f"truncated: {e}")
+            else:
+                raise PhaseError(f"{fn.__name__} accepted a truncated stream")
+    _live, s_args, (s_ren, s_out) = B3.stage_streams(sample + truncated, dev)
+    s_total = int(s_out[-1])
+    b3_s_err, b3_s_mism, b3_s_plain_ms = check_against_plain(
+        torch, B3.rans0_decode, B3.rans0_decode_plain, s_args, s_total,
+        len(truncated))
+    b5_s_err, b5_s_mism, b5_s_plain_ms = check_against_plain(
+        torch, B5.rans0_decode_legacy, B5.rans0_decode_plain, s_args, s_total,
+        len(truncated))
+    check(b3_s_err == 0 and b3_s_mism == 0,
+          "rans_simd kernel != plain version on the sample")
+    check(b5_s_err == 0 and b5_s_mism == 0,
+          "rans kernel != plain version on the sample")
+    b3_sample_ms = cuda_ms(torch, lambda: B3.rans0_decode(*s_args, s_total), 1, 3)
+    b5_sample_ms = cuda_ms(
+        torch, lambda: B5.rans0_decode_legacy(*s_args, s_total), 1, 3)
+    del s_args
+
+    # -- the kernels at the main path's shape: split 0's streams -----------
+    first = [s for off, s in zip(offsets, streams) if off < args.split_size]
+    _live, m_args, (m_ren, m_out) = B3.stage_streams(first, dev)
+    m_total = int(m_out[-1])
+    b3_err, b3_mism, b3_plain_ms = check_against_plain(
+        torch, B3.rans0_decode, B3.rans0_decode_plain, m_args, m_total, 0)
+    b5_err, b5_mism, b5_plain_ms = check_against_plain(
+        torch, B5.rans0_decode_legacy, B5.rans0_decode_plain, m_args, m_total,
+        0)
+    check(b3_err == 0 and b3_mism == 0,
+          "rans_simd kernel != plain version on split 0")
+    check(b5_err == 0 and b5_mism == 0,
+          "rans kernel != plain version on split 0")
+    b3_ms = cuda_ms(torch, lambda: B3.rans0_decode(*m_args, m_total), 1, 3)
+    b5_ms = cuda_ms(torch, lambda: B5.rans0_decode_legacy(*m_args, m_total),
+                    1, 3)
+    bound_ms, bound_by = rans_bound(m_ren, m_out)
+    log(f"rans: sample of {len(sample) + len(truncated)} streams "
+        f"({len(truncated)} truncated), kernels {b3_sample_ms:.3f} / "
+        f"{b5_sample_ms:.3f} ms vs plain {b3_s_plain_ms:.1f} / "
+        f"{b5_s_plain_ms:.1f} ms; split 0: "
+        f"{len(first)} streams {int(m_ren[-1])} -> {m_total} bytes, "
+        f"rans_simd {b3_ms:.3f} ms, rans {b5_ms:.3f} ms vs plain "
+        f"{b3_plain_ms:.1f} / {b5_plain_ms:.1f} ms, 0 mismatches")
+    del streams, first, m_args
+
+    # -- the CRAM read under the legacy knob (B5) ---------------------------
+    os.environ["DISQ_TPU_TORCH_DEVICE_RANS"] = "legacy"
+    try:
+        counters.reset()
+        B5.last_stats.update(device_lanes=0, host_big=0, host_fallback=0)
+        t0 = time.perf_counter()
+        cr5 = storage.read(cram)
+        torch.cuda.synchronize()
+        legacy_read_s = time.perf_counter() - t0
+        legacy = counters.snapshot()
+    finally:
+        del os.environ["DISQ_TPU_TORCH_DEVICE_RANS"]
+    l_launches = legacy["launches"]
+    log(f"cram read (legacy): {legacy_read_s:.3f}s, counters "
+        f"{json.dumps(legacy)}, rans stats {json.dumps(B5.last_stats)}")
+    check(l_launches.get("rans", 0) == splits_with_streams
+          and l_launches.get("rans_simd", 0) == 0,
+          f"legacy read launches {l_launches}")
+    check(legacy["host_rans_streams"].get("rans0", 0) == 0,
+          "an order-0 stream reached the host decoder (legacy)")
+    for col in ("refid", "pos", "flag", "seqs", "quals", "names", "tags",
+                "cigars"):
+        check(np.array_equal(getattr(cr5.reads, col), getattr(rb, col)),
+              f"legacy cram column {col}")
+    del cr5, cr, rb
+    os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
+
+    shape = {"streams": len(m_ren) - 1, "bytes_in": int(m_ren[-1]),
+             "bytes_out": m_total}
+    common = {"route": "cuda", "library_ms": None,
+              "bound_by": bound_by, "tolerance": 0, "shape": shape,
+              "bound_ms": round(bound_ms, 6),
+              "plain_on": "the same inputs (split 0's streams)",
+              "sample": f"{len(sample) + len(truncated)} streams, "
+                        f"{len(truncated)} truncated"}
+    kernels = [
+        {"name": "rans_simd", **common,
+         "source": "disq_tpu_torch/csrc/rans_simd.cu",
+         "replaces": "disq_tpu/ops/rans_simd.py:91",
+         "launches": launches.get("rans_simd", 0), "max_abs_err": b3_err,
+         "ms": round(b3_ms, 4), "plain_ms": round(b3_plain_ms, 4),
+         "mismatches": b3_mism, "sample_mismatches": b3_s_mism,
+         "ms_on_sample": round(b3_sample_ms, 4),
+         "plain_ms_on_sample": round(b3_s_plain_ms, 4)},
+        {"name": "rans", **common,
+         "source": "disq_tpu_torch/csrc/rans.cu",
+         "replaces": "disq_tpu/ops/rans.py:50",
+         "launches": l_launches.get("rans", 0), "max_abs_err": b5_err,
+         "ms": round(b5_ms, 4), "plain_ms": round(b5_plain_ms, 4),
+         "mismatches": b5_mism, "sample_mismatches": b5_s_mism,
+         "ms_on_sample": round(b5_sample_ms, 4),
+         "plain_ms_on_sample": round(b5_s_plain_ms, 4)},
+    ]
+    e2e = {"cram_write_s": round(cram_write_s, 4),
+           "cram_write_records_per_s": round(n / cram_write_s, 1),
+           "cram_read_s": round(cram_read_s, 4),
+           "cram_read_records_per_s": round(n / cram_read_s, 1),
+           "cram_legacy_read_s": round(legacy_read_s, 4),
+           "cram_containers": len(offsets), "cram_file_bytes": file_bytes,
+           "cram_splits": -(-file_bytes // args.split_size)}
+    return kernels, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -382,7 +692,7 @@ def run(args) -> dict:
     load_host_library()  # the host codec library, built from native/
     log(f"setup: CUDA context and host library {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
-    build_s = cuda_build.build(["inflate", "parse"])
+    build_s = cuda_build.build(["inflate", "parse", "rans_simd", "rans"])
     log(f"build: {json.dumps({k: round(v, 3) for k, v in build_s.items()})} "
         f"wall {time.perf_counter() - t0:.3f}s")
 
@@ -586,11 +896,15 @@ def run(args) -> dict:
          "mismatches": b2_mismatch, "tolerance": 0, "shape": {"records": per},
          "plain_on": "the same inputs"},
     ]
+    cram_kernels, cram_e2e = cram_phases(
+        torch, port, args, g, perm_want, ds, storage, work, dev)
+    kernels += cram_kernels
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
-           "splits": n_splits, "build_s": {k: round(v, 3) for k, v in build_s.items()}}
+           "splits": n_splits, **cram_e2e,
+           "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
     shutil.rmtree(work, ignore_errors=True)
     return {"card": card, "kernels": kernels,

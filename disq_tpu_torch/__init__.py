@@ -7,6 +7,7 @@ as torch ops or host code. It never imports ``jax`` or ``disq_tpu``.
 
 from disq_tpu_torch.api import (  # noqa: F401
     BaiWriteOption,
+    CraiWriteOption,
     FileCardinalityWriteOption,
     ReadsDataset,
     ReadsFormatWriteOption,

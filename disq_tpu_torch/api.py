@@ -6,6 +6,8 @@ Usage::
     ds = storage.read("sample.bam")      # on cuda
     ds.count(); ds.flagstat()
     storage.write(ds, "sorted.bam", BaiWriteOption.ENABLE, sort=True)
+    storage.write(ds.coordinate_sorted(), "out.cram", CraiWriteOption.ENABLE)
+    cr = storage.read("out.cram")        # order-0 rANS on the card
 
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
@@ -13,6 +15,9 @@ and without an explicit CPU request, ``read`` and ``write`` raise. On
 ``cuda`` the device route (inflate and parse kernels, device-resident
 columns) is the read path; on the CPU the host codec reads, unless
 ``.resident_decode()`` asks for the device route's plain versions.
+A CRAM read decodes its order-0 rANS streams on the device and returns
+a host ``ReadBatch``; reading reference-compressed CRAM needs
+``reference_source_path``.
 """
 
 from __future__ import annotations
@@ -53,6 +58,11 @@ class BaiWriteOption(WriteOption, enum.Enum):
 
 
 class SbiWriteOption(WriteOption, enum.Enum):
+    ENABLE = True
+    DISABLE = False
+
+
+class CraiWriteOption(WriteOption, enum.Enum):
     ENABLE = True
     DISABLE = False
 
@@ -115,6 +125,7 @@ class ReadsStorage:
         self._num_shards: Optional[int] = None
         self._device = device
         self._resident_decode = False
+        self._reference_source_path: Optional[str] = None
 
     @classmethod
     def make_default(cls, device=None) -> "ReadsStorage":
@@ -131,6 +142,12 @@ class ReadsStorage:
 
     def device(self, device) -> "ReadsStorage":
         self._device = device
+        return self
+
+    def reference_source_path(self, p: str) -> "ReadsStorage":
+        """FASTA (with or without ``.fai``) for CRAM reference-based
+        compression: omitted on write, required to read such data."""
+        self._reference_source_path = p
         return self
 
     def resident_decode(self, enable: bool = True) -> "ReadsStorage":

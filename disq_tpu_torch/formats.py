@@ -1,7 +1,7 @@
 """Format dispatch — path extension / write option → source or sink.
 
-Only BAM with single-file output is ported so far; the other formats
-and directory-of-parts output raise.
+BAM and CRAM with single-file output are ported so far; SAM and
+directory-of-parts output raise.
 """
 
 from __future__ import annotations
@@ -22,12 +22,16 @@ class SamFormat(enum.Enum):
         self.extension = extension
 
     def _check_ported(self) -> None:
-        if self is not SamFormat.BAM:
+        if self is SamFormat.SAM:
             raise NotImplementedError(
                 f"{self.key.upper()} is not ported to the PyTorch package yet")
 
     def make_source(self, storage):
         self._check_ported()
+        if self is SamFormat.CRAM:
+            from disq_tpu_torch.cram.source import CramSource
+
+            return CramSource(storage)
         from disq_tpu_torch.bam.source import BamSource
 
         return BamSource(storage)
@@ -37,6 +41,10 @@ class SamFormat(enum.Enum):
         if cardinality is not FileCardinalityWriteOption.SINGLE:
             raise NotImplementedError(
                 "multi-file writes are not ported to the PyTorch package yet")
+        if self is SamFormat.CRAM:
+            from disq_tpu_torch.cram.sink import CramSink
+
+            return CramSink(storage)
         from disq_tpu_torch.bam.sink import BamSink
 
         return BamSink(storage)

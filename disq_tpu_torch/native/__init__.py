@@ -88,6 +88,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         u8p, i64p, ctypes.c_int64, i64p, u8p, i64p, u32p, i64p, u8p,
         u8p, i64p, u8p,
     ]
+    lib.disq_rans_encode0.restype = ctypes.c_int64
+    lib.disq_rans_encode0.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+    lib.disq_rans_encode1.restype = ctypes.c_int64
+    lib.disq_rans_encode1.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
+    lib.disq_rans_decode.restype = ctypes.c_int64
+    lib.disq_rans_decode.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64]
     lib.disq_bam_encode.restype = ctypes.c_int64
     lib.disq_bam_encode.argtypes = [
         u8p, i64p, ctypes.c_int64, i32p, i32p, u8p, u16p, u16p, i32p,
@@ -319,6 +325,54 @@ def encode_records_native(batch) -> tuple[bytes, np.ndarray]:
             "(254 name bytes / 65535 CIGAR ops)"
         )
     return out.tobytes(), rec_off
+
+
+def rans_encode0_native(raw) -> bytes:
+    """rANS 4x8 order-0 encode (CRAM 3.0 §13); full stream incl. the
+    9-byte header. Byte-identical to the Python codec's output."""
+    lib = _load()
+    arr = _as_u8(raw)
+    n = len(arr)
+    cap = 9 + 771 + 16 + (n * 3) // 2 + 64
+    out = np.empty(cap, dtype=np.uint8)
+    got = lib.disq_rans_encode0(
+        _ptr(arr, ctypes.c_uint8), n, _ptr(out, ctypes.c_uint8), cap)
+    if got < 0:
+        raise ValueError("rANS encode buffer too small")
+    return out[:got].tobytes()
+
+
+def rans_encode1_native(raw) -> bytes:
+    """rANS 4x8 order-1 encode (htslib wire format); byte-identical to
+    the Python codec's ``rans_encode_order1``."""
+    lib = _load()
+    arr = _as_u8(raw)
+    n = len(arr)
+    cap = 9 + 256 * 775 + 16 + (n * 3) // 2 + 64
+    out = np.empty(cap, dtype=np.uint8)
+    got = lib.disq_rans_encode1(
+        _ptr(arr, ctypes.c_uint8), n, _ptr(out, ctypes.c_uint8), cap)
+    if got < 0:
+        raise ValueError("rANS o1 encode buffer too small")
+    return out[:got].tobytes()
+
+
+def rans_decode_native(data) -> bytes:
+    """rANS 4x8 decode, order 0 or 1; ``data`` is the full stream."""
+    import struct
+
+    lib = _load()
+    arr = _as_u8(data)
+    if len(arr) < 9:
+        raise ValueError("truncated rANS stream")
+    raw_size = struct.unpack_from("<I", arr, 5)[0]
+    out = np.empty(raw_size, dtype=np.uint8)
+    rc = lib.disq_rans_decode(
+        _ptr(arr, ctypes.c_uint8), len(arr), _ptr(out, ctypes.c_uint8),
+        raw_size)
+    if rc != 0:
+        raise ValueError(f"rANS decode failed (code {rc})")
+    return out.tobytes()
 
 
 def deflate_blocks_native(payload, payload_offsets: np.ndarray,

@@ -5,7 +5,10 @@
   versions on CPU tensors book nothing);
 - ``host_fallback_blocks[reason]``: BGZF blocks the host had to inflate
   after the device route flagged them;
-- ``transfer_bytes["h2d" | "d2h"]``: bytes copied between host and card.
+- ``transfer_bytes["h2d" | "d2h"]``: bytes copied between host and card;
+- ``host_rans_streams["rans0" | "rans1"]``: rANS streams the host codec
+  decoded, by order (on ``cuda`` every order-0 stream goes to a kernel,
+  so ``rans0`` stays 0 there).
 
 They are process-wide and plain integers; ``reset()`` zeroes them, so a
 caller can read exactly what one run of the main path did.
@@ -21,6 +24,7 @@ _lock = threading.Lock()
 launches: Counter = Counter()
 host_fallback_blocks: Counter = Counter()
 transfer_bytes: Counter = Counter()
+host_rans_streams: Counter = Counter()
 
 
 def book_launch(kernel: str) -> None:
@@ -38,11 +42,17 @@ def book_transfer(direction: str, nbytes: int) -> None:
         transfer_bytes[direction] += int(nbytes)
 
 
+def book_host_rans(order: int) -> None:
+    with _lock:
+        host_rans_streams[f"rans{order}"] += 1
+
+
 def reset() -> None:
     with _lock:
         launches.clear()
         host_fallback_blocks.clear()
         transfer_bytes.clear()
+        host_rans_streams.clear()
 
 
 def snapshot() -> Dict[str, Dict[str, int]]:
@@ -51,4 +61,5 @@ def snapshot() -> Dict[str, Dict[str, int]]:
             "launches": dict(launches),
             "host_fallback_blocks": dict(host_fallback_blocks),
             "transfer_bytes": dict(transfer_bytes),
+            "host_rans_streams": dict(host_rans_streams),
         }

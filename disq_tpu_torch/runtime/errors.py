@@ -39,6 +39,11 @@ class CorruptBlockError(ValueError):
         self.virtual_offset = virtual_offset
 
 
+class MissingReferenceError(ValueError):
+    """Reference FASTA absent or wrong for reference-compressed CRAM — a
+    configuration error, never reported as a corrupt block."""
+
+
 class TruncatedReadError(OSError, ValueError):
     """A range read returned fewer bytes than the on-disk structure
     requires (an I/O symptom, and a ValueError for callers of the block

@@ -75,30 +75,45 @@ def test_no_source_imports_jax_or_the_reference(path):
         assert not any(_forbidden(n) for n in names), (path, node.lineno)
 
 
-def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+@pytest.mark.parametrize("ext", ["bam", "cram"])
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, ext):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    path = str(tmp_path / "x.bam")
+    path = str(tmp_path / f"x.{ext}")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         P.ReadsStorage.make_default().read(path)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         P.ReadsStorage.make_default().device("cuda").write(None, path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        P.ReadsStorage.make_default().write(None, path,
+                                            P.CraiWriteOption.ENABLE)
 
 
-def test_cpu_is_taken_only_when_asked(monkeypatch):
+def test_cpu_is_taken_only_when_asked(monkeypatch, tmp_path):
+    from bam_oracle import DEFAULT_REFS, make_bam_bytes, synth_records
     from disq_tpu_torch.util import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert resolve_device("cpu").type == "cpu"
     with pytest.raises(RuntimeError):
         resolve_device(None)
+    # the CRAM write and read run on the CPU when asked for it
+    bam, cram = str(tmp_path / "x.bam"), str(tmp_path / "x.cram")
+    with open(bam, "wb") as f:
+        f.write(make_bam_bytes(DEFAULT_REFS, synth_records(50, seed=1)))
+    st = P.ReadsStorage.make_default(device="cpu")
+    st.write(st.read(bam), cram, P.CraiWriteOption.ENABLE)
+    assert st.read(cram).count() == 50
+    assert st.resident_decode().read(cram).count() == 50
 
 
 def test_importing_kernel_modules_builds_nothing(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path))
     code = (
         "from disq_tpu_torch.ops import cuda_build, inflate_simd, parse\n"
+        "from disq_tpu_torch.ops import rans, rans_simd\n"
         "from disq_tpu_torch.runtime import device_pipeline, columnar\n"
         "from disq_tpu_torch.bgzf import codec\n"
+        "from disq_tpu_torch.cram import rans, source, sink\n"
         "assert not cuda_build._libs\n")
     before = _kernel_libs()
     res = _run(code, env=env)
@@ -110,7 +125,7 @@ def _kernel_libs():
     if not os.path.isdir(cuda_build.BUILD_DIR):
         return set()
     return {f for f in os.listdir(cuda_build.BUILD_DIR)
-            if f.startswith(("libinflate", "libparse"))}
+            if f.startswith(("libinflate", "libparse", "librans"))}
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
