@@ -5,15 +5,19 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed 0] [--records 2000000]
 
-It builds the four CUDA kernels from ``disq_tpu_torch/csrc`` (one
+It builds the five CUDA kernels from ``disq_tpu_torch/csrc`` (one
 ``nvcc`` each, all started together), synthesizes an unsorted paired-end
 BAM from the seed (150 bp reads over 3 references, compressed with
-stdlib zlib into standard BGZF blocks), and drives the port's two paths
+stdlib zlib into standard BGZF blocks), and drives the port's paths
 through their public entry points on ``cuda``:
 
     storage = ReadsStorage.make_default().split_size(64 << 20)
     ds = storage.read(path); ds.count(); ds.flagstat()
     storage.write(ds, out, BaiWriteOption.ENABLE, sort=True)       # BAM
+    # DISQ_TPU_TORCH_DEVICE_INFLATE=legacy: the same read through B4
+    storage.executor_workers(4).read(path)                         # executor
+    storage.error_policy("skip" | "quarantine").read(flipped)      # policies
+    storage.num_shards(8).writer_workers(4).write(ds, out, ..., sort=True)
     storage.write(ds.coordinate_sorted(), out_cram, CraiWriteOption.ENABLE)
     cr = storage.read(out_cram); cr.count(); cr.flagstat()         # CRAM
 
@@ -24,10 +28,17 @@ second read under ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``.
 
 It checks each path's results against the generator (counts, flagstat,
 sort permutation, the sorted BAM re-read record for record, every output
-block inflating with zlib, the CRAM read column for column), shows from
+block inflating with zlib, the CRAM read column for column), the legacy
+and the 4-worker reads against the default read, the skip and quarantine
+reads of a copy with one flipped bit against the generator's records
+outside that block (and the quarantine sidecar against the corrupt
+bytes), the 4-worker write against the 1-worker write byte for byte,
+shows from
 the launch counts (zeroed just before each path, read just after) that
 each path went through its kernels, holds each kernel against its plain
-version on the card (B3 also against the native host decoder on every
+version on the inputs of split 0 (the inflate kernels' pure-Python plain
+versions in one spawned process per core) and on a sample of corrupt
+and truncated inputs (B3 also against the native host decoder on every
 stream of the file), and times them. Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
@@ -61,6 +72,8 @@ TAG_BYTES = 12         # RG:Z:grpK + NUL, NM:C:n
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 MAX_PAYLOAD = 0xFF00
+INFLATE_OPS_PER_BYTE = 10   # per decoded byte: bit reads, table walk, store
+WRITE_SHARDS = 8            # write shards of the parallel-write leg
 
 
 class PhaseError(Exception):
@@ -440,13 +453,73 @@ def rans_bound(ren_off: np.ndarray, out_off: np.ndarray):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def _import_plain() -> None:
+    """Pool initializer: the plain versions' modules, before timing."""
+    sys.path.insert(0, HERE)
+    import disq_tpu_torch.ops.inflate  # noqa: F401
+    import disq_tpu_torch.ops.inflate_simd  # noqa: F401
+
+
+def _plain_chunk(job):
+    """One process's share of an inflate kernel's plain version: ``(kind,
+    payloads, usizes)`` → its outputs on those payloads as numpy arrays;
+    ``kind`` is ``inflate`` (B1: blob, lengths, statuses) or
+    ``inflate_legacy`` (B4: rows, meta)."""
+    import torch
+
+    kind, payloads, usizes = job
+    lens = np.array([len(p) for p in payloads], np.int64)
+    off = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    comp = torch.frombuffer(bytearray(b"".join(payloads)), dtype=torch.uint8)
+    if kind == "inflate":
+        from disq_tpu_torch.ops import inflate_simd as B1
+
+        out_off = np.concatenate([[0], np.cumsum(usizes)]).astype(np.int64)
+        res = B1.inflate_plain(comp, torch.from_numpy(off),
+                               torch.from_numpy(lens),
+                               torch.from_numpy(out_off), int(out_off[-1]))
+    else:
+        from disq_tpu_torch.ops import inflate as B4
+
+        res = B4.inflate_stacked_plain(
+            comp, torch.from_numpy(off), torch.from_numpy(lens.astype(np.int32)),
+            torch.tensor(usizes, dtype=torch.int32))
+    return [t.numpy() for t in res]
+
+
+def plain_on_payloads(kind: str, payloads, usizes):
+    """``kind``'s plain version (pure Python) on every payload, in
+    contiguous chunks over one spawned process per CPU core, up to 8;
+    the pool starts and imports before the clock does. Returns (the
+    outputs, each joined in payload order; wall ms; processes)."""
+    import multiprocessing
+
+    procs = max(1, min(8, os.cpu_count() or 1))
+    step = -(-len(payloads) // (4 * procs))
+    jobs = [(kind, payloads[i: i + step], list(usizes[i: i + step]))
+            for i in range(0, len(payloads), step)]
+    with multiprocessing.get_context("spawn").Pool(
+            procs, initializer=_import_plain) as pool:
+        pool.map(time.sleep, [0.5] * procs, chunksize=1)
+        t0 = time.perf_counter()
+        parts = pool.map(_plain_chunk, jobs, chunksize=1)
+        ms = (time.perf_counter() - t0) * 1e3
+    return [np.concatenate(col) for col in zip(*parts)], ms, procs
+
+
 def check_against_plain(torch, kernel, plain, staged, total: int,
-                        n_truncated: int):
+                        n_truncated: int, on_host: bool = False):
     """Kernel and plain version on the same staged streams: returns
     (max abs error, mismatches, the plain version's ms); the last
-    ``n_truncated`` streams must flag status 6, the others 0."""
+    ``n_truncated`` streams must flag status 6, the others 0. With
+    ``on_host`` the plain version runs on host copies of the inputs
+    (B5's: its few small torch ops per 4 output bytes cost several times
+    less there than their launches on the card)."""
     k_out, k_used, k_st = kernel(*staged, total)
     torch.cuda.synchronize()
+    if on_host:
+        k_out, k_used, k_st = k_out.cpu(), k_used.cpu(), k_st.cpu()
+        staged = [t.cpu() for t in staged]
     t0 = time.perf_counter()
     p_out, p_used, p_st = plain(*staged)
     torch.cuda.synchronize()
@@ -586,7 +659,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
         torch, B3.rans0_decode, B3.rans0_decode_plain, m_args, m_total, 0)
     b5_err, b5_mism, b5_plain_ms = check_against_plain(
         torch, B5.rans0_decode_legacy, B5.rans0_decode_plain, m_args, m_total,
-        0)
+        0, on_host=True)
     check(b3_err == 0 and b3_mism == 0,
           "rans_simd kernel != plain version on split 0")
     check(b5_err == 0 and b5_mism == 0,
@@ -636,7 +709,8 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     common = {"route": "cuda", "library_ms": None,
               "bound_by": bound_by, "tolerance": 0, "shape": shape,
               "bound_ms": round(bound_ms, 6),
-              "plain_on": "the same inputs (split 0's streams)",
+              "plain_on": "the same inputs (split 0's streams); B5's "
+                          "on host copies",
               "sample": f"{len(sample) + len(truncated)} streams, "
                         f"{len(truncated)} truncated"}
     kernels = [
@@ -667,6 +741,288 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     return kernels, e2e
 
 
+# -- the BAM read and write as users configure them -------------------------
+
+
+def same_reads(torch, a, b, what: str) -> None:
+    """Two datasets hold the same records: every fixed column on the
+    device, every ragged one from the host parse."""
+    check(a.count() == b.count(), f"{what}: count {a.count()} != {b.count()}")
+    check(a.reads.device_backed and b.reads.device_backed,
+          f"{what}: not device-backed")
+    da, db = a.reads.device_columns(), b.reads.device_columns()
+    for col in da:
+        check(torch.equal(da[col], db[col]), f"{what}: column {col}")
+    ra, rb = a.reads.to_read_batch(), b.reads.to_read_batch()
+    for col in ("name_offsets", "names", "cigar_offsets", "cigars",
+                "seq_offsets", "seqs", "quals", "tag_offsets", "tags"):
+        check(np.array_equal(getattr(ra, col), getattr(rb, col)),
+              f"{what}: column {col}")
+
+
+def legacy_sample(data: bytes, blocks, seed: int):
+    """Payloads for B4 against its plain version, with B4's expected
+    status or None: every case of ``ops/inflate_cases.py``, 8 of the
+    file's blocks, and a truncated and a bit-flipped copy of two of
+    them (the flipped ones may decode to any status)."""
+    from disq_tpu_torch.ops import inflate_cases
+
+    cases = [(p, u, None) for _, p, u, _ in inflate_cases.status_cases()]
+    cases += [(p, len(d), 0) for _, p, d in inflate_cases.good_cases(seed)]
+    cases += [(p, u, s) for _, p, u, s in inflate_cases.legacy_cases()]
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(len(blocks), 8, replace=False)
+    for k, i in enumerate(picks):
+        p, t, h = blocks[i]
+        payload = data[p + h: p + t - 8]
+        isize = struct.unpack_from("<I", data, p + t - 4)[0]
+        cases.append((payload, isize, 0))
+        if k < 2:
+            cases.append((payload[: len(payload) // 2], isize, 6))
+            flipped = bytearray(payload)
+            flipped[len(payload) // 3] ^= 0x10
+            cases.append((bytes(flipped), isize, None))
+    return cases
+
+
+def stage_legacy(torch, payloads, usizes, dev):
+    from disq_tpu_torch.ops import inflate as B4
+
+    lens = np.array([len(p) for p in payloads], np.int64)
+    off = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    blob = np.frombuffer(b"".join(payloads), np.uint8)
+    return B4.stage_payloads(blob, off, lens, usizes, dev), int(lens.sum())
+
+
+def bam_legs(torch, port, args, g, info, ds, src, work, dev, host_blob,
+             main_lanes: int):
+    """The BAM read and write with the knobs users set: the legacy
+    inflate route (B4), the shard executor at 4 workers, the skip and
+    quarantine policies on a copy with one flipped bit, and the write
+    pipeline at 4 workers. Returns (B4's kernel entry, e2e fields)."""
+    from disq_tpu_torch.bgzf.codec import row_prefixes
+    from disq_tpu_torch.ops import inflate as B4
+    from disq_tpu_torch.ops import inflate_simd as B1
+    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime.errors import CorruptBlockError
+
+    n, split = args.records, args.split_size
+    n_splits = -(-info["file_bytes"] // split)
+
+    def storage():
+        return port.ReadsStorage.make_default().split_size(split)
+
+    # -- leg 1: the legacy read (B4) ----------------------------------------
+    os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"] = "legacy"
+    try:
+        counters.reset()
+        t0 = time.perf_counter()
+        lg = storage().read(src)
+        torch.cuda.synchronize()
+        legacy_s = time.perf_counter() - t0
+        lg_counts = counters.snapshot()
+    finally:
+        del os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"]
+    l_launch = lg_counts["launches"]
+    log(f"legacy read: {legacy_s:.3f}s ({n / legacy_s:.0f} rec/s), counters "
+        f"{json.dumps(lg_counts)}")
+    check(l_launch.get("inflate_legacy", 0) == n_splits
+          and l_launch.get("inflate", 0) == 0
+          and l_launch.get("parse", 0) == n_splits,
+          f"legacy read launches {l_launch}")
+    check(sum(lg_counts["host_fallback_blocks"].values()) == 0,
+          "legacy read: host fallback")
+    check(lg.flagstat() == ds.flagstat(), "legacy read: flagstat")
+    same_reads(torch, lg, ds, "legacy read")
+    del lg
+    log("legacy read: count, flagstat and every column equal the default "
+        "route's")
+
+    # B4 against its plain version on a sample: every status code, and
+    # truncated and bit-flipped file blocks
+    data = open(src, "rb").read()
+    blocks = walk_blocks(data)[:-1]
+    cases = legacy_sample(data, blocks, args.seed + 3)
+    s_args, _ = stage_legacy(torch, [c[0] for c in cases],
+                             [c[1] for c in cases], dev)
+    k_out, k_meta = B4.inflate_stacked(*s_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_out, p_meta = B4.inflate_stacked_plain(*s_args)
+    b4_s_plain_ms = (time.perf_counter() - t0) * 1e3
+    b4_s_err = max(int((k_out.int() - p_out.int()).abs().max()),
+                   int((k_meta - p_meta).abs().max()))
+    b4_s_mism = int((k_out != p_out).sum() + (k_meta != p_meta).sum())
+    check(b4_s_err == 0 and b4_s_mism == 0,
+          f"B4 kernel != plain version on the sample ({b4_s_mism} mismatches)")
+    st = k_meta[:, 1].cpu().numpy()
+    for i, (_, _, want) in enumerate(cases):
+        check(want is None or st[i] == want,
+              f"B4 sample case {i}: status {st[i]}, want {want}")
+    b4_codes = sorted(set(st.tolist()))
+    b4_sample_ms = cuda_ms(torch, lambda: B4.inflate_stacked(*s_args), 1, 3)
+    del k_out, p_out, s_args
+
+    # B4 at the main path's shape: split 0's blocks in one launch, held
+    # against its plain version on the same payloads and against B1
+    first = [b for b in blocks if b[0] < split]
+    m_payloads = [data[p + h: p + t - 8] for p, t, h in first]
+    m_us = [struct.unpack_from("<I", data, p + t - 4)[0] for p, t, _ in first]
+    m_args, m_in = stage_legacy(torch, m_payloads, m_us, dev)
+    out_h, meta_h = (t.cpu().numpy() for t in B4.inflate_stacked(*m_args))
+    check(not meta_h[:, 1].any(), "B4 flagged a block of split 0")
+    (p_rows, p_meta), b4_plain_ms, procs = plain_on_payloads(
+        "inflate_legacy", m_payloads, m_us)
+    b4_err = max(int(np.abs(out_h.astype(np.int16) - p_rows).max()),
+                 int(np.abs(meta_h - p_meta).max()))
+    b4_mism = int((out_h != p_rows).sum() + (meta_h != p_meta).sum())
+    check(b4_err == 0 and b4_mism == 0,
+          f"B4 kernel != plain version on split 0 ({b4_mism} mismatches)")
+    del p_rows, m_payloads
+    joined, _ = row_prefixes(out_h, meta_h[:, 0])
+    check(np.array_equal(joined, host_blob[: len(joined)]),
+          "B4 differs from B1 on split 0")
+    del out_h, joined
+    b4_ms = cuda_ms(torch, lambda: B4.inflate_stacked(*m_args), 1, 3)
+    m_out = int(sum(m_us))
+    b4_bytes = m_in + len(first) * (B4.UMAX + 8 + 8 + 4 + 4)
+    bytes_ms = b4_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = m_out * INFLATE_OPS_PER_BYTE / SCALAR_OPS_PER_S * 1e3
+    b4_bound, b4_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                       else (ops_ms, "operations"))
+    del m_args
+    log(f"inflate_legacy: sample of {len(cases)} payloads, codes {b4_codes}, "
+        f"kernel {b4_sample_ms:.3f} ms vs plain {b4_s_plain_ms:.1f} ms, 0 "
+        f"mismatches; split 0: {len(first)} blocks {m_in} -> {m_out} bytes "
+        f"in {b4_ms:.3f} ms vs plain {b4_plain_ms:.1f} ms ({procs} "
+        f"processes), 0 mismatches (bound {b4_bound:.6f} ms, {b4_by})")
+
+    # -- leg 2: the shard executor at 4 workers -----------------------------
+    counters.reset()
+    B1.last_stats.update(device_lanes=0, host_big=0, host_fallback=0)
+    t0 = time.perf_counter()
+    ex = storage().executor_workers(4).read(src)
+    torch.cuda.synchronize()
+    executor_s = time.perf_counter() - t0
+    ex_counts = counters.snapshot()
+    lanes = B1.last_stats["device_lanes"]
+    log(f"executor read (4 workers): {executor_s:.3f}s "
+        f"({n / executor_s:.0f} rec/s), counters {json.dumps(ex_counts)}, "
+        f"inflate lanes {lanes}")
+    check(ex_counts["launches"].get("inflate", 0) == n_splits
+          and ex_counts["launches"].get("parse", 0) == n_splits,
+          f"executor read launches {ex_counts['launches']}")
+    check(lanes == main_lanes, f"executor read: {lanes} lanes booked, "
+          f"{main_lanes} on the 1-worker read")
+    check(ex.counters.records == n and ex.counters.shards == n_splits,
+          f"executor read counters {ex.counters}")
+    same_reads(torch, ex, ds, "executor read")
+    del ex
+
+    # -- leg 3: the error policies on one flipped bit -----------------------
+    blk_i = len(blocks) // 2
+    pos, total, _ = blocks[blk_i]
+    bad = bytearray(data)
+    bad[pos + 20] ^= 1 << 3
+    flipped = os.path.join(work, "flipped.bam")
+    with open(flipped, "wb") as f:
+        f.write(bad)
+    del data
+    size = (36 + NAME_LEN + 1 + 4 * g["ncig"] + (READ_LEN + 1) // 2
+            + READ_LEN + TAG_BYTES)
+    start = len(bam_header()) + np.concatenate([[0], np.cumsum(size)[:-1]])
+    ulo, uhi = blk_i * MAX_PAYLOAD, (blk_i + 1) * MAX_PAYLOAD
+    keep = (start + size <= ulo) | (start >= uhi)
+    try:
+        storage().read(flipped)
+    except CorruptBlockError as e:
+        check(e.block_offset == pos and e.shard_id == pos // split,
+              f"strict: {e}")
+        log(f"strict read: raises {e}")
+    else:
+        raise PhaseError("strict read of the flipped copy did not raise")
+    policy = {}
+    for name in ("skip", "quarantine"):
+        counters.reset()
+        t0 = time.perf_counter()
+        pd = storage().error_policy(name).read(flipped)
+        torch.cuda.synchronize()
+        policy[name] = time.perf_counter() - t0
+        snap = counters.snapshot()
+        c = pd.counters
+        log(f"{name} read: {policy[name]:.3f}s, {pd.count()} records "
+            f"({n - pd.count()} lost), counters {c.as_dict()}, "
+            f"{json.dumps(snap)}")
+        check((c.skipped_blocks, c.quarantined_blocks)
+              == ((1, 0) if name == "skip" else (0, 1)),
+              f"{name}: counters {c}")
+        check(pd.count() == int(keep.sum()), f"{name}: {pd.count()} records, "
+              f"want {int(keep.sum())}")
+        check(pd.reads.device_backed, f"{name}: not device-backed")
+        for col in ("refid", "pos", "flag", "mapq", "tlen", "next_pos"):
+            check(np.array_equal(getattr(pd.reads, col), g[col][keep]),
+                  f"{name}: column {col}")
+        check(np.array_equal(pd.reads.to_read_batch().names.reshape(-1, NAME_LEN),
+                             g["names"][keep]), f"{name}: names")
+        check(snap["launches"].get("inflate", 0) == n_splits,
+              f"{name}: inflate launches {snap['launches']}")
+        del pd
+    qdir = flipped + ".quarantine"
+    with open(os.path.join(qdir, "MANIFEST.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f.read().splitlines()]
+    check(lines[0] == {"version": 1} and len(lines) == 2,
+          f"quarantine manifest: {lines}")
+    entry = lines[1]
+    check(entry["block_offset"] == pos and entry["kind"] == "BGZF block"
+          and entry["length"] == total, f"quarantine entry {entry}")
+    with open(entry["sidecar"], "rb") as f:
+        check(f.read() == bytes(bad[pos: pos + total]),
+              "quarantine sidecar bytes")
+    del bad
+    log(f"policies: block at {pos} (split {pos // split}), "
+        f"{n - int(keep.sum())} records lost, manifest and sidecar ok")
+
+    # -- leg 4: the write pipeline at 1 and 4 workers ------------------------
+    outs, write_s = {}, {}
+    for workers in (1, 4):
+        out_path = os.path.join(work, f"sorted_w{workers}.bam")
+        t0 = time.perf_counter()
+        (storage().num_shards(WRITE_SHARDS).writer_workers(workers)
+         .write(ds, out_path, port.BaiWriteOption.ENABLE, sort=True))
+        write_s[workers] = time.perf_counter() - t0
+        with open(out_path, "rb") as f, open(out_path + ".bai", "rb") as fb:
+            outs[workers] = (f.read(), fb.read())
+    check(outs[1] == outs[4], "writer_workers 4 output differs from 1")
+    log(f"parallel write ({WRITE_SHARDS} shards): 1 worker {write_s[1]:.3f}s, "
+        f"4 workers {write_s[4]:.3f}s, BAM and BAI byte-identical")
+    del outs
+
+    entry = {"name": "inflate_legacy", "route": "cuda",
+             "source": "disq_tpu_torch/csrc/inflate_legacy.cu",
+             "replaces": "disq_tpu/ops/inflate.py:80",
+             "launches": l_launch.get("inflate_legacy", 0),
+             "max_abs_err": b4_err, "ms": round(b4_ms, 4),
+             "plain_ms": round(b4_plain_ms, 4),
+             "bound_ms": round(b4_bound, 6), "bound_by": b4_by,
+             "library_ms": None, "mismatches": b4_mism, "tolerance": 0,
+             "shape": {"blocks": len(first), "bytes_in": m_in,
+                       "bytes_out": m_out},
+             "plain_on": f"the same inputs (split 0's payloads), host, "
+                         f"{procs} processes",
+             "sample": f"{len(cases)} payloads",
+             "sample_mismatches": b4_s_mism,
+             "ms_on_sample": round(b4_sample_ms, 4),
+             "plain_ms_on_sample": round(b4_s_plain_ms, 4),
+             "codes_on_sample": b4_codes}
+    e2e = {"legacy_read_s": round(legacy_s, 4),
+           "executor4_read_s": round(executor_s, 4),
+           "skip_read_s": round(policy["skip"], 4),
+           "quarantine_read_s": round(policy["quarantine"], 4),
+           "write_w1_s": round(write_s[1], 4),
+           "write_w4_s": round(write_s[4], 4)}
+    return entry, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -692,7 +1048,8 @@ def run(args) -> dict:
     load_host_library()  # the host codec library, built from native/
     log(f"setup: CUDA context and host library {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
-    build_s = cuda_build.build(["inflate", "parse", "rans_simd", "rans"])
+    build_s = cuda_build.build(["inflate", "parse", "rans_simd", "rans",
+                                "inflate_legacy"])
     log(f"build: {json.dumps({k: round(v, 3) for k, v in build_s.items()})} "
         f"wall {time.perf_counter() - t0:.3f}s")
 
@@ -820,32 +1177,47 @@ def run(args) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p_out, p_len, p_st = B1.inflate_plain(*s_args, s_total)
-    b1_plain_ms = (time.perf_counter() - t0) * 1e3
+    b1_s_plain_ms = (time.perf_counter() - t0) * 1e3
     b1_sample_ms = cuda_ms(torch, lambda: B1.inflate(*s_args, s_total), 1, 3)
     ok = (p_st == 0)
     oo = s_args[3].cpu().numpy()
     byte_mask = torch.zeros(s_total, dtype=torch.bool, device=dev)
     for i in np.nonzero(ok.cpu().numpy())[0]:
         byte_mask[oo[i]: oo[i + 1]] = True
-    b1_err = max(
+    b1_s_err = max(
         int((k_out.int() - p_out.int()).abs()[byte_mask].max()) if byte_mask.any() else 0,
         int((k_st - p_st).abs().max()), int((k_len - p_len).abs().max()))
-    b1_mismatch = int((k_st != p_st).sum() + (k_len != p_len).sum())
+    b1_s_mism = int((k_st != p_st).sum() + (k_len != p_len).sum())
     codes = sorted(set(p_st.tolist()))
-    check(b1_err == 0 and b1_mismatch == 0, "inflate kernel != plain version")
+    check(b1_s_err == 0 and b1_s_mism == 0, "inflate kernel != plain version")
     check(set(range(9)) <= set(codes), f"status codes covered: {codes}")
 
-    # B1 at the main path's shape: the first split's blocks
+    # B1 at the main path's shape: the first split's blocks, held against
+    # its plain version on the same payloads
     first = [b for b in blocks if b[0] < args.split_size]
     lo, hi = first[0][0], first[-1][0] + first[-1][1]
     shifted = [(p - lo, t, h) for p, t, h in first]
     m_ins, m_total, m_in, m_out = inflate_inputs(
         torch, data[lo:hi], shifted, dev)
+    k_blob, k_len, k_st = (t.cpu().numpy() for t in B1.inflate(*m_ins, m_total))
+    (p_blob, p_len, p_st), b1_plain_ms, procs = plain_on_payloads(
+        "inflate", [data[p + h: p + t - 8] for p, t, h in first],
+        [struct.unpack_from("<I", data, p + t - 4)[0] for p, t, _ in first])
+    check(len(p_blob) == len(k_blob), "B1 plain blob size on split 0")
+    b1_err = max(int(np.abs(k_blob.astype(np.int16) - p_blob).max()),
+                 int(np.abs(k_len - p_len).max()),
+                 int(np.abs(k_st - p_st).max()))
+    b1_mismatch = int((k_blob != p_blob).sum() + (k_len != p_len).sum()
+                      + (k_st != p_st).sum())
+    check(b1_err == 0 and b1_mismatch == 0,
+          f"inflate kernel != plain version on split 0 ({b1_mismatch})")
+    del k_blob, p_blob
     b1_ms = cuda_ms(torch, lambda: B1.inflate(*m_ins, m_total), 1, 5)
     b1_bytes = m_in + m_out + 8 * (3 * len(first) + 1) + 8 * len(first)
     log(f"inflate: sample of {len(cases)} payloads, codes {codes}, kernel "
-        f"{b1_sample_ms:.3f} ms vs plain {b1_plain_ms:.1f} ms; split 0: "
-        f"{len(first)} blocks {m_in} -> {m_out} bytes in {b1_ms:.3f} ms")
+        f"{b1_sample_ms:.3f} ms vs plain {b1_s_plain_ms:.1f} ms; split 0: "
+        f"{len(first)} blocks {m_in} -> {m_out} bytes in {b1_ms:.3f} ms vs "
+        f"plain {b1_plain_ms:.1f} ms ({procs} processes), 0 mismatches")
 
     # B2 on every record of the file
     header_len = len(bam_header())
@@ -884,8 +1256,11 @@ def run(args) -> dict:
          "bound_by": "bytes", "library_ms": None,
          "mismatches": b1_mismatch, "tolerance": 0,
          "shape": {"blocks": len(first), "bytes_in": m_in, "bytes_out": m_out},
-         "plain_on": f"sample of {len(cases)} payloads",
-         "ms_on_plain_sample": round(b1_sample_ms, 4)},
+         "plain_on": f"the same inputs (split 0's payloads), host, "
+                     f"{procs} processes",
+         "sample": f"{len(cases)} payloads", "sample_mismatches": b1_s_mism,
+         "ms_on_sample": round(b1_sample_ms, 4),
+         "plain_ms_on_sample": round(b1_s_plain_ms, 4)},
         {"name": "parse", "route": "cuda",
          "source": "disq_tpu_torch/csrc/parse.cu",
          "replaces": "disq_tpu/ops/parse.py:70",
@@ -896,14 +1271,17 @@ def run(args) -> dict:
          "mismatches": b2_mismatch, "tolerance": 0, "shape": {"records": per},
          "plain_on": "the same inputs"},
     ]
+    b4_entry, legs_e2e = bam_legs(torch, port, args, g, info, ds, src, work,
+                                  dev, host_blob, stats["device_lanes"])
+    del host_blob, blob
     cram_kernels, cram_e2e = cram_phases(
         torch, port, args, g, perm_want, ds, storage, work, dev)
-    kernels += cram_kernels
+    kernels += cram_kernels + [b4_entry]
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
-           "splits": n_splits, **cram_e2e,
+           "splits": n_splits, **legs_e2e, **cram_e2e,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
     shutil.rmtree(work, ignore_errors=True)

@@ -16,3 +16,8 @@ from disq_tpu_torch.api import (  # noqa: F401
     TempPartsDirectoryWriteOption,
     WriteOption,
 )
+from disq_tpu_torch.runtime.errors import (  # noqa: F401
+    CorruptBlockError,
+    DisqOptions,
+    ErrorPolicy,
+)

@@ -9,6 +9,11 @@ Usage::
     storage.write(ds.coordinate_sorted(), "out.cram", CraiWriteOption.ENABLE)
     cr = storage.read("out.cram")        # order-0 rANS on the card
 
+    # corrupt blocks dropped and counted (or "quarantine"), splits read
+    # on 4 threads, write shards encoded and deflated on 4 threads
+    storage.error_policy("skip").executor_workers(4).writer_workers(4)
+    ds = storage.read("sample.bam"); ds.counters.skipped_blocks
+
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
 and without an explicit CPU request, ``read`` and ``write`` raise. On
@@ -23,11 +28,14 @@ a host ``ReadBatch``; reading reference-compressed CRAM needs
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from disq_tpu_torch.runtime.counters import PipelineCounters
+from disq_tpu_torch.runtime.errors import DisqOptions, ErrorPolicy
 
 
 class WriteOption:
@@ -92,10 +100,12 @@ def _infer_cardinality(path: str) -> FileCardinalityWriteOption:
 @dataclass
 class ReadsDataset:
     """Header + columnar read batch (a host ``ReadBatch`` or a
-    device-backed ``ColumnarBatch``)."""
+    device-backed ``ColumnarBatch``), and the read's counters (records,
+    blocks, bytes, skipped and quarantined blocks, retried reads)."""
 
     header: "SamHeader"
     reads: object
+    counters: PipelineCounters = field(default_factory=PipelineCounters)
 
     def count(self) -> int:
         return int(self.reads.count)
@@ -126,6 +136,7 @@ class ReadsStorage:
         self._device = device
         self._resident_decode = False
         self._reference_source_path: Optional[str] = None
+        self._options = DisqOptions()
 
     @classmethod
     def make_default(cls, device=None) -> "ReadsStorage":
@@ -138,6 +149,42 @@ class ReadsStorage:
     def num_shards(self, n: int) -> "ReadsStorage":
         """Write-shard count override (default: visible CUDA devices)."""
         self._num_shards = n
+        return self
+
+    def error_policy(self, policy: "ErrorPolicy | str") -> "ReadsStorage":
+        """Corrupt-block policy of BAM reads: ``strict`` (default —
+        raise ``CorruptBlockError`` with coordinates), ``skip`` (drop
+        and count) or ``quarantine`` (drop and copy to the quarantine
+        sidecar)."""
+        self._options = self._options.with_policy(policy)
+        return self
+
+    def options(self, opts: DisqOptions) -> "ReadsStorage":
+        """Replace the whole option set (policy, retries, backoff,
+        quarantine dir, executor and writer sizing) in one call."""
+        self._options = opts
+        return self
+
+    def executor_workers(self, n: int,
+                         prefetch_shards: Optional[int] = None
+                         ) -> "ReadsStorage":
+        """Size the BAM read's shard executor: ``n`` workers overlap
+        range reads, inflate and decode across splits, with at most
+        ``prefetch_shards`` splits ahead of the ordered emit (None ⇒
+        ``2 × n``). ``n=1`` (the default) runs splits in order on the
+        caller's thread. The result is identical for any ``n``."""
+        self._options = self._options.with_executor(n, prefetch_shards)
+        return self
+
+    def writer_workers(self, n: int,
+                       prefetch_shards: Optional[int] = None
+                       ) -> "ReadsStorage":
+        """Size the BAM write pipeline: ``n`` workers overlap record
+        encode, BGZF deflate and part staging across write shards, with
+        at most ``prefetch_shards`` shards ahead of the ordered emit
+        (None ⇒ ``2 × n``). Written files and indexes are byte-identical
+        for any ``n``."""
+        self._options = self._options.with_writer(n, prefetch_shards)
         return self
 
     def device(self, device) -> "ReadsStorage":

@@ -44,12 +44,26 @@ def scan_record_offsets(blob: bytes | np.ndarray, base: int = 0) -> np.ndarray:
         return scan_bam_offsets_native(buf[base:] if base else buf, base)
     except ImportError:
         pass
-    return np.asarray(_walk_record_chain(buf, base), dtype=np.int64)
+    return np.asarray(_walk_record_chain(buf, base, strict=True),
+                      dtype=np.int64)
 
 
-def _walk_record_chain(buf: np.ndarray, base: int) -> list:
-    """The sequential ``block_size`` chain walk: raises on an impossible
-    link or trailing garbage."""
+def scan_record_offsets_tolerant(blob: bytes | np.ndarray) -> np.ndarray:
+    """``scan_record_offsets`` for a buffer whose tail may be cut off (a
+    run of good blocks before a skipped corrupt one): stops at the last
+    complete record instead of raising. An impossible link (a
+    ``block_size`` below the fixed section) stops the walk too: under
+    skip/quarantine the caller keeps what decoded cleanly."""
+    buf = (np.asarray(memoryview(blob), dtype=np.uint8)
+           if not isinstance(blob, np.ndarray) else blob)
+    return np.asarray(_walk_record_chain(buf, 0, strict=False),
+                      dtype=np.int64)
+
+
+def _walk_record_chain(buf: np.ndarray, base: int, strict: bool) -> list:
+    """The sequential ``block_size`` chain walk: strict raises on an
+    impossible link or trailing garbage, tolerant stops at the last
+    complete record."""
     end = len(buf)
     offsets = [base]
     pos = base
@@ -59,13 +73,15 @@ def _walk_record_chain(buf: np.ndarray, base: int) -> list:
         block_size = int.from_bytes(mv[pos: pos + 4], "little")
         nxt = pos + 4 + block_size
         if block_size < _FIXED or nxt > end:
-            raise ValueError(
-                f"corrupt BAM record at offset {pos}: "
-                f"block_size={block_size}"
-            )
+            if strict:
+                raise ValueError(
+                    f"corrupt BAM record at offset {pos}: "
+                    f"block_size={block_size}"
+                )
+            break
         offsets.append(nxt)
         pos = nxt
-    if pos != end:
+    if strict and pos != end:
         raise ValueError(f"trailing garbage after records: {end - pos} bytes")
     return offsets
 

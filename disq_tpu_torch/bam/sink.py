@@ -9,7 +9,11 @@ are array arithmetic: canonical BGZF blocking puts 65280 payload bytes
 in every block, so ``voffset(u) = (block_comp_start[u // 65280] << 16)
 | (u % 65280)``.
 
-Shards run one after another: encode → deflate → stage, then the merge.
+Shards run through the write pipeline (``runtime/executor.py``):
+encode (slice and record encode) → deflate (BGZF blocks, virtual
+offsets, BAI fragment) → stage (the part's write, retried on transient
+faults), then the merge in shard order. With ``writer_workers > 1`` the
+steps of different shards overlap; the bytes are the same at any width.
 """
 
 from __future__ import annotations
@@ -25,6 +29,12 @@ from disq_tpu_torch.bgzf.block import BGZF_EOF_MARKER, BGZF_MAX_PAYLOAD
 from disq_tpu_torch.bgzf.codec import compress_to_bgzf, deflate_blob
 from disq_tpu_torch.fsw.filesystem import resolve_path
 from disq_tpu_torch.index.bai import build_bai, merge_bai_fragments
+from disq_tpu_torch.runtime.executor import (
+    WriteShardTask,
+    run_write_stage,
+    write_retrier_for_storage,
+    writer_for_storage,
+)
 from disq_tpu_torch.util import shard_bounds
 
 
@@ -76,30 +86,44 @@ class BamSink:
         n_shards, bounds = shard_bounds(self._storage, batch.count)
         fs.mkdirs(temp_dir)
         try:
-            parts, frags = [], []
-            for k in range(n_shards):
-                part_path, comp_len, frag = self._write_part(
-                    fs, header, batch, temp_dir, bounds, k, write_bai)
-                parts.append((part_path, comp_len))
-                frags.append(frag)
-            self._merge(fs, header, path, temp_dir, parts, frags, write_bai)
+            parts = run_write_stage(
+                writer_for_storage(self._storage), n_shards,
+                lambda k: self._write_task(fs, header, batch, temp_dir,
+                                           bounds, k, write_bai))
+            self._merge(fs, header, path, temp_dir,
+                        [(p, n) for p, n, _ in parts],
+                        [f for _, _, f in parts], write_bai)
         finally:
             fs.delete(temp_dir, recursive=True)
 
-    def _write_part(self, fs, header, batch, temp_dir, bounds, k, write_bai):
-        """Encode, deflate and stage shard ``k``; returns (part path,
-        compressed length, BAI fragment or None)."""
-        part = batch.slice(int(bounds[k]), int(bounds[k + 1]))
-        blob, rec_offs = encode_records_with_offsets(part)
-        comp, csizes = deflate_blob(blob)
-        voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
-        frag = None
-        if write_bai:
-            frag = build_bai(part.refid, part.pos, part.alignment_ends(),
-                             part.flag, voffs, end_voffs, header.n_ref)
-        part_path = os.path.join(temp_dir, f"part-{k:05d}")
-        fs.write_all(part_path, comp)
-        return part_path, len(comp), frag
+    def _write_task(self, fs, header, batch, temp_dir, bounds, k, write_bai):
+        """Shard ``k``'s encode, deflate and stage steps; the stage step
+        returns (part path, compressed length, BAI fragment or None)."""
+
+        def encode():
+            part = batch.slice(int(bounds[k]), int(bounds[k + 1]))
+            return (part,) + encode_records_with_offsets(part)
+
+        def deflate(payload):
+            part, blob, rec_offs = payload
+            comp, csizes = deflate_blob(blob)
+            frag = None
+            if write_bai:
+                voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
+                frag = build_bai(part.refid, part.pos, part.alignment_ends(),
+                                 part.flag, voffs, end_voffs, header.n_ref)
+            return comp, frag
+
+        def stage(payload):
+            comp, frag = payload
+            part_path = os.path.join(temp_dir, f"part-{k:05d}")
+            fs.write_all(part_path, comp)
+            return part_path, len(comp), frag
+
+        return WriteShardTask(shard_id=k, encode=encode, deflate=deflate,
+                              stage=stage,
+                              retrier=write_retrier_for_storage(self._storage),
+                              what="bam.part")
 
     def _merge(self, fs, header, path, temp_dir, parts, frags, write_bai):
         header_comp = compress_to_bgzf(header.to_bam_bytes(),

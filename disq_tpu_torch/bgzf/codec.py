@@ -10,6 +10,11 @@ Two inflate routes share this module's block framing:
   offset in one decoded device blob. The blob comes back to the host
   once for the CRC check and the record scan, and stays on the device
   for the parse kernel. On ``cuda`` this is the read path's default.
+  ``DISQ_TPU_TORCH_DEVICE_INFLATE=legacy`` takes kernel B4
+  (``ops/inflate.py``) instead, as the reference's ``legacy`` knob does:
+  one 65,536-byte row per block, which comes back to the host, where
+  the rows' prefixes are joined into the blob, CRC-checked, and the
+  blob is uploaded once more for the parse kernel.
 
 **Canonical deflate pin**: raw DEFLATE, zlib level 6, memLevel 8,
 default strategy — every BGZF byte this package writes uses exactly
@@ -92,13 +97,16 @@ def inflate_blocks(data: bytes, blocks: Sequence[BgzfBlock], base: int = 0,
 def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
                           base: int, device, verify_crc: bool = True):
     """Device route: returns ``(host blob, device blob)``, the same
-    decoded bytes on both sides. Raises ``ValueError`` when the kernel
-    flags a block (nonzero status) or a CRC does not match — the
-    caller's strict-policy path then names the corrupt block."""
+    decoded bytes on both sides. When the kernel flags blocks (nonzero
+    status) or their CRCs do not match, raises ``FlaggedBlocksError``
+    (a ``ValueError``) with the first one's message, every bad block,
+    and the batch's output, which the caller's salvage path keeps for
+    the good blocks."""
     import torch
 
-    from disq_tpu_torch.ops.inflate_simd import inflate_payloads_device
     from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime.device_pipeline import upload
+    from disq_tpu_torch.runtime.errors import FlaggedBlocksError
 
     if not blocks:
         empty = np.empty(0, dtype=np.uint8)
@@ -106,36 +114,100 @@ def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
     arr, off, hdr, csize, usize = _block_arrays(data, blocks, base)
     pay_off = off + hdr
     pay_len = csize - hdr - BGZF_FOOTER_SIZE
-    blob_dev, out_off = inflate_payloads_device(
-        arr, pay_off, pay_len, usize, device)
-    blob = blob_dev.cpu().numpy()
-    if blob_dev.is_cuda:
-        counters.book_transfer("d2h", blob.nbytes)
-    if verify_crc:
-        _verify_block_crcs(data, blocks, base, blob, out_off)
+    blob_dev = None
+    if legacy_inflate():
+        blob, out_off, flagged = _inflate_legacy(arr, pay_off, pay_len, usize,
+                                                 device)
+    else:
+        from disq_tpu_torch.ops.inflate_simd import inflate_payloads_device
+
+        try:
+            blob_dev, out_off = inflate_payloads_device(
+                arr, pay_off, pay_len, usize, device)
+            flagged = None
+        except FlaggedBlocksError as e:
+            blob_dev, out_off, flagged = e.blob_dev, e.out_off, e
+        blob = blob_dev.cpu().numpy()
+        if blob_dev.is_cuda:
+            counters.book_transfer("d2h", blob.nbytes)
+    bad = set(flagged.bad) if flagged is not None else set()
+    crc_bad = (_crc_failures(data, blocks, base, blob, out_off, bad)
+               if verify_crc else [])
+    if bad or crc_bad:
+        raise FlaggedBlocksError(
+            str(flagged) if flagged is not None
+            else f"BGZF CRC mismatch at block {crc_bad[0]}",
+            sorted(bad.union(crc_bad)), blob=blob, blob_dev=blob_dev,
+            out_off=out_off)
+    if blob_dev is None:
+        blob_dev = upload(blob, torch.device(device))
     return blob, blob_dev
 
 
-def _verify_block_crcs(data, blocks, base, blob, offsets) -> None:
-    """CRC check of device-decoded output against the BGZF footers over
-    zero-copy blob slices; big batches fan out over the shared pool
+def legacy_inflate() -> bool:
+    """``DISQ_TPU_TORCH_DEVICE_INFLATE=legacy``: the device route decodes
+    with kernel B4 instead of B1."""
+    import os
+
+    return os.environ.get("DISQ_TPU_TORCH_DEVICE_INFLATE",
+                          "").lower() == "legacy"
+
+
+def _inflate_legacy(arr, pay_off, pay_len, usize, device):
+    """B4 on a shard's payloads: (host blob, block output offsets, the
+    reference's ``FlaggedBlocksError`` when blocks were flagged, else
+    None)."""
+    from disq_tpu_torch.ops.inflate import check_meta, inflate_rows
+    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime.errors import FlaggedBlocksError
+
+    rows, meta = inflate_rows(arr, pay_off, pay_len, usize, device)
+    blob, out_off = row_prefixes(rows, meta[:, 0])
+    try:
+        check_meta(meta)
+    except FlaggedBlocksError as e:
+        counters.book_host_fallback("flagged", len(e.bad))
+        return blob, out_off, e
+    return blob, out_off, None
+
+
+def row_prefixes(rows: np.ndarray, sizes: np.ndarray):
+    """Join the first ``sizes[i]`` bytes of each row of ``rows``:
+    (joined uint8 array, (n+1) int64 offsets)."""
+    out_off = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=out_off[1:])
+    out = np.empty(int(out_off[-1]), dtype=np.uint8)
+    chunk = 256  # rows per prefix-mask gather: ≤16 MiB of mask
+    cols = np.arange(rows.shape[1])
+    for lo in range(0, rows.shape[0], chunk):
+        hi = min(lo + chunk, rows.shape[0])
+        keep = cols < sizes[lo:hi, None]
+        out[out_off[lo]: out_off[hi]] = rows[lo:hi][keep]
+    return out, out_off
+
+
+def _crc_failures(data, blocks, base, blob, offsets, skip) -> list:
+    """The blocks (batch indices, those in ``skip`` left out) whose
+    device-decoded bytes fail their BGZF footer's CRC, over zero-copy
+    blob slices; big batches fan out over the shared pool
     (``zlib.crc32`` releases the GIL)."""
 
-    def check(i: int) -> None:
+    def fails(i: int) -> bool:
+        if i in skip:
+            return False
         b = blocks[i]
         crc = struct.unpack_from(
             "<I", data, b.pos - base + b.csize - BGZF_FOOTER_SIZE)[0]
-        if zlib.crc32(blob[int(offsets[i]): int(offsets[i + 1])]) != crc:
-            raise ValueError(f"BGZF CRC mismatch at block {i}")
+        return zlib.crc32(blob[int(offsets[i]): int(offsets[i + 1])]) != crc
 
+    idx = range(len(blocks))
     if len(blocks) >= 32:
         from disq_tpu_torch.util import shared_host_pool
 
-        for _ in shared_host_pool().map(check, range(len(blocks))):
-            pass
+        flags = list(shared_host_pool().map(fails, idx))
     else:
-        for i in range(len(blocks)):
-            check(i)
+        flags = [fails(i) for i in idx]
+    return [i for i in idx if flags[i]]
 
 
 def deflate_blob(blob: bytes) -> Tuple[bytes, np.ndarray]:
@@ -154,16 +226,7 @@ def deflate_blob(blob: bytes) -> Tuple[bytes, np.ndarray]:
 
         rows, sizes = deflate_blocks_native(blob, pay_off,
                                             level=CANONICAL_LEVEL)
-        out_off = np.zeros(len(sizes) + 1, dtype=np.int64)
-        np.cumsum(sizes, out=out_off[1:])
-        out = np.empty(int(out_off[-1]), dtype=np.uint8)
-        chunk = 256  # rows per prefix-mask gather: ≤16 MiB of mask
-        cols = np.arange(rows.shape[1])
-        for lo in range(0, rows.shape[0], chunk):
-            hi = min(lo + chunk, rows.shape[0])
-            keep = cols < sizes[lo:hi, None]
-            out[out_off[lo]: out_off[hi]] = rows[lo:hi][keep]
-        return out.tobytes(), sizes.astype(np.int64)
+        return row_prefixes(rows, sizes)[0].tobytes(), sizes.astype(np.int64)
     except ImportError:
         pass
     from disq_tpu_torch.util import shared_host_pool

@@ -152,38 +152,71 @@ def walk_blocks_collect(
     return blocks, b"".join(parts)
 
 
-def first_bad_header(fs: FileSystemWrapper, path: str, start: int, end: int,
-                     length: int):
-    """One-block-at-a-time walk from ``start`` after the batched walk
-    raised: (file offset, error) of the first malformed block header
-    before ``end``, or None when every header parses alone."""
+def walk_blocks_salvage(fs: FileSystemWrapper, path: str, start: int,
+                        end: int, length: int, ctx, owned_until: int):
+    """One-block-at-a-time walk, run only after the batched chain walk
+    (``walk_blocks_collect``) raised on a malformed block header. Each
+    corrupt span is handled by ``ctx`` (a ``runtime.errors.
+    ShardErrorContext``; STRICT raises with the span's coordinates) and
+    the walk re-syncs at the next chain-validated block start. Returns
+    (blocks, data, gaps): ``data`` is contiguous from ``start``, corrupt
+    spans included, so block offsets index it directly; ``gaps`` lists
+    the corrupt [lo, hi) spans. Spans at or past ``owned_until`` are
+    handled silently: their owner counts them. Each read is retried on
+    its own and length-checked, so a short read is transient, never a
+    corrupt header."""
+    from disq_tpu_torch.runtime.errors import TruncatedReadError
+
+    blocks: List[BgzfBlock] = []
+    parts: List[bytes] = []
+    gaps: List[tuple] = []
+    guesser = BgzfBlockGuesser(fs, path)
+    retry = ctx.retrier.call
     pos = start
+
+    def read_exact(p, n):
+        def attempt():
+            b = fs.read_range(path, p, n)
+            if len(b) < n:
+                raise TruncatedReadError(
+                    f"short read at {p} in {path}: {len(b)} < {n}")
+            return b
+        return retry(attempt, what="salvage_walk")
+
     while pos < end and pos < length:
-        buf = fs.read_range(path, pos, min(BGZF_MAX_BLOCK_SIZE, length - pos))
+        buf = read_exact(pos, min(BGZF_MAX_BLOCK_SIZE, length - pos))
         try:
             total = parse_block_header(buf, 0)
             if total > len(buf):
                 raise ValueError(
                     f"BGZF file ends mid-block at {pos} in {path}")
+            usize = struct.unpack_from("<I", buf, total - 4)[0]
         except ValueError as e:
-            return pos, e
+            nxt = retry(guesser.guess_block_start, pos + 1,
+                        what="salvage_resync")
+            span_end = min(end, length)
+            if nxt is not None and nxt < span_end:
+                span_end = nxt
+            # the sidecar holds the whole span, not the first 64 KiB
+            gap_raw = buf[: span_end - pos]
+            if len(gap_raw) < span_end - pos:
+                gap_raw += read_exact(pos + len(gap_raw),
+                                      span_end - pos - len(gap_raw))
+            target = ctx.silent() if pos >= owned_until else ctx
+            target.handle_corrupt_block(
+                e, block_offset=pos, raw=bytes(gap_raw),
+                virtual_offset=make_virtual_offset(pos, 0),
+                kind="BGZF block header")
+            parts.append(gap_raw)
+            gaps.append((pos, span_end))
+            if nxt is None or nxt >= min(end, length):
+                break
+            pos = span_end
+            continue
+        blocks.append(BgzfBlock(pos=pos, csize=total, usize=usize))
+        parts.append(buf[:total])
         pos += total
-    return None
-
-
-def raise_bad_header(fs: FileSystemWrapper, path: str, start: int, end: int,
-                     length: int, shard_id: int, err: ValueError) -> None:
-    """The strict policy for a chain walk that raised: a
-    ``CorruptBlockError`` at the first malformed header, else ``err``."""
-    from disq_tpu_torch.runtime.errors import corrupt
-
-    bad = first_bad_header(fs, path, start, end, length)
-    if bad is None:
-        raise err
-    pos, e = bad
-    raise corrupt(e, kind="BGZF block header", path=path, shard_id=shard_id,
-                  block_offset=pos,
-                  virtual_offset=make_virtual_offset(pos, 0)) from e
+    return blocks, b"".join(parts), gaps
 
 
 def find_block_table(fs: FileSystemWrapper, path: str, start: int = 0,

@@ -28,7 +28,6 @@ Replaces htsjdk's ``CramCompressionRecord`` + ``Cram(Record)Codec`` +
 
 from __future__ import annotations
 
-import os
 import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -38,6 +37,7 @@ import numpy as np
 from disq_tpu_torch.bam.columnar import _NT16_CHARS, ReadBatch, SEQ_NT16
 from disq_tpu_torch.cram.io import Cursor, write_itf8, write_itf8_array
 from disq_tpu_torch.index.bai import bins_from_cigars
+from disq_tpu_torch.runtime.debug import env_flag
 from disq_tpu_torch.runtime.errors import MissingReferenceError
 
 # Encoding codec ids (CRAM 3.0 §12)
@@ -543,12 +543,6 @@ class _Readers:
 def _seq_chars(batch: ReadBatch, i: int) -> np.ndarray:
     s, e = batch.seq_offsets[i], batch.seq_offsets[i + 1]
     return _NT16_CHARS[batch.seqs[s:e]]
-
-
-def env_flag(name: str, default: str = "0") -> bool:
-    """Boolean env knob: unset ⇒ ``default``; ""/0/false/off ⇒ False."""
-    return os.environ.get(name, default).lower() not in (
-        "", "0", "false", "off")
 
 
 def _qs_order1() -> bool:

@@ -3,13 +3,15 @@
 This system has no model weights; what crosses between ``disq_tpu`` and
 this port is data. These helpers take the reference's decoded state in
 plain Python/numpy form — a record batch as numpy columns, a SAM header
-as its text plus references, write options by name — and build the
-port's objects from it, so the sort-and-write half of both packages can
-be fed identical input. Nothing here imports the reference.
+as its text plus references, write options by name, read options and
+error policies as any object with the reference's fields — and build the
+port's objects from it, so both packages can be fed identical input and
+configuration. Nothing here imports the reference.
 """
 
 from __future__ import annotations
 
+from dataclasses import fields
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -24,6 +26,7 @@ from disq_tpu_torch.api import (
 )
 from disq_tpu_torch.bam.columnar import ReadBatch
 from disq_tpu_torch.bam.header import SamHeader, SamSequence
+from disq_tpu_torch.runtime.errors import DisqOptions, ErrorPolicy
 
 _DTYPES = {
     "refid": np.int32, "pos": np.int32, "mapq": np.uint8, "bin": np.uint16,
@@ -83,3 +86,20 @@ def dataset_from_state(header_text: str, refs: Sequence[Tuple[str, int]],
     """A ``ReadsDataset`` from a header (text + refs) and numpy columns."""
     return ReadsDataset(header=header_from_text(header_text, refs),
                         reads=read_batch_from_columns(columns))
+
+
+def error_policy(policy) -> ErrorPolicy:
+    """The port's ``ErrorPolicy`` for a policy enum of the reference (by
+    its ``value``) or a name such as ``"skip"``."""
+    return ErrorPolicy.coerce(getattr(policy, "value", policy))
+
+
+def options_from(opts) -> DisqOptions:
+    """The port's ``DisqOptions`` from any object (the reference's
+    ``DisqOptions``) or dict with the same field names; fields the port
+    has no counterpart for are left out."""
+    get = opts.get if isinstance(opts, dict) else \
+        (lambda name, default: getattr(opts, name, default))
+    values = {f.name: get(f.name, f.default) for f in fields(DisqOptions)}
+    values["error_policy"] = error_policy(values["error_policy"])
+    return DisqOptions(**values)

@@ -106,6 +106,28 @@ def status_cases() -> List[Tuple[str, bytes, int, int]]:
     return cases
 
 
+def legacy_cases() -> List[Tuple[str, bytes, int, int]]:
+    """Payloads where kernel B4's rules (``ops/inflate.py``) decide:
+    ``(name, payload, usize, B4's status)``."""
+    # fixed Huffman: literal 'a', then 260 matches of length 258 at
+    # distance 1 — 67,081 bytes, past the 65,536-byte row
+    w = BitWriter().put(1, 1).put(1, 2).code(0x30 + ord("a"), 8)
+    for _ in range(260):
+        w.code(0xC0 + 285 - 280, 8).code(0, 5)
+    runaway = w.code(0, 7).tobytes()
+    stored = _stored(3, 3 ^ 0xFFFF, b"abc")
+    return [
+        ("row_overflow", runaway, -1, 5),
+        ("row_overflow_isize", runaway, 67081, 5),
+        # a non-final stored block and nothing after it: the next header
+        # reads zeros, a stored block of LEN 0 and NLEN 0
+        ("cut_after_block", bytes([stored[0] & ~1]) + stored[1:], 3, 2),
+        ("empty_payload", b"", -1, 2),
+        ("isize_unchecked", stored, -1, 0),
+        ("isize_long", stored, 2, 8),
+    ]
+
+
 def good_cases(seed: int = 0) -> List[Tuple[str, bytes, bytes]]:
     """(name, payload, decoded) for stored, fixed and dynamic blocks at
     zlib levels 1, 6 and 9 over small BAM-like and random inputs."""

@@ -32,48 +32,25 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from disq_tpu_torch.ops.inflate import (  # the RFC 1951 tables, shared with B4
+    BAD_BTYPE, BAD_CODE, BAD_DIST, BAD_STORED, IN_OVERRUN, ISIZE_MISMATCH,
+    OK, OUT_OVERFLOW, REPEAT_OVERFLOW, CLORDER as _CLORDER, DBASE as _DBASE,
+    DEXT as _DEXT, FIXED_LENS as _FIXED_LENS, LBASE as _LBASE, LEXT as _LEXT,
+    NDIST as _NDIST, NLIT as _NLIT,
+)
 from disq_tpu_torch.runtime import counters
-
-# RFC 1951 §3.2.5: length codes 257..285.
-_LBASE = np.array(
-    [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51,
-     59, 67, 83, 99, 115, 131, 163, 195, 227, 258], dtype=np.int32)
-_LEXT = np.array(
-    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4,
-     4, 5, 5, 5, 5, 0], dtype=np.int32)
-# Distance codes 0..29 (padded to 32).
-_DBASE = np.array(
-    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385,
-     513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193, 12289, 16385,
-     24577, 0, 0], dtype=np.int32)
-_DEXT = np.array(
-    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10,
-     10, 11, 11, 12, 12, 13, 13, 0, 0], dtype=np.int32)
-# RFC 1951 §3.2.7: order of the code-length code lengths.
-_CLORDER = np.array(
-    [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15],
-    dtype=np.int32)
-_NLIT = 288
-_NDIST = 32
-# RFC 1951 §3.2.6: fixed-Huffman code lengths, literal/length then distance.
-_FIXED_LENS = np.concatenate(
-    [np.full(144, 8), np.full(112, 9), np.full(24, 7), np.full(8, 8),
-     np.full(_NDIST, 5)]
-).astype(np.int32)
 
 STATUS_NAMES = (
     "ok", "bad BTYPE", "stored LEN mismatch", "bad Huffman code",
     "bad distance", "output overflow", "input overrun",
     "code-length repeat overflow", "ISIZE mismatch",
 )
-OK, BAD_BTYPE, BAD_STORED, BAD_CODE, BAD_DIST = 0, 1, 2, 3, 4
-OUT_OVERFLOW, IN_OVERRUN, REPEAT_OVERFLOW, ISIZE_MISMATCH = 5, 6, 7, 8
 
-# Cumulative dispatch counts (callers snapshot before/after):
-# device_lanes = blocks decoded in the kernel; host_big = blocks routed
-# to the host for size (always 0: every BGZF payload fits the kernel);
-# host_fallback = blocks the kernel flagged, which the host re-inflates
-# on the strict error path.
+# Cumulative dispatch counts (callers snapshot before/after), updated
+# under ``counters.add_stats``' lock: device_lanes = blocks decoded in
+# the kernel; host_big = blocks routed to the host for size (always 0:
+# every BGZF payload fits the kernel); host_fallback = blocks the kernel
+# flagged, which the host re-inflates on the salvage path.
 last_stats = {"device_lanes": 0, "host_big": 0, "host_fallback": 0}
 
 _LB, _LX, _DB, _DX = (t.tolist() for t in (_LBASE, _LEXT, _DBASE, _DEXT))
@@ -382,8 +359,8 @@ def inflate_payloads_device(data: np.ndarray, pay_off: np.ndarray,
     """Upload a shard's compressed bytes once, decode every payload into
     one device blob at its ISIZE-prefix-sum offset, and check the
     statuses; returns ``(device blob, out_off)``. A flagged block raises
-    ``ValueError`` naming it — corrupt input, for the caller's strict
-    error path."""
+    ``FlaggedBlocksError`` (a ``ValueError``) naming it, which carries
+    the blob and the flagged blocks for the caller's salvage path."""
     device = torch.device(device)
     n = len(pay_off)
     out_off = np.zeros(n + 1, dtype=np.int64)
@@ -399,12 +376,15 @@ def inflate_payloads_device(data: np.ndarray, pay_off: np.ndarray,
     if device.type == "cuda":
         counters.book_transfer("d2h", st.nbytes)
     bad = np.nonzero(st)[0]
-    last_stats["device_lanes"] += n - len(bad)
+    counters.add_stats(last_stats, device_lanes=n - len(bad),
+                       host_fallback=len(bad))
     if len(bad):
-        last_stats["host_fallback"] += len(bad)
+        from disq_tpu_torch.runtime.errors import FlaggedBlocksError
+
         counters.book_host_fallback("flagged", len(bad))
         i = int(bad[0])
-        raise ValueError(
+        raise FlaggedBlocksError(
             f"device inflate failed at block {i}: status {int(st[i])} "
-            f"({STATUS_NAMES[int(st[i])]})")
+            f"({STATUS_NAMES[int(st[i])]})", bad, blob_dev=blob,
+            out_off=out_off)
     return blob, out_off

@@ -298,7 +298,7 @@ def decode_streams(streams: Sequence[bytes], device, decode: Callable,
         raise stream_error(ValueError(
             f"device rANS decode overran stream {live[i]} "
             f"(consumed {int(used[i])} of {int(clen[i])})"), live[i])
-    stats["device_lanes"] += len(live)
+    counters.add_stats(stats, device_lanes=len(live))
     for i, k in enumerate(live):
         out[k] = blob[out_off[i]: out_off[i + 1]].tobytes()
     return out

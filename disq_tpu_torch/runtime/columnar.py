@@ -35,6 +35,11 @@ _COL_DTYPE = {
 }
 
 
+class DeviceParseFault(ValueError):
+    """The device record check flagged a record that the host parser
+    accepts: a fault of the device parse, not corrupt input."""
+
+
 def record_check(cols: Dict[str, torch.Tensor], rec_len: torch.Tensor,
                  n_ref: Optional[int]) -> bool:
     """Eager corrupt-record test mirroring the host parser
@@ -105,7 +110,8 @@ class ColumnarBatch:
         ``device_blob``'s device, in place from ``device_blob`` (the
         inflate kernel's output, rebased by ``origin``); ``blob`` is its
         host copy, kept for the ragged columns. Raises ``ValueError``
-        like the host parser on a corrupt record."""
+        like the host parser on a corrupt record, and
+        ``DeviceParseFault`` when only the device check flags one."""
         from disq_tpu_torch.runtime.device_pipeline import (
             parse_columns_resident,
             upload,
@@ -126,7 +132,7 @@ class ColumnarBatch:
             from disq_tpu_torch.bam.codec import decode_records
 
             decode_records(blob, self._offsets, n_ref=n_ref)
-            raise ValueError(
+            raise DeviceParseFault(
                 "device record check flagged a record that the host "
                 "parser accepts")
         self._dev = {k: cols[k] for k in FIXED_COLUMNS}

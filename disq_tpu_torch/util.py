@@ -36,7 +36,8 @@ _HOST_POOL_LOCK = threading.Lock()
 def shared_host_pool():
     """The process-wide ThreadPoolExecutor for short GIL-released host
     work (batch CRC checks, the zlib fallbacks). Created lazily on first
-    use and never shut down; min(4, cpus) threads."""
+    use; min(4, cpus) threads, which stay until
+    ``shutdown_shared_host_pool``."""
     global _HOST_POOL
     from concurrent.futures import ThreadPoolExecutor
 
@@ -46,6 +47,15 @@ def shared_host_pool():
                 max_workers=min(4, os.cpu_count() or 1),
                 thread_name_prefix="disq-torch-hostwork")
         return _HOST_POOL
+
+
+def shutdown_shared_host_pool() -> None:
+    """Join the shared pool's threads; the next use starts a new pool."""
+    global _HOST_POOL
+    with _HOST_POOL_LOCK:
+        pool, _HOST_POOL = _HOST_POOL, None
+    if pool is not None:
+        pool.shutdown(wait=True)
 
 
 def resolve_num_shards(storage) -> int:

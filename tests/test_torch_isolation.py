@@ -110,7 +110,9 @@ def test_importing_kernel_modules_builds_nothing(tmp_path):
     env = dict(os.environ, PATH=str(tmp_path))
     code = (
         "from disq_tpu_torch.ops import cuda_build, inflate_simd, parse\n"
-        "from disq_tpu_torch.ops import rans, rans_simd\n"
+        "from disq_tpu_torch.ops import inflate, rans, rans_simd\n"
+        "from disq_tpu_torch.bam import source, sink\n"
+        "from disq_tpu_torch.runtime import executor\n"
         "from disq_tpu_torch.runtime import device_pipeline, columnar\n"
         "from disq_tpu_torch.bgzf import codec\n"
         "from disq_tpu_torch.cram import rans, source, sink\n"
@@ -128,13 +130,14 @@ def _kernel_libs():
             if f.startswith(("libinflate", "libparse", "librans"))}
 
 
-def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+@pytest.mark.parametrize("kernel", ["parse", "inflate_legacy"])
+def test_build_without_nvcc_raises(monkeypatch, tmp_path, kernel):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(cuda_build, "NVCC_DEFAULT", str(tmp_path / "nvcc"))
     monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(cuda_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.load("parse")
+        cuda_build.load(kernel)
     assert cuda_build._libs == {}
     assert os.listdir(tmp_path / "build") == []
 

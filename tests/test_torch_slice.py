@@ -31,6 +31,7 @@ from disq_tpu_torch.ops import inflate_simd as B1
 from disq_tpu_torch.runtime import counters
 from disq_tpu_torch.runtime.columnar import ColumnarBatch
 from disq_tpu_torch.runtime.errors import CorruptBlockError
+from disq_tpu_torch.util import shutdown_shared_host_pool
 
 FIXED = ("refid", "pos", "mapq", "bin", "flag", "next_refid", "next_pos",
          "tlen")
@@ -39,6 +40,20 @@ RAGGED = ("name_offsets", "names", "cigar_offsets", "cigars", "seq_offsets",
 
 _FLAGS = (0x1 | 0x2 | 0x20 | 0x40, 0x1 | 0x2 | 0x10 | 0x80, 0x1 | 0x8 | 0x40,
           0x1 | 0x4 | 0x80, 0x0, 0x10)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _join_host_threads():
+    """Leave no idle pool threads behind for later tests in the process
+    (the port's host pool, and the reference's, which its reads start)."""
+    yield
+    shutdown_shared_host_pool()
+    from disq_tpu import util as ref_util
+
+    with ref_util._HOST_POOL_LOCK:
+        pool, ref_util._HOST_POOL = ref_util._HOST_POOL, None
+    if pool is not None:
+        pool.shutdown(wait=True)
 
 
 def _records(n, seed, tail):
