@@ -37,9 +37,11 @@ shows from
 the launch counts (zeroed just before each path, read just after) that
 each path went through its kernels, holds each kernel against its plain
 version on the inputs of split 0 (the inflate kernels' pure-Python plain
-versions in one spawned process per core) and on a sample of corrupt
-and truncated inputs (B3 also against the native host decoder on every
-stream of the file), and times them. Any failed phase exits non-zero.
+versions in one spawned process per core) and on a sample of corrupt,
+truncated and edge-case inputs (B3 also against the native host decoder
+on every stream of the file), and times them, B1 and B3 also on one
+payload or stream alone, beside their launch geometry. Any failed phase
+exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -417,9 +419,13 @@ def qs_streams(path: str, offsets: list) -> list:
 def rans_sample(g: dict, seed: int):
     """Streams for the kernel-vs-plain check: tiny, empty and
     single-symbol streams, 64 KiB slices of the generator's quality bytes
-    (native order-0 encoder), and truncated copies that must flag
-    status 6. Returns (raws, valid streams, truncated streams)."""
+    (native order-0 encoder), the edge streams of ``ops/rans_cases.py``
+    (raw sizes 1-7, one symbol, all 256 symbols, a superstep with 8
+    renorm bytes), and truncated copies that must flag status 6, one of
+    them only in its last superstep. Returns (raws, valid streams,
+    truncated streams)."""
     from disq_tpu_torch.native import rans_encode0_native
+    from disq_tpu_torch.ops import rans_cases
 
     rng = np.random.default_rng(seed)
     raws = [b"", b"x", b"ab", bytes(range(5)), b"A" * 4096, b"\x00" * 3]
@@ -427,13 +433,13 @@ def rans_sample(g: dict, seed: int):
     for start in rng.integers(0, len(q) - 65536, 8):
         raws.append(q[start: start + 65536].tobytes())
     streams = [rans_encode0_native(r) for r in raws]
-    truncated = []
-    for k, cut in ((6, 1), (7, 40), (8, 5000), (9, 1)):
-        enc = bytearray(streams[k])
-        comp = struct.unpack_from("<I", enc, 1)[0]
-        struct.pack_into("<I", enc, 1, comp - cut)
-        truncated.append(bytes(enc[: 9 + comp - cut]))
-    return raws, streams, truncated
+    truncated = [rans_cases.truncated(streams[k], cut)
+                 for k, cut in ((6, 1), (7, 40), (8, 5000), (9, 1))]
+    _names, e_raws, e_streams, e_cut = rans_cases.edge_streams(
+        rans_encode0_native)
+    check(max(rans_cases.superstep_renorms(e_streams[-1])) == 8,
+          "no superstep of the sample takes 8 renorm bytes")
+    return raws + e_raws, streams + e_streams, truncated + e_cut
 
 
 RANS_OPS_PER_SYMBOL = 10   # mask, 3 table reads, shift, mul, add, sub, renorm
@@ -542,6 +548,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     versions and B3 against the native decoder; returns (kernel entries,
     e2e fields)."""
     from disq_tpu_torch.native import rans_decode_native
+    from disq_tpu_torch.ops import cuda_build
     from disq_tpu_torch.ops import rans as B5
     from disq_tpu_torch.ops import rans_simd as B3
     from disq_tpu_torch.runtime import counters
@@ -668,13 +675,21 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     b5_ms = cuda_ms(torch, lambda: B5.rans0_decode_legacy(*m_args, m_total),
                     1, 3)
     bound_ms, bound_by = rans_bound(m_ren, m_out)
+    b3_geom = cuda_build.geometry("rans_simd", len(m_ren) - 1)
+    # one stream alone: the latency of one warp's decode
+    one = (m_args[0], m_args[1][:2].contiguous(), m_args[2][:2].contiguous(),
+           m_args[3][:1].contiguous(), m_args[4][:1].contiguous())
+    one_out = int(m_out[1])
+    b3_one_ms = cuda_ms(torch, lambda: B3.rans0_decode(*one, one_out), 1, 3)
     log(f"rans: sample of {len(sample) + len(truncated)} streams "
         f"({len(truncated)} truncated), kernels {b3_sample_ms:.3f} / "
         f"{b5_sample_ms:.3f} ms vs plain {b3_s_plain_ms:.1f} / "
         f"{b5_s_plain_ms:.1f} ms; split 0: "
         f"{len(first)} streams {int(m_ren[-1])} -> {m_total} bytes, "
         f"rans_simd {b3_ms:.3f} ms, rans {b5_ms:.3f} ms vs plain "
-        f"{b3_plain_ms:.1f} / {b5_plain_ms:.1f} ms, 0 mismatches")
+        f"{b3_plain_ms:.1f} / {b5_plain_ms:.1f} ms, 0 mismatches; rans_simd "
+        f"geometry {json.dumps(b3_geom)}; one stream ({one_out} bytes) "
+        f"{b3_one_ms:.4f} ms")
     del streams, first, m_args
 
     # -- the CRAM read under the legacy knob (B5) ---------------------------
@@ -721,7 +736,10 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
          "ms": round(b3_ms, 4), "plain_ms": round(b3_plain_ms, 4),
          "mismatches": b3_mism, "sample_mismatches": b3_s_mism,
          "ms_on_sample": round(b3_sample_ms, 4),
-         "plain_ms_on_sample": round(b3_s_plain_ms, 4)},
+         "plain_ms_on_sample": round(b3_s_plain_ms, 4),
+         "geometry": b3_geom,
+         "single_stream": {"bytes_out": one_out, "ms": round(b3_one_ms, 4),
+                           "ns_per_byte": round(b3_one_ms * 1e6 / one_out, 3)}},
         {"name": "rans", **common,
          "source": "disq_tpu_torch/csrc/rans.cu",
          "replaces": "disq_tpu/ops/rans.py:50",
@@ -1151,9 +1169,12 @@ def run(args) -> dict:
     check(host_blob.tobytes() == zl, "whole-file inflate differs from zlib")
     del zl
 
-    # B1 sample: status cases, well-formed cases, and file blocks
+    # B1 sample: status cases, the new design's edge cases, well-formed
+    # cases, and file blocks
     rng = np.random.default_rng(args.seed + 1)
     cases = [(p, u) for _, p, u, _ in inflate_cases.status_cases()]
+    edge = inflate_cases.edge_cases()
+    cases += [(p, u) for _, p, u, _ in edge]
     cases += [(p, len(d)) for _, p, d in inflate_cases.good_cases(args.seed)]
     for i in rng.choice(len(blocks), 10, replace=False):
         p, t, h = blocks[i]
@@ -1179,18 +1200,24 @@ def run(args) -> dict:
     p_out, p_len, p_st = B1.inflate_plain(*s_args, s_total)
     b1_s_plain_ms = (time.perf_counter() - t0) * 1e3
     b1_sample_ms = cuda_ms(torch, lambda: B1.inflate(*s_args, s_total), 1, 3)
-    ok = (p_st == 0)
+    # every payload's written bytes, flagged payloads' included: the
+    # kernel leaves the rest of a flagged block's row unwritten
     oo = s_args[3].cpu().numpy()
-    byte_mask = torch.zeros(s_total, dtype=torch.bool, device=dev)
-    for i in np.nonzero(ok.cpu().numpy())[0]:
-        byte_mask[oo[i]: oo[i + 1]] = True
+    written = np.minimum(k_len.cpu().numpy(), p_len.cpu().numpy())
+    within = np.arange(s_total) - np.repeat(oo[:-1], np.diff(oo))
+    byte_mask = torch.from_numpy(
+        within < np.repeat(written, np.diff(oo))).to(dev)
     b1_s_err = max(
         int((k_out.int() - p_out.int()).abs()[byte_mask].max()) if byte_mask.any() else 0,
         int((k_st - p_st).abs().max()), int((k_len - p_len).abs().max()))
-    b1_s_mism = int((k_st != p_st).sum() + (k_len != p_len).sum())
+    b1_s_mism = int((k_st != p_st).sum() + (k_len != p_len).sum()
+                    + (k_out != p_out)[byte_mask].sum())
     codes = sorted(set(p_st.tolist()))
     check(b1_s_err == 0 and b1_s_mism == 0, "inflate kernel != plain version")
     check(set(range(9)) <= set(codes), f"status codes covered: {codes}")
+    e_st = k_st.cpu().numpy()[len(inflate_cases.status_cases()):][:len(edge)]
+    check(e_st.tolist() == [w for _, _, _, w in edge],
+          f"inflate edge cases: statuses {e_st.tolist()}")
 
     # B1 at the main path's shape: the first split's blocks, held against
     # its plain version on the same payloads
@@ -1213,11 +1240,19 @@ def run(args) -> dict:
           f"inflate kernel != plain version on split 0 ({b1_mismatch})")
     del k_blob, p_blob
     b1_ms = cuda_ms(torch, lambda: B1.inflate(*m_ins, m_total), 1, 5)
+    b1_geom = cuda_build.geometry("inflate", len(first))
+    # one payload alone: the latency of one warp's decode
+    one = (m_ins[0], m_ins[1][:1].contiguous(), m_ins[2][:1].contiguous(),
+           m_ins[3][:2].contiguous())
+    one_out = int(m_ins[3][1])
+    b1_one_ms = cuda_ms(torch, lambda: B1.inflate(*one, one_out), 2, 10)
     b1_bytes = m_in + m_out + 8 * (3 * len(first) + 1) + 8 * len(first)
     log(f"inflate: sample of {len(cases)} payloads, codes {codes}, kernel "
         f"{b1_sample_ms:.3f} ms vs plain {b1_s_plain_ms:.1f} ms; split 0: "
         f"{len(first)} blocks {m_in} -> {m_out} bytes in {b1_ms:.3f} ms vs "
-        f"plain {b1_plain_ms:.1f} ms ({procs} processes), 0 mismatches")
+        f"plain {b1_plain_ms:.1f} ms ({procs} processes), 0 mismatches; "
+        f"geometry {json.dumps(b1_geom)}; one payload ({one_out} bytes) "
+        f"{b1_one_ms:.4f} ms")
 
     # B2 on every record of the file
     header_len = len(bam_header())
@@ -1260,7 +1295,10 @@ def run(args) -> dict:
                      f"{procs} processes",
          "sample": f"{len(cases)} payloads", "sample_mismatches": b1_s_mism,
          "ms_on_sample": round(b1_sample_ms, 4),
-         "plain_ms_on_sample": round(b1_s_plain_ms, 4)},
+         "plain_ms_on_sample": round(b1_s_plain_ms, 4),
+         "geometry": b1_geom,
+         "single_payload": {"bytes_out": one_out, "ms": round(b1_one_ms, 4),
+                            "ns_per_byte": round(b1_one_ms * 1e6 / one_out, 3)}},
         {"name": "parse", "route": "cuda",
          "source": "disq_tpu_torch/csrc/parse.cu",
          "replaces": "disq_tpu/ops/parse.py:70",

@@ -100,6 +100,21 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def geometry(name: str, n: int) -> Dict[str, int]:
+    """The launch geometry kernel ``name`` uses for ``n`` items, from its
+    C entry ``disq_<name>_geometry``: threads per block, items
+    (payloads or streams) per block, shared memory per block in bytes,
+    and blocks."""
+    fn = getattr(load(name), f"disq_{name}_geometry")
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int64, ctypes.c_void_p]
+    out = (ctypes.c_int64 * 4)()
+    fn(n, ctypes.addressof(out))
+    keys = ("threads_per_block", "items_per_block", "smem_bytes_per_block",
+            "blocks")
+    return dict(zip(keys, (int(v) for v in out)))
+
+
 def check_launch(name: str, rc: int) -> None:
     """Raise when a kernel's C entry reported a CUDA error."""
     if rc != 0:

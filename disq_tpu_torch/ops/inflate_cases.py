@@ -14,6 +14,8 @@ from typing import List, Tuple
 
 import numpy as np
 
+from disq_tpu_torch.ops.inflate import CLORDER, DBASE, DEXT, LBASE, LEXT
+
 
 class BitWriter:
     """LSB-first DEFLATE bit packer."""
@@ -126,6 +128,141 @@ def legacy_cases() -> List[Tuple[str, bytes, int, int]]:
         ("isize_unchecked", stored, -1, 0),
         ("isize_long", stored, 2, 8),
     ]
+
+
+def _fixed_literal(w: BitWriter, b: int) -> BitWriter:
+    return w.code(0x30 + b, 8) if b < 144 else w.code(0x190 + b - 144, 9)
+
+
+def _fixed_match(w: BitWriter, length: int, dist: int) -> BitWriter:
+    """A length/distance pair in the fixed code."""
+    li = max(i for i, b in enumerate(LBASE[:29]) if b <= length)
+    sym = 257 + li
+    if sym < 280:
+        w.code(sym - 256, 7)
+    else:
+        w.code(0xC0 + sym - 280, 8)
+    w.put(length - int(LBASE[li]), int(LEXT[li]))
+    di = max(i for i, b in enumerate(DBASE[:30]) if b <= dist)
+    return w.code(di, 5).put(dist - int(DBASE[di]), int(DEXT[di]))
+
+
+def _fixed_block(w: BitWriter, literals: bytes, matches=(),
+                 final: bool = False) -> BitWriter:
+    """A fixed-code block: the literals, then each (length, distance)."""
+    w.put(int(final), 1).put(1, 2)
+    for b in literals:
+        _fixed_literal(w, b)
+    for length, dist in matches:
+        _fixed_match(w, length, dist)
+    return w.code(0, 7)
+
+
+def _canonical_codes(lens: dict) -> dict:
+    """RFC 1951 3.2.2: ``{symbol: (code, length)}`` of a code that is not
+    over-subscribed."""
+    count = [0] * 16
+    for ln in lens.values():
+        count[ln] += 1
+    nxt, code = [0] * 16, 0
+    for ln in range(1, 16):
+        code = (code + count[ln - 1]) << 1 if ln > 1 else 0
+        nxt[ln] = code
+    out = {}
+    for s in sorted(lens):
+        out[s] = (nxt[lens[s]], lens[s])
+        nxt[lens[s]] += 1
+    return out
+
+
+def _dynamic_tables(w: BitWriter, lit_lens: dict, dist_lens: dict,
+                    final: bool = True) -> BitWriter:
+    """A dynamic block's header and code lengths; the code-length code
+    gives every length 0-15 a 4-bit code (no run-length symbols)."""
+    hlit = max(257, max(lit_lens) + 1)
+    hdist = max(1, max(dist_lens) + 1)
+    w.put(int(final), 1).put(2, 2)
+    w.put(hlit - 257, 5).put(hdist - 1, 5).put(19 - 4, 4)
+    for s in CLORDER:
+        w.put(0 if s >= 16 else 4, 3)
+    for s in range(hlit):
+        w.code(lit_lens.get(s, 0), 4)
+    for s in range(hdist):
+        w.code(dist_lens.get(s, 0), 4)
+    return w
+
+
+def edge_cases() -> List[Tuple[str, bytes, int, int]]:
+    """Payloads at the edges of a table-driven, warp-cooperative decoder,
+    each ``(name, payload, usize, expected status)``: codes longer than
+    a 10-bit lit/len and an 8-bit distance table, an over-subscribed
+    lit/len set, incomplete sets whose gap lies below and above the
+    table width, overlapping matches at short distances, a match and
+    stored blocks that cross the capacity or run past the payload, and
+    several fixed blocks in a row."""
+    cases = []
+    # lit/len codes of 1-15 bits, distance codes of 1-10 bits, all complete
+    lit_lens = {65 + k: k + 1 for k in range(14)}
+    lit_lens.update({256: 15, 257: 15})
+    dist_lens = {0: 10, 1: 10}
+    dist_lens.update({d: 11 - d for d in range(2, 11)})
+    lc, dc = _canonical_codes(lit_lens), _canonical_codes(dist_lens)
+    w = _dynamic_tables(BitWriter(), lit_lens, dist_lens)
+    for s in (78, 77, 76, 75, 65, 66, 74):      # 14, 13, 12, 11, 1, 2, 10 bits
+        w.code(*lc[s])
+    for d in (0, 1, 2, 3):                      # length 3 at distance 1-4
+        w.code(*lc[257]).code(*dc[d])
+    for s in (78, 67, 76):
+        w.code(*lc[s])
+    long_codes = w.code(*lc[256]).tobytes()
+    cases.append(("long_codes", long_codes, 22, 0))
+    # over-subscribed lit/len: EOB 1 bit, four 2-bit literals; the walk's
+    # first match decodes bit 1 then bit b as literal 65 + b (67, 68 never)
+    w = _dynamic_tables(BitWriter(), {256: 1, 65: 2, 66: 2, 67: 2, 68: 2},
+                        {0: 1})
+    cases.append(("oversubscribed", w.put(1, 1).put(0, 1).put(1, 1).put(1, 1)
+                  .put(1, 1).put(0, 1).put(0, 1).tobytes(), 3, 0))
+    # incomplete sets: the unassigned code 11 (2 bits, below the width) and
+    # twelve 1 bits (above it) decode to nothing
+    w = _dynamic_tables(BitWriter(), {65: 1, 256: 2}, {0: 1})
+    cases.append(("gap_below_width", w.code(0, 1).put(3, 2).tobytes(), 1, 3))
+    lens = {65 + k: k + 1 for k in range(11)}
+    lens[256] = 12
+    lc = _canonical_codes(lens)
+    w = _dynamic_tables(BitWriter(), lens, {0: 1})
+    cases.append(("gap_above_width", w.code(*lc[75]).code(*lc[65])
+                  .put(0xFFF, 12).tobytes(), 2, 3))
+    # overlapping matches: 40 literals, then lengths 3-258 at distance d
+    seed_bytes = bytes(range(48, 88))
+    lengths = (3, 4, 31, 32, 33, 64, 100, 258)
+    for d in (1, 2, 3, 31, 32, 33):
+        w = _fixed_block(BitWriter(), seed_bytes,
+                         [(ln, d) for ln in lengths], final=True)
+        cases.append((f"overlap_d{d}", w.tobytes(),
+                      len(seed_bytes) + sum(lengths), 0))
+    # a match that crosses the capacity: 10 x 258 bytes into 700
+    w = _fixed_block(BitWriter(), b"a", [(258, 1)] * 10, final=True)
+    cases.append(("match_past_cap", w.tobytes(), 700, 5))
+    # a stored block that runs past the payload, at each output alignment
+    # (and payload ends 20-23 bytes into its data)
+    for a in range(4):
+        w = _fixed_block(BitWriter(), b"xyz"[:a])
+        w.put(1, 1).put(0, 2).align().put(100, 16).put(100 ^ 0xFFFF, 16)
+        cases.append((f"stored_past_end_a{a}", w.raw(bytes(range(1, 21 + a)))
+                      .tobytes(), a + 100, 6))
+    # a stored block that crosses the capacity, at each output alignment
+    for a in range(4):
+        w = _fixed_block(BitWriter(), b"xyz"[:a])
+        w.put(1, 1).put(0, 2).align().put(30, 16).put(30 ^ 0xFFFF, 16)
+        cases.append((f"stored_past_cap_a{a}", w.raw(bytes(range(1, 31)))
+                      .tobytes(), a + 13, 5))
+    # several fixed blocks in a row
+    w = BitWriter()
+    for k in range(5):
+        _fixed_block(w, bytes([97 + k]) * 3 + b"\x90\xff", [(5, 4)])
+    w = _fixed_block(w, b"end", final=True)
+    cases.append(("fixed_in_a_row", w.tobytes(), 5 * 10 + 3, 0))
+    return cases
 
 
 def good_cases(seed: int = 0) -> List[Tuple[str, bytes, bytes]]:

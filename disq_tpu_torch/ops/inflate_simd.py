@@ -20,7 +20,8 @@ decoding to more bytes reports 5 where the reference's shared lane
 buffer may only see 8), and status 8 is set by the kernel itself.
 
 On a CUDA tensor ``inflate`` launches the CUDA kernel
-(``csrc/inflate.cu``); on a CPU tensor it runs ``inflate_plain``, the
+(``csrc/inflate.cu``: one warp per payload, table-driven Huffman decode,
+warp-cooperative copies); on a CPU tensor it runs ``inflate_plain``, the
 plain Python decoder below, which computes the same bytes and codes.
 """
 

@@ -15,7 +15,9 @@ row of ``states`` and ``freq``. There is no size cap: any stream goes
 to the kernel.
 
 On a CUDA tensor ``rans0_decode`` launches ``csrc/rans_simd.cu`` (one
-thread per stream, all streams of a call in one launch); on a CPU
+warp per stream, all streams of a call in one launch: a packed
+4096-slot table and a renorm-byte ring in shared memory, the four
+states of a superstep decoded together); on a CPU
 tensor it runs ``rans0_decode_plain``, the same function in torch ops,
 vectorised across streams with one loop turn per superstep (slow on
 megabyte streams: it is a check, not a route). ``rans0_decode_simd`` is

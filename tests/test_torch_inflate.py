@@ -135,6 +135,64 @@ def test_each_status_case_alone(i):
     assert int(status[0]) == want, name
 
 
+# -- the edges of a table-driven, warp-cooperative decoder --------------------
+
+
+EDGE = cases.edge_cases()
+
+
+@pytest.fixture(scope="module")
+def jax_edges():
+    """The JAX kernel on every edge case in one launch: (decoded bytes,
+    status from its meta row 1, its lane capacity in bytes)."""
+    payloads = [p for _, p, _, _ in EDGE]
+    cw, ow = ref_simd.buckets_for(payloads, max(u for _, _, u, _ in EDGE))
+    comp, clen = ref_simd._pack_chunk(payloads, cw)
+    words, meta = ref_simd._compiled(cw, ow, True)(
+        comp, clen, *ref_simd._CONST_TABLES)
+    words, meta = np.asarray(words), np.asarray(meta)
+    return [(words[:, j].astype("<u4").tobytes()[: int(meta[0, j])],
+             int(meta[1, j]), 4 * ow) for j in range(len(EDGE))]
+
+
+@pytest.mark.parametrize("i", range(len(EDGE)))
+def test_edge_case_status(i):
+    """Each edge case decodes to its expected status; a well-formed one
+    decodes to zlib's bytes."""
+    name, payload, usize, want = EDGE[i]
+    (got,), out_len, status = _port([payload], [usize])
+    assert int(status[0]) == want, name
+    assert int(out_len[0]) == len(got)
+    if want == 0 and name != "oversubscribed":   # zlib rejects that set
+        assert got == zlib.decompress(payload, -15), name
+
+
+def test_edge_cases_equal_jax_kernel(jax_edges):
+    """The plain version equals the JAX kernel on every edge case at the
+    JAX kernel's capacity (its lane buffer, where the port's capacity is
+    the block's ISIZE; the kernel leaves the ISIZE check, status 8, to
+    its host side); at the true ISIZE it sees the same bytes."""
+    for (name, payload, usize, _), (j_bytes, j_status, lane_cap) in zip(
+            EDGE, jax_edges):
+        got, status = B1.inflate_raw(payload, lane_cap)
+        assert got == j_bytes, name
+        assert status == j_status or (status, j_status) == (8, 0), name
+        at_isize, _ = B1.inflate_raw(payload, usize)
+        assert j_bytes[: len(at_isize)] == at_isize, name
+
+
+def test_edge_cases_in_one_launch():
+    """The edge cases beside each other decode as they do alone, and
+    cover the lit/len and distance codes longer than a table width."""
+    got, out_len, status = _port([p for _, p, _, _ in EDGE],
+                                 [u for _, _, u, _ in EDGE])
+    assert status.tolist() == [w for _, _, _, w in EDGE]
+    for (name, payload, usize, _), g in zip(EDGE, got):
+        assert g == B1.inflate_raw(payload, usize)[0], name
+    assert {"long_codes", "gap_above_width", "oversubscribed"} <= \
+        {n for n, _, _, _ in EDGE}
+
+
 # -- large blocks against zlib ------------------------------------------------
 
 

@@ -21,6 +21,7 @@ from disq_tpu.ops.rans_simd import rans0_decode_simd as ref_b3
 from disq_tpu_torch.cram import rans as port_rans
 from disq_tpu_torch.native import rans_decode_native
 from disq_tpu_torch.ops import rans as B5
+from disq_tpu_torch.ops import rans_cases
 from disq_tpu_torch.ops import rans_simd as B3
 from disq_tpu_torch.runtime import counters
 
@@ -210,6 +211,54 @@ def test_parse_errors_match_reference(kernel, case):
         port([EMPTY, stream], CPU)
     assert str(got.value) == str(want.value)
     assert got.value.stream == 1
+
+
+EDGE_NAMES, EDGE_RAWS, EDGE_STREAMS, EDGE_CUT = rans_cases.edge_streams(
+    ref_rans.rans_encode_order0)
+
+
+def test_edge_streams_reach_their_edges():
+    renorms = {n: rans_cases.superstep_renorms(s)
+               for n, s in zip(EDGE_NAMES, EDGE_STREAMS)}
+    assert max(renorms["eight_renorm"]) == 8
+    assert [len(r) for r in EDGE_RAWS[:7]] == list(range(1, 8))
+    tables = {n: B3._parse_stream(0, s)[3]
+              for n, s in zip(EDGE_NAMES, EDGE_STREAMS)}
+    assert tables["one_symbol"].max() == 4096
+    assert (tables["all_256"] > 0).all()
+    # the cut stream overruns in its last superstep and nowhere before
+    _args, ren_off, _out_off = _staged(EDGE_CUT)
+    before_last = sum(renorms["eight_renorm"][:-1])
+    assert before_last <= ren_off[-1] < sum(renorms["eight_renorm"])
+
+
+@pytest.mark.parametrize("part", [slice(0, 8), slice(8, None)])
+def test_plain_b3_equals_jax_kernel_on_edge_streams(part):
+    raws, streams = EDGE_RAWS[part], EDGE_STREAMS[part]
+    want = ref_b3(streams, interpret=True)
+    assert want == raws
+    assert B3.rans0_decode_simd(streams, CPU) == want
+    assert B5.rans0_decode_device(streams, CPU) == want
+
+
+def test_plain_versions_equal_native_on_edge_streams():
+    assert [rans_decode_native(s) for s in EDGE_STREAMS] == EDGE_RAWS
+    args, ren_off, out_off = _staged(EDGE_STREAMS + EDGE_CUT)
+    for plain in (B3.rans0_decode_plain, B5.rans0_decode_plain):
+        out, used, status = plain(*args)
+        assert out.numpy().tobytes()[: out_off[-2]] == b"".join(EDGE_RAWS)
+        np.testing.assert_array_equal(used.numpy()[:-1], np.diff(ren_off)[:-1])
+        assert status.tolist() == [0] * len(EDGE_STREAMS) + [6]
+
+
+def test_overrun_in_the_last_superstep_raises_like_reference():
+    with pytest.raises(ValueError, match=r"code -8"):
+        ref_b3(EDGE_CUT, interpret=True)
+    with pytest.raises(ValueError, match="overran stream 0") as want:
+        ref_b5(EDGE_CUT, interpret=True)
+    with pytest.raises(ValueError, match="overran stream 0") as got:
+        B3.rans0_decode_simd(EDGE_CUT, CPU)
+    assert str(got.value) == str(want.value)
 
 
 def test_truncated_renorm_flags_status_6_and_raises():
