@@ -39,9 +39,9 @@ each path went through its kernels, holds each kernel against its plain
 version on the inputs of split 0 (the inflate kernels' pure-Python plain
 versions in one spawned process per core) and on a sample of corrupt,
 truncated and edge-case inputs (B3 also against the native host decoder
-on every stream of the file), and times them, B1 and B3 also on one
-payload or stream alone, beside their launch geometry. Any failed phase
-exits non-zero.
+on every stream of the file), and times them, B1, B3, B4 and B5 also on
+one payload or stream alone, beside their launch geometry. Any failed
+phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -676,20 +676,23 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
                     1, 3)
     bound_ms, bound_by = rans_bound(m_ren, m_out)
     b3_geom = cuda_build.geometry("rans_simd", len(m_ren) - 1)
+    b5_geom = cuda_build.geometry("rans", len(m_ren) - 1)
     # one stream alone: the latency of one warp's decode
     one = (m_args[0], m_args[1][:2].contiguous(), m_args[2][:2].contiguous(),
            m_args[3][:1].contiguous(), m_args[4][:1].contiguous())
     one_out = int(m_out[1])
     b3_one_ms = cuda_ms(torch, lambda: B3.rans0_decode(*one, one_out), 1, 3)
+    b5_one_ms = cuda_ms(torch, lambda: B5.rans0_decode_legacy(*one, one_out),
+                        1, 3)
     log(f"rans: sample of {len(sample) + len(truncated)} streams "
         f"({len(truncated)} truncated), kernels {b3_sample_ms:.3f} / "
         f"{b5_sample_ms:.3f} ms vs plain {b3_s_plain_ms:.1f} / "
         f"{b5_s_plain_ms:.1f} ms; split 0: "
         f"{len(first)} streams {int(m_ren[-1])} -> {m_total} bytes, "
         f"rans_simd {b3_ms:.3f} ms, rans {b5_ms:.3f} ms vs plain "
-        f"{b3_plain_ms:.1f} / {b5_plain_ms:.1f} ms, 0 mismatches; rans_simd "
-        f"geometry {json.dumps(b3_geom)}; one stream ({one_out} bytes) "
-        f"{b3_one_ms:.4f} ms")
+        f"{b3_plain_ms:.1f} / {b5_plain_ms:.1f} ms, 0 mismatches; geometry "
+        f"{json.dumps(b3_geom)} / {json.dumps(b5_geom)}; one stream "
+        f"({one_out} bytes) {b3_one_ms:.4f} / {b5_one_ms:.4f} ms")
     del streams, first, m_args
 
     # -- the CRAM read under the legacy knob (B5) ---------------------------
@@ -747,7 +750,10 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
          "ms": round(b5_ms, 4), "plain_ms": round(b5_plain_ms, 4),
          "mismatches": b5_mism, "sample_mismatches": b5_s_mism,
          "ms_on_sample": round(b5_sample_ms, 4),
-         "plain_ms_on_sample": round(b5_s_plain_ms, 4)},
+         "plain_ms_on_sample": round(b5_s_plain_ms, 4),
+         "geometry": b5_geom,
+         "single_stream": {"bytes_out": one_out, "ms": round(b5_one_ms, 4),
+                           "ns_per_byte": round(b5_one_ms * 1e6 / one_out, 3)}},
     ]
     e2e = {"cram_write_s": round(cram_write_s, 4),
            "cram_write_records_per_s": round(n / cram_write_s, 1),
@@ -780,7 +786,8 @@ def same_reads(torch, a, b, what: str) -> None:
 
 def legacy_sample(data: bytes, blocks, seed: int):
     """Payloads for B4 against its plain version, with B4's expected
-    status or None: every case of ``ops/inflate_cases.py``, 8 of the
+    status or None: every case of ``ops/inflate_cases.py`` (the edge
+    cases of B1's design with None: B4's rules decide them), 8 of the
     file's blocks, and a truncated and a bit-flipped copy of two of
     them (the flipped ones may decode to any status)."""
     from disq_tpu_torch.ops import inflate_cases
@@ -788,6 +795,8 @@ def legacy_sample(data: bytes, blocks, seed: int):
     cases = [(p, u, None) for _, p, u, _ in inflate_cases.status_cases()]
     cases += [(p, len(d), 0) for _, p, d in inflate_cases.good_cases(seed)]
     cases += [(p, u, s) for _, p, u, s in inflate_cases.legacy_cases()]
+    cases += [(p, u, None) for _, p, u, _ in inflate_cases.edge_cases()]
+    cases += [(p, u, s) for _, p, u, s in inflate_cases.legacy_edge_cases()]
     rng = np.random.default_rng(seed)
     picks = rng.choice(len(blocks), 8, replace=False)
     for k, i in enumerate(picks):
@@ -819,6 +828,7 @@ def bam_legs(torch, port, args, g, info, ds, src, work, dev, host_blob,
     quarantine policies on a copy with one flipped bit, and the write
     pipeline at 4 workers. Returns (B4's kernel entry, e2e fields)."""
     from disq_tpu_torch.bgzf.codec import row_prefixes
+    from disq_tpu_torch.ops import cuda_build
     from disq_tpu_torch.ops import inflate as B4
     from disq_tpu_torch.ops import inflate_simd as B1
     from disq_tpu_torch.runtime import counters
@@ -908,12 +918,19 @@ def bam_legs(torch, port, args, g, info, ds, src, work, dev, host_blob,
     ops_ms = m_out * INFLATE_OPS_PER_BYTE / SCALAR_OPS_PER_S * 1e3
     b4_bound, b4_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
                        else (ops_ms, "operations"))
-    del m_args
+    b4_geom = cuda_build.geometry("inflate_legacy", len(first))
+    # one payload alone: the latency of one warp's decode
+    one = (m_args[0], *(t[:1].contiguous() for t in m_args[1:]))
+    one_out = m_us[0]
+    b4_one_ms = cuda_ms(torch, lambda: B4.inflate_stacked(*one), 2, 10)
+    del m_args, one
     log(f"inflate_legacy: sample of {len(cases)} payloads, codes {b4_codes}, "
         f"kernel {b4_sample_ms:.3f} ms vs plain {b4_s_plain_ms:.1f} ms, 0 "
         f"mismatches; split 0: {len(first)} blocks {m_in} -> {m_out} bytes "
         f"in {b4_ms:.3f} ms vs plain {b4_plain_ms:.1f} ms ({procs} "
-        f"processes), 0 mismatches (bound {b4_bound:.6f} ms, {b4_by})")
+        f"processes), 0 mismatches (bound {b4_bound:.6f} ms, {b4_by}); "
+        f"geometry {json.dumps(b4_geom)}; one payload ({one_out} bytes) "
+        f"{b4_one_ms:.4f} ms")
 
     # -- leg 2: the shard executor at 4 workers -----------------------------
     counters.reset()
@@ -1031,7 +1048,10 @@ def bam_legs(torch, port, args, g, info, ds, src, work, dev, host_blob,
              "sample_mismatches": b4_s_mism,
              "ms_on_sample": round(b4_sample_ms, 4),
              "plain_ms_on_sample": round(b4_s_plain_ms, 4),
-             "codes_on_sample": b4_codes}
+             "codes_on_sample": b4_codes, "geometry": b4_geom,
+             "single_payload": {
+                 "bytes_out": one_out, "ms": round(b4_one_ms, 4),
+                 "ns_per_byte": round(b4_one_ms * 1e6 / one_out, 3)}}
     e2e = {"legacy_read_s": round(legacy_s, 4),
            "executor4_read_s": round(executor_s, 4),
            "skip_read_s": round(policy["skip"], 4),

@@ -1,86 +1,92 @@
-// rANS-4x8 order-0 decode, one thread block per stream (the legacy route).
+// rANS-4x8 order-0 decode through the slot lookup, one warp per stream
+// (kernel B5, the legacy route).
 //
-// Replaces disq_tpu/ops/rans.py:_rans0_kernel (kernel B5), which decodes one
-// stream per grid program through a 4096-slot symbol lookup. It computes the
-// function of rans_simd.cu: 4 interleaved states, 12-bit frequencies, at most
-// 2 renorm bytes per symbol, a renorm read past clen yields 0 and counts as
-// consumed, and status 6 when used > clen. The inputs and outputs are laid out
-// as for rans_simd.cu (one renorm blob and one output blob at int64 offsets,
-// states (n, 4) and freq (n, 256) int32 rows).
+// Replaces disq_tpu/ops/rans.py:_rans0_kernel, which decodes one stream per
+// grid program through a 4096-slot symbol lookup that its wrapper builds:
+// symbol s repeated freq[s] times, every slot past the row's total read as
+// symbol 255. It computes the function of csrc/rans_simd.cu (B3): 4
+// interleaved states, 12-bit frequencies, at most 2 renorm bytes per
+// symbol, a renorm read past clen yields 0 and counts as consumed, and
+// status 6 when used > clen. The inputs and outputs are laid out as for
+// rans_simd.cu (one renorm blob and one output blob at int64 offsets,
+// states (n, 4) and freq (n, 256) int32 rows). The plain version,
+// rans0_decode_plain in disq_tpu_torch/ops/rans.py, defines the function.
 //
-// What bounds it on this card: latency, as for rans_simd.cu — one thread runs
-// the stream's serial chain of dependent steps. What the design does about it:
-// the block's threads build the stream's lookup (slot -> symbol) and its
-// freq/cum rows in shared memory together, each thread one symbol, so the
-// serial part is the decode alone, with every table read from shared memory
-// and the states in registers; the renorm bytes are read in place.
+// What bounds it on this card: latency, as for rans_simd.cu -- a stream's
+// symbols are one serial chain, and a split holds only a few dozen streams.
+// The design is B3's, whose decode both kernels share through
+// csrc/rans_core.cuh: one warp per stream, a packed 64-bit slot table, a
+// renorm-byte ring filled by cp.async one half ahead, the four states of a
+// superstep decoded together from one 8-byte window, aligned word output.
+// Only the table step is this route's own: the warp first builds the
+// stream's 4096-byte slot -> symbol lookup as the reference's wrapper does
+// (255 everywhere, then each symbol's run of slots, lane l filling symbols
+// 8l .. 8l+7), and then fills each packed entry from it,
+// {freq[sym], (slot - cum[sym]) | sym << 24} with sym = lookup[slot].
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define LEGACY_TPB 256
-#define RANS_LOW (1u << 23)
-#define TOTFREQ 4096
+#include "rans_core.cuh"
 
-__device__ __forceinline__ uint32_t legacy_symbol(
-    uint32_t& x, const uint8_t* lookup, const uint32_t* fr, const uint32_t* cm,
-    const uint8_t* __restrict__ body, int64_t clen, int64_t& off) {
-  uint32_t m = x & (TOTFREQ - 1);
-  uint32_t s = lookup[m];
-  x = fr[s] * (x >> 12) + m - cm[s];
-  for (int r = 0; r < 2; r++) {  // <= 2 renorm bytes per symbol
-    if (x < RANS_LOW) {
-      x = (x << 8) | (off < clen ? (uint32_t)body[off] : 0u);
-      off++;
-    }
-  }
-  return s;
-}
-
-__global__ void rans_legacy_kernel(const uint8_t* __restrict__ ren,
-                                   const int64_t* __restrict__ ren_off,
-                                   const int64_t* __restrict__ out_off,
-                                   const int32_t* __restrict__ states,
-                                   const int32_t* __restrict__ freq,
-                                   uint8_t* __restrict__ out,
-                                   int64_t* __restrict__ used,
-                                   int32_t* __restrict__ status) {
-  __shared__ uint8_t s_lookup[TOTFREQ];
+__global__ void __launch_bounds__(32)
+rans_legacy_kernel(const uint8_t* __restrict__ ren,
+                   const int64_t* __restrict__ ren_off,
+                   const int64_t* __restrict__ out_off,
+                   const int32_t* __restrict__ states,
+                   const int32_t* __restrict__ freq, int64_t n,
+                   uint8_t* __restrict__ out, int64_t* __restrict__ used,
+                   int32_t* __restrict__ status) {
+  __shared__ uint2 s_tab[TOTFREQ];
+  __shared__ __align__(16) uint8_t s_ring[RING];
+  __shared__ __align__(16) uint8_t s_lookup[TOTFREQ];
   __shared__ uint32_t s_freq[256];
   __shared__ uint32_t s_cum[256];
+  const int lane = threadIdx.x;
   const int64_t i = blockIdx.x;
-  const int t = threadIdx.x;  // one symbol per thread while building
+  if (i >= n) return;
 
+  // -- cumulative frequencies: lane l owns symbols 8l .. 8l+7 --------------
   const int32_t* f = freq + i * 256;
-  s_freq[t] = (uint32_t)f[t];
-  for (int k = t; k < TOTFREQ; k += LEGACY_TPB) s_lookup[k] = 255;
-  __syncthreads();
-  uint32_t c = 0;
-  for (int s = 0; s < t; s++) c += s_freq[s];
-  s_cum[t] = c;
-  __syncthreads();  // every slot is 255 before any symbol's range is set
-  uint32_t lo = c < TOTFREQ ? c : TOTFREQ;
-  uint32_t hi = c + s_freq[t] < TOTFREQ ? c + s_freq[t] : TOTFREQ;
-  for (uint32_t k = lo; k < hi; k++) s_lookup[k] = (uint8_t)t;
-  __syncthreads();
-  if (t != 0) return;
-
-  const uint8_t* body = ren + ren_off[i];
-  const int64_t clen = ren_off[i + 1] - ren_off[i];
-  uint8_t* o = out + out_off[i];
-  const int64_t raw = out_off[i + 1] - out_off[i];
-  uint32_t x[4];
-  for (int j = 0; j < 4; j++) x[j] = (uint32_t)states[i * 4 + j];
-  int64_t off = 0;
-  for (int64_t k = 0; k < raw; k += 4) {
+  uint32_t fs[8], mine = 0;
 #pragma unroll
-    for (int j = 0; j < 4; j++)
-      if (k + j < raw)
-        o[k + j] = (uint8_t)legacy_symbol(x[j], s_lookup, s_freq, s_cum, body,
-                                          clen, off);
+  for (int k = 0; k < 8; k++) {
+    fs[k] = (uint32_t)f[lane * 8 + k];
+    mine += fs[k];
   }
-  used[i] = off;
-  status[i] = off > clen ? 6 : 0;
+  uint32_t incl = mine;  // inclusive scan of the lanes' sums (mod 2^32)
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    uint32_t t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += t;
+  }
+
+  // -- the lookup: 255 in every slot, then each symbol's run --------------
+  uint4* l4 = reinterpret_cast<uint4*>(s_lookup);
+  for (int m = lane; m < TOTFREQ / 16; m += 32)
+    l4[m] = make_uint4(~0u, ~0u, ~0u, ~0u);
+  __syncwarp();  // every slot is 255 before any symbol's run is set
+  uint32_t c = incl - mine;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    const int s = lane * 8 + k;
+    s_freq[s] = fs[k];
+    s_cum[s] = c;
+    uint32_t lo = c < TOTFREQ ? c : TOTFREQ;
+    uint32_t hi = c + fs[k] < TOTFREQ ? c + fs[k] : TOTFREQ;
+    for (uint32_t m = lo; m < hi; m++) s_lookup[m] = (uint8_t)s;
+    c += fs[k];
+  }
+  __syncwarp();
+
+  // -- the packed entries, each from its slot's symbol ---------------------
+  for (uint32_t m = lane; m < TOTFREQ; m += 32) {
+    const uint32_t s = s_lookup[m];
+    s_tab[m] = make_uint2(s_freq[s], ((m - s_cum[s]) & 0xFFFFFFu) | s << 24);
+  }
+  decode_stream(s_tab, s_ring, ren + ren_off[i], ren_off[i + 1] - ren_off[i],
+                out + out_off[i], out_off[i + 1] - out_off[i], states + i * 4,
+                lane, used + i, status + i);
 }
 
 extern "C" int disq_rans_legacy_launch(const void* ren, const void* ren_off,
@@ -89,9 +95,19 @@ extern "C" int disq_rans_legacy_launch(const void* ren, const void* ren_off,
                                        void* used, void* status,
                                        void* stream) {
   if (n <= 0) return 0;
-  rans_legacy_kernel<<<(unsigned)n, LEGACY_TPB, 0, (cudaStream_t)stream>>>(
+  rans_legacy_kernel<<<(unsigned)n, 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)ren, (const int64_t*)ren_off, (const int64_t*)out_off,
-      (const int32_t*)states, (const int32_t*)freq, (uint8_t*)out,
+      (const int32_t*)states, (const int32_t*)freq, n, (uint8_t*)out,
       (int64_t*)used, (int32_t*)status);
   return (int)cudaGetLastError();
+}
+
+// Launch geometry for n streams: threads per block, streams per block,
+// shared memory per block (static, bytes), blocks.
+extern "C" void disq_rans_geometry(int64_t n, int64_t* g) {
+  g[0] = 32;
+  g[1] = 1;
+  g[2] = (int64_t)(sizeof(uint2) * TOTFREQ + RING + TOTFREQ +
+                   2 * 256 * sizeof(uint32_t));
+  g[3] = n > 0 ? n : 0;
 }

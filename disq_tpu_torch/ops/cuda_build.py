@@ -6,7 +6,8 @@ build happens at first use — when a CUDA tensor first reaches a kernel
 wrapper, or when ``build()`` is called — never at import, so importing
 the kernel modules on a machine without ``nvcc`` builds nothing. The
 output goes to the package's git-ignored ``_build`` directory, named by
-a digest of the source and flags, so a stale library is never loaded.
+a digest of the source, every ``csrc`` header it includes and the
+flags, so a stale library is never loaded.
 A failed build raises; nothing falls back.
 """
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,9 +48,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header of ``csrc`` it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first reached."""
+    order, todo = [], [source_path(name)]
+    while todo:
+        path = todo.pop(0)
+        if path in order:
+            continue
+        order.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                todo.append(os.path.join(CSRC_DIR, inc.decode()))
+    return order
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where kernel ``name``'s library is built: named by a digest of its
+    sources (``sources``) and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,4 +1,4 @@
-"""Raw-DEFLATE inflate, one payload per thread block (kernel B4).
+"""Raw-DEFLATE inflate under the reference's older rules (kernel B4).
 
 The legacy route of the BAM read (``DISQ_TPU_TORCH_DEVICE_INFLATE=legacy``),
 the function of the reference's ``_inflate_kernel``
@@ -33,10 +33,12 @@ The decoder rules are the reference kernel's, not B1's
 - an empty payload reads a non-final stored block of LEN 0, NLEN 0: 2.
 
 On a CUDA tensor ``inflate_stacked`` launches the kernel
-(``csrc/inflate_legacy.cu``); on a CPU tensor it runs
+(``csrc/inflate_legacy.cu``: one warp per payload, table-driven Huffman
+decode, B1's design under these rules); on a CPU tensor it runs
 ``inflate_stacked_plain``, the same decoder in Python. The reference
 pads every batch to a power of two with dummy streams (a compile-cache
-workaround of its compiler); the port launches exactly ``B`` blocks.
+workaround of its compiler); the port launches one warp for each of
+exactly ``B`` payloads.
 """
 
 from __future__ import annotations

@@ -265,6 +265,153 @@ def edge_cases() -> List[Tuple[str, bytes, int, int]]:
     return cases
 
 
+def _nine_bit_pad(w: BitWriter, more: int) -> BitWriter:
+    """9-bit fixed literals (byte 144 on) until ``more`` further bits end
+    on a byte boundary: each one moves the bit count by 1 mod 8."""
+    b = 144
+    while (len(w.bits) + more) % 8:
+        _fixed_literal(w, b)
+        b += 1
+    return w
+
+
+def _row_of(n: int, w: BitWriter) -> BitWriter:
+    """Fixed-code symbols for ``n`` bytes: one literal, then matches of
+    258 and one shorter match at distance 1."""
+    _fixed_literal(w, ord("a"))
+    n -= 1
+    while n >= 258:
+        _fixed_match(w, 258, 1)
+        n -= 258
+    if n:
+        _fixed_match(w, n, 1)
+    return w
+
+
+def legacy_edge_cases() -> List[Tuple[str, bytes, int, int]]:
+    """Payloads where kernel B4's own rules (``ops/inflate.py``) decide,
+    one or more per rule, each ``(name, payload, usize, B4's status)``:
+    the overrun decided inside the walk, the check after a match,
+    distances, the row's capacity, stored blocks, the end of a block, and
+    a dynamic block whose code lengths fail before its data."""
+    cases = []
+
+    def fixed():  # a final fixed block's header
+        return BitWriter().put(1, 1).put(1, 2)
+
+    # (a) the last literal's 9-bit code (110010000, byte 144) completes
+    # exactly on the first bit past the payload: 6, the byte not written
+    w = fixed()
+    for b in range(144, 149):                 # 3 + 5 x 9 = 48 bits
+        _fixed_literal(w, b)
+    cases.append(("code_ends_past_limit", w.code(0b11001000, 8).tobytes(),
+                  -1, 6))
+    # (a) code-length codes are at most 7 bits, yet a miss is 6 when the
+    # first bit past the payload lies within 15 bits, 3 only farther away
+    # (the one 2-bit code '00' leaves '11' without a symbol)
+    near = _dynamic_header(257, 1, {0: 2}).code(0b11, 2).tobytes()
+    cases.append(("cl_miss_near_limit", near, -1, 6))
+    cases.append(("cl_miss_far_from_limit", near + bytes(2), -1, 3))
+    # (a) the first code length starts on the payload's end (HCLEN 13:
+    # 56 header bits): a repeat (16, code '0') that completes on the first
+    # bit past it is returned with status 6, and a 16 with nothing to
+    # repeat makes that 7; a 16 of 2 bits does not complete there: 6
+    cases.append(("cl_repeat_at_limit", _dynamic_header(
+        257, 1, {16: 1, 17: 1, 12: 0}).tobytes(), -1, 7))
+    cases.append(("cl_repeat_past_limit", _dynamic_header(
+        257, 1, {16: 2, 17: 2, 18: 2, 12: 0}).tobytes(), -1, 6))
+    # (b) a match whose distance-extra bit lies past the payload (it reads
+    # as 0: distance 5) is copied, then flagged: 6 with 9 bytes written
+    w = fixed()
+    for b in b"abcde":
+        _fixed_literal(w, b)
+    _nine_bit_pad(w, 7 + 5)
+    w.code(1, 7).code(4, 5)                   # length 3, distances 5-6
+    cases.append(("dist_extra_past_limit", w.tobytes(), -1, 6))
+    # (b) a match whose length-extra bit lies past the payload: its
+    # distance code starts past the limit: 6, nothing copied
+    w = fixed()
+    for b in b"abcde":
+        _fixed_literal(w, b)
+    _nine_bit_pad(w, 7)
+    cases.append(("length_extra_past_limit", w.code(265 - 256, 7).tobytes(),
+                  -1, 6))
+    # (c) distance 32,768, the largest a code can give: accepted
+    hist = bytes(range(256)) * 128
+    w = BitWriter().put(0, 1).put(0, 2).align()
+    w.put(len(hist), 16).put(len(hist) ^ 0xFFFF, 16).raw(hist)
+    cases.append(("distance_32768", _fixed_block(
+        w, b"", [(3, 32768)], final=True).tobytes(), 32771, 0))
+    # (c) distance symbols 30 and 31 are 4; lit/len 286 and 287 are 3; a
+    # distance past the bytes written is 4
+    for sym in (30, 31):
+        w = _fixed_literal(fixed(), ord("a")).code(1, 7).code(sym, 5)
+        cases.append((f"dist_symbol_{sym}", w.tobytes(), -1, 4))
+    for sym in (286, 287):
+        w = _fixed_literal(fixed(), ord("a")).code(0xC0 + sym - 280, 8)
+        cases.append((f"lit_symbol_{sym}", w.tobytes(), -1, 3))
+    w = _fixed_literal(fixed(), ord("a"))
+    cases.append(("dist_past_written", _fixed_match(w, 3, 2).tobytes(),
+                  -1, 4))
+    # (d) the row's 65,536 bytes: filled exactly, then end-of-block (0);
+    # then one literal more (5); 65,533 bytes then a match of 4 (5,
+    # nothing of it copied)
+    w = _row_of(65536, fixed())
+    cases.append(("row_exactly_full", w.code(0, 7).tobytes(), 65536, 0))
+    w = _fixed_literal(_row_of(65536, fixed()), ord("b"))
+    cases.append(("literal_past_row", w.tobytes(), -1, 5))
+    w = _fixed_match(_row_of(65533, fixed()), 4, 1)
+    cases.append(("match_past_row", w.tobytes(), -1, 5))
+    # (e) a stored block checks LEN/NLEN, then room, then the payload's
+    # end, and copies all of its bytes or none
+
+    def lead():  # a non-final fixed block of two literals
+        w = BitWriter().put(0, 1).put(1, 2)
+        return _fixed_literal(_fixed_literal(w, ord("a")), ord("b")).code(0, 7)
+
+    w = lead().put(1, 1).put(0, 2).align().put(65535, 16).put(1, 16)
+    cases.append(("stored_nlen_before_room", w.raw(b"x" * 10).tobytes(),
+                  -1, 2))
+    w = lead().put(1, 1).put(0, 2).align().put(65535, 16)
+    w.put(65535 ^ 0xFFFF, 16)
+    cases.append(("stored_room_before_end", w.raw(b"x" * 10).tobytes(),
+                  -1, 5))
+    w = lead().put(1, 1).put(0, 2).align().put(100, 16).put(100 ^ 0xFFFF, 16)
+    cases.append(("stored_past_end_after_data", w.raw(b"y" * 20).tobytes(),
+                  -1, 6))
+    w = lead().put(1, 1).put(0, 2).align().put(20, 16).put(20 ^ 0xFFFF, 16)
+    cases.append(("stored_to_the_end", w.raw(b"z" * 20).tobytes(), 22, 0))
+    # (f) a final block whose end-of-block code ends exactly on the
+    # payload's end: no slack is needed, and none is taken
+    w = fixed()
+    for b in b"abc":
+        _fixed_literal(w, b)
+    _nine_bit_pad(w, 7)
+    cases.append(("eob_at_limit", w.code(0, 7).tobytes(), -1, 0))
+    # (g) code lengths that fail still leave their data decoded with the
+    # lengths read so far. A miss after 256 lengths of 8 (code-length
+    # codes: 8 -> '0', 18 -> '10'): 3, then literals of that 8-bit code
+    # from 15 bits on, up to the payload's end (no end-of-block code)
+    w = _dynamic_header(257, 1, {8: 1, 18: 2})
+    for _ in range(256):
+        w.code(0, 1)
+    w.code(0b11, 2).put(0, 13)
+    for b in b"failed header":
+        w.code(b, 8)
+    cases.append(("cl_bad_code_then_data", w.tobytes(), -1, 3))
+    # a repeat past HLIT + HDIST after 257 lengths of 9 (9 -> '0',
+    # 17 -> '1'): 7, then literals and end-of-block of that 9-bit code
+    w = _dynamic_header(257, 1, {9: 1, 17: 1})
+    for _ in range(257):
+        w.code(0, 1)
+    w.code(1, 1).put(0, 3)
+    for b in b"repeat":
+        w.code(b, 9)
+    cases.append(("cl_repeat_overflow_then_data", w.code(256, 9).tobytes(),
+                  -1, 7))
+    return cases
+
+
 def good_cases(seed: int = 0) -> List[Tuple[str, bytes, bytes]]:
     """(name, payload, decoded) for stored, fixed and dynamic blocks at
     zlib levels 1, 6 and 9 over small BAM-like and random inputs."""

@@ -1,12 +1,13 @@
-"""rANS-4x8 order-0 decode, one thread block per stream (kernel B5).
+"""rANS-4x8 order-0 decode through a 4096-slot lookup (kernel B5).
 
 The legacy route (``DISQ_TPU_TORCH_DEVICE_RANS=legacy``), the function
 of the reference's ``_rans0_kernel``, which is the function of B3
 (``ops/rans_simd.py``): the same inputs, outputs and status 6 on an
-overrun. Only the kernel differs — ``csrc/rans.cu`` gives each stream a
-thread block that builds its 4096-slot lookup in shared memory before
-one thread decodes — and the host side raises on a flagged stream with
-the reference's message.
+overrun. Only the kernel's table step differs — ``csrc/rans.cu`` gives
+each stream one warp that builds the stream's slot -> symbol lookup as
+the reference's wrapper does and fills B3's packed slot table from it,
+then decodes with B3's decode (``csrc/rans_core.cuh``) — and the host
+side raises on a flagged stream with the reference's message.
 
 On a CUDA tensor ``rans0_decode_legacy`` launches the kernel; on a CPU
 tensor it runs ``rans0_decode_plain``, which reads each symbol from a

@@ -14,6 +14,8 @@ in this order, each phase ending in ``torch.cuda.synchronize()``:
     bam_read_s       ReadsStorage.make_default().split_size(64 << 20).read
     sort_write_s     write(ds, out, BaiWriteOption.ENABLE, sort=True)
     executor4_read_s the same read with .executor_workers(4)
+    legacy_read_s    the same read under DISQ_TPU_TORCH_DEVICE_INFLATE=legacy
+                     (kernel B4)
     cram_read_s      the CRAM read (kernel B3)
     cram_legacy_read_s  the CRAM read under DISQ_TPU_TORCH_DEVICE_RANS=legacy
 
@@ -34,7 +36,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ["inflate", "parse", "rans_simd", "rans"]
+KERNELS = ["inflate", "parse", "rans_simd", "rans", "inflate_legacy"]
 
 
 def child(args) -> dict:
@@ -80,6 +82,11 @@ def child(args) -> dict:
         lambda: storage.executor_workers(4).read(args.bam))
     held(ex, "4-worker read")
     del ex
+    os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"] = "legacy"
+    lg, res["legacy_read_s"] = timed(lambda: storage.read(args.bam))
+    del os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"]
+    held(lg, "legacy read")
+    del lg
     cr, res["cram_read_s"] = timed(lambda: storage.read(args.cram))
     held(cr, "cram read")
     del cr

@@ -61,9 +61,12 @@ def test_tables_equal_reference(name):
     ("c_dbase", "_DBASE", 30), ("c_dext", "_DEXT", 30),
     ("c_clorder", "_CLORDER", 19)])
 def test_cuda_source_tables_equal_reference(table, name, n):
-    """The kernel source's __constant__ tables, read from the text."""
-    with open(cuda_build.source_path("inflate")) as f:
-        src = f.read()
+    """The kernel's __constant__ tables, read from the text of its source
+    and the headers it includes."""
+    src = ""
+    for path in cuda_build.sources("inflate"):
+        with open(path) as f:
+            src += f.read()
     body = re.search(table + r"\[\d+\]\s*=\s*\{([^}]*)\}", src).group(1)
     got = [int(v) for v in body.replace("\n", " ").split(",") if v.strip()]
     np.testing.assert_array_equal(got, getattr(ref_tables, name)[:n])

@@ -3,8 +3,10 @@ against the JAX package, on the CPU.
 
 - The plain version against ``disq_tpu.ops.inflate.inflate_stacked`` in
   interpret mode on every payload of ``ops/inflate_cases.py`` (status,
-  good and B4-specific cases), at most 8 per call: bytes, length and
-  status equal; the wrappers' raised messages equal.
+  good, B4-specific and B4-edge cases, and the edge cases of B1's
+  design, whose statuses under B4's rules only the reference says), at
+  most 8 per call: bytes, length and status equal; the wrappers' raised
+  messages equal.
 - The plain version against zlib on 60 KB BGZF-like blocks.
 - The legacy read (``DISQ_TPU_DEVICE_INFLATE=legacy`` on the reference,
   ``DISQ_TPU_TORCH_DEVICE_INFLATE=legacy`` with ``.resident_decode()`` on
@@ -41,6 +43,8 @@ CASES = (
     + [(n, p, len(d), 0) for n, p, d in inflate_cases.good_cases(3)]
     + [(n + "_unchecked", p, -1, 0) for n, p, d in inflate_cases.good_cases(4)[::3]]
     + inflate_cases.legacy_cases()
+    + [(n, p, u, None) for n, p, u, _ in inflate_cases.edge_cases()]
+    + inflate_cases.legacy_edge_cases()
 )
 
 

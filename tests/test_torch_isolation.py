@@ -142,6 +142,27 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path, kernel):
     assert os.listdir(tmp_path / "build") == []
 
 
+@pytest.mark.parametrize("header,users", [
+    ("inflate_core.cuh", {"inflate", "inflate_legacy"}),
+    ("rans_core.cuh", {"rans", "rans_simd"})])
+def test_library_path_digests_the_headers_a_source_includes(
+        monkeypatch, tmp_path, header, users):
+    """An edit to a shared header renames the libraries of exactly the
+    kernels that include it, so no stale library is loaded (on a copy of
+    csrc/; the path is a digest, so no nvcc is needed)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
+    kernels = ("inflate", "inflate_legacy", "parse", "rans", "rans_simd")
+    before = {k: cuda_build.library_path(k) for k in kernels}
+    for k in users:
+        assert str(csrc / header) in cuda_build.sources(k)
+    with open(csrc / header, "a") as f:
+        f.write("// an edit\n")
+    after = {k: cuda_build.library_path(k) for k in kernels}
+    assert {k for k in kernels if after[k] != before[k]} == users
+
+
 def test_chip_smoke_fails_without_a_card():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, SMOKE], cwd=REPO, env=env,

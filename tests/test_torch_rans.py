@@ -241,6 +241,24 @@ def test_plain_b3_equals_jax_kernel_on_edge_streams(part):
     assert B5.rans0_decode_device(streams, CPU) == want
 
 
+@pytest.mark.parametrize("part", [slice(0, 8), slice(8, None)])
+def test_plain_b5_equals_its_jax_kernel_on_edge_streams(part):
+    """B5's plain version against B5's own JAX kernel (``_rans0_kernel``,
+    through its wrapper's slot lookup), not B3's."""
+    raws, streams = EDGE_RAWS[part], EDGE_STREAMS[part]
+    want = ref_b5(streams, interpret=True)
+    assert want == raws
+    assert B5.rans0_decode_device(streams, CPU) == want
+
+
+def test_plain_b5_overruns_like_its_jax_kernel_on_the_cut_edge_stream():
+    with pytest.raises(ValueError, match="overran stream 0") as want:
+        ref_b5(EDGE_CUT, interpret=True)
+    with pytest.raises(ValueError, match="overran stream 0") as got:
+        B5.rans0_decode_device(EDGE_CUT, CPU)
+    assert str(got.value) == str(want.value)
+
+
 def test_plain_versions_equal_native_on_edge_streams():
     assert [rans_decode_native(s) for s in EDGE_STREAMS] == EDGE_RAWS
     args, ren_off, out_off = _staged(EDGE_STREAMS + EDGE_CUT)
