@@ -20,6 +20,8 @@ through their public entry points on ``cuda``:
     storage.num_shards(8).writer_workers(4).write(ds, out, ..., sort=True)
     storage.write(ds.coordinate_sorted(), out_cram, CraiWriteOption.ENABLE)
     cr = storage.read(out_cram); cr.count(); cr.flagstat()         # CRAM
+    storage.executor_workers(4).read(head_cram)                    # executor
+    storage.error_policy("skip" | "quarantine").read(flipped_head) # policies
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -33,15 +35,21 @@ and the 4-worker reads against the default read, the skip and quarantine
 reads of a copy with one flipped bit against the generator's records
 outside that block (and the quarantine sidecar against the corrupt
 bytes), the 4-worker write against the 1-worker write byte for byte,
-shows from
+the same for CRAM on the file's first 3 splits (the 4-worker read against
+the default one; the strict, skip and quarantine reads of a copy with one
+byte flipped in a container of split 2, the sidecar against that
+container's bytes), every
+CRAM read's ``ds.counters`` against the file's containers, shows from
 the launch counts (zeroed just before each path, read just after) that
 each path went through its kernels, holds each kernel against its plain
 version on the inputs of split 0 (the inflate kernels' pure-Python plain
 versions in one spawned process per core) and on a sample of corrupt,
 truncated and edge-case inputs (B3 also against the native host decoder
-on every stream of the file), and times them, B1, B3, B4 and B5 also on
-one payload or stream alone, beside their launch geometry. Any failed
-phase exits non-zero.
+on every stream of the file), and times them: through the wrapper with
+CUDA events, and on the device alone as a CUDA graph of their launches
+replayed between events (``graph_ms``), B1, B3, B4 and B5 also on one
+payload or stream alone, beside their launch geometry. Any failed phase exits
+non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -362,6 +370,32 @@ def cuda_ms(torch, fn, warmup: int = 2, iters: int = 10) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(torch, fn, iters: int = 20, reps: int = 10) -> float:
+    """Device time per call of ``fn`` with the host taken out: ``iters``
+    calls captured in one CUDA graph (after a warm-up call on a side
+    stream), the graph replayed ``reps`` times between two CUDA events.
+    A wrapper's launch count goes up by ``iters`` at the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * iters)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -393,6 +427,34 @@ def crai_container_offsets(path: str) -> list:
     slice, the container's byte offset in field 4)."""
     text = gzip.decompress(open(path, "rb").read()).decode()
     return [int(line.split("\t")[3]) for line in text.splitlines() if line]
+
+
+def itf8(data, p: int):
+    """(value, next position) of the ITF-8 integer at ``p`` (CRAM 3.0
+    §2.3), as unsigned 32 bits."""
+    b = data[p]
+    if b < 0x80:
+        return b, p + 1
+    if b < 0xC0:
+        return ((b & 0x7F) << 8) | data[p + 1], p + 2
+    if b < 0xE0:
+        return ((b & 0x3F) << 16) | (data[p + 1] << 8) | data[p + 2], p + 3
+    if b < 0xF0:
+        return (((b & 0x1F) << 24) | (data[p + 1] << 16) | (data[p + 2] << 8)
+                | data[p + 3]), p + 4
+    return (((b & 0x0F) << 28) | (data[p + 1] << 20) | (data[p + 2] << 12)
+            | (data[p + 3] << 4) | (data[p + 4] & 0x0F)), p + 5
+
+
+def container_fields(data, off: int):
+    """(block bytes, record count) of the container at ``off``: its int32
+    length, then reference id, start and span, then the record count,
+    each ITF-8 (CRAM 3.0 §7.1)."""
+    length = struct.unpack_from("<i", data, off)[0]
+    p = off + 4
+    for _ in range(3):
+        _, p = itf8(data, p)
+    return length, itf8(data, p)[0]
 
 
 def qs_streams(path: str, offsets: list) -> list:
@@ -464,16 +526,25 @@ def _import_plain() -> None:
     sys.path.insert(0, HERE)
     import disq_tpu_torch.ops.inflate  # noqa: F401
     import disq_tpu_torch.ops.inflate_simd  # noqa: F401
+    import disq_tpu_torch.ops.rans  # noqa: F401
 
 
 def _plain_chunk(job):
-    """One process's share of an inflate kernel's plain version: ``(kind,
+    """One process's share of a kernel's plain version: ``(kind,
     payloads, usizes)`` → its outputs on those payloads as numpy arrays;
-    ``kind`` is ``inflate`` (B1: blob, lengths, statuses) or
-    ``inflate_legacy`` (B4: rows, meta)."""
+    ``kind`` is ``inflate`` (B1: blob, lengths, statuses),
+    ``inflate_legacy`` (B4: rows, meta), or ``rans_simd`` / ``rans`` (B3
+    / B5 on rANS streams, ``usizes`` unused: out, used, statuses)."""
     import torch
 
     kind, payloads, usizes = job
+    if kind in ("rans_simd", "rans"):
+        from disq_tpu_torch.ops import rans as B5
+        from disq_tpu_torch.ops import rans_simd as B3
+
+        _live, staged, _offs = B3.stage_streams(payloads, "cpu")
+        plain = B3 if kind == "rans_simd" else B5
+        return [t.numpy() for t in plain.rans0_decode_plain(*staged)]
     lens = np.array([len(p) for p in payloads], np.int64)
     off = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
     comp = torch.frombuffer(bytearray(b"".join(payloads)), dtype=torch.uint8)
@@ -493,15 +564,16 @@ def _plain_chunk(job):
     return [t.numpy() for t in res]
 
 
-def plain_on_payloads(kind: str, payloads, usizes):
-    """``kind``'s plain version (pure Python) on every payload, in
-    contiguous chunks over one spawned process per CPU core, up to 8;
-    the pool starts and imports before the clock does. Returns (the
-    outputs, each joined in payload order; wall ms; processes)."""
+def plain_on_payloads(kind: str, payloads, usizes, jobs_per_proc: int = 4):
+    """``kind``'s plain version on every payload (or stream), in
+    contiguous chunks over one spawned process per CPU core, up to 8,
+    ``jobs_per_proc`` chunks each; the pool starts and imports before the
+    clock does. Returns (the outputs, each joined in payload order; wall
+    ms; processes)."""
     import multiprocessing
 
     procs = max(1, min(8, os.cpu_count() or 1))
-    step = -(-len(payloads) // (4 * procs))
+    step = -(-len(payloads) // (jobs_per_proc * procs))
     jobs = [(kind, payloads[i: i + step], list(usizes[i: i + step]))
             for i in range(0, len(payloads), step)]
     with multiprocessing.get_context("spawn").Pool(
@@ -513,33 +585,30 @@ def plain_on_payloads(kind: str, payloads, usizes):
     return [np.concatenate(col) for col in zip(*parts)], ms, procs
 
 
-def check_against_plain(torch, kernel, plain, staged, total: int,
-                        n_truncated: int, on_host: bool = False):
-    """Kernel and plain version on the same staged streams: returns
-    (max abs error, mismatches, the plain version's ms); the last
-    ``n_truncated`` streams must flag status 6, the others 0. With
-    ``on_host`` the plain version runs on host copies of the inputs
-    (B5's: its few small torch ops per 4 output bytes cost several times
-    less there than their launches on the card)."""
-    k_out, k_used, k_st = kernel(*staged, total)
-    torch.cuda.synchronize()
-    if on_host:
-        k_out, k_used, k_st = k_out.cpu(), k_used.cpu(), k_st.cpu()
-        staged = [t.cpu() for t in staged]
-    t0 = time.perf_counter()
-    p_out, p_used, p_st = plain(*staged)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(int((k_out.int() - p_out.int()).abs().max()),
-              int((k_used - p_used).abs().max()),
-              int((k_st - p_st).abs().max()))
-    mismatches = int((k_out != p_out).sum() + (k_used != p_used).sum()
-                     + (k_st != p_st).sum())
-    st = k_st.cpu().numpy()
+def rans_errors(k, p, n_truncated: int):
+    """(max abs error, mismatches) of a rANS kernel's outputs ``k``
+    against its plain version's ``p`` (numpy ``out``, ``used``,
+    ``status``); the last ``n_truncated`` streams must flag status 6,
+    the others 0."""
+    err = max(int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max(
+        initial=0)) for a, b in zip(k, p))
+    mismatches = sum(int((a != b).sum()) for a, b in zip(k, p))
+    st = k[2]
     want = np.zeros(len(st), dtype=st.dtype)
     want[len(st) - n_truncated:] = 6
     check(np.array_equal(st, want), f"statuses: {st.tolist()}")
-    return err, mismatches, plain_ms
+    return err, mismatches
+
+
+def check_against_plain(torch, kernel, plain, staged, total: int,
+                        n_truncated: int):
+    """Kernel and plain version on the same staged streams, on the card:
+    returns (max abs error, mismatches, the plain version's ms)."""
+    k = [t.cpu().numpy() for t in kernel(*staged, total)]
+    t0 = time.perf_counter()
+    p = [t.cpu().numpy() for t in plain(*staged)]
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return (*rans_errors(k, p, n_truncated), plain_ms)
 
 
 def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
@@ -579,6 +648,10 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     count, fstat = cr.count(), cr.flagstat()
     main = counters.snapshot()
     stats = dict(B3.last_stats)
+    data = open(cram, "rb").read()
+    fields = [container_fields(data, off) for off in offsets]
+    check(sum(r for _, r in fields) == n, "container record counts")
+    cram_counters_ok(cr, n, fields, args, file_bytes, "cram read")
     log(f"cram read: {cram_read_s:.3f}s ({n / cram_read_s:.0f} rec/s), "
         f"counters {json.dumps(main)}, rans_simd stats {json.dumps(stats)}")
     check(count == n, f"cram count {count} != {n}")
@@ -662,11 +735,18 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     first = [s for off, s in zip(offsets, streams) if off < args.split_size]
     _live, m_args, (m_ren, m_out) = B3.stage_streams(first, dev)
     m_total = int(m_out[-1])
-    b3_err, b3_mism, b3_plain_ms = check_against_plain(
-        torch, B3.rans0_decode, B3.rans0_decode_plain, m_args, m_total, 0)
-    b5_err, b5_mism, b5_plain_ms = check_against_plain(
-        torch, B5.rans0_decode_legacy, B5.rans0_decode_plain, m_args, m_total,
-        0, on_host=True)
+    # the plain versions on host copies, one spawned process per core
+    # (their few small torch ops per 4 output bytes cost less there than
+    # their launches on the card)
+    b3_k = [t.cpu().numpy() for t in B3.rans0_decode(*m_args, m_total)]
+    b3_p, b3_plain_ms, procs = plain_on_payloads("rans_simd", first,
+                                                 [0] * len(first), 1)
+    b3_err, b3_mism = rans_errors(b3_k, b3_p, 0)
+    b5_k = [t.cpu().numpy() for t in B5.rans0_decode_legacy(*m_args, m_total)]
+    b5_p, b5_plain_ms, _ = plain_on_payloads("rans", first, [0] * len(first),
+                                             1)
+    b5_err, b5_mism = rans_errors(b5_k, b5_p, 0)
+    del b3_k, b3_p, b5_k, b5_p
     check(b3_err == 0 and b3_mism == 0,
           "rans_simd kernel != plain version on split 0")
     check(b5_err == 0 and b5_mism == 0,
@@ -674,6 +754,10 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     b3_ms = cuda_ms(torch, lambda: B3.rans0_decode(*m_args, m_total), 1, 3)
     b5_ms = cuda_ms(torch, lambda: B5.rans0_decode_legacy(*m_args, m_total),
                     1, 3)
+    b3_dev_ms = graph_ms(torch, lambda: B3.rans0_decode(*m_args, m_total),
+                         3, 2)
+    b5_dev_ms = graph_ms(
+        torch, lambda: B5.rans0_decode_legacy(*m_args, m_total), 3, 2)
     bound_ms, bound_by = rans_bound(m_ren, m_out)
     b3_geom = cuda_build.geometry("rans_simd", len(m_ren) - 1)
     b5_geom = cuda_build.geometry("rans", len(m_ren) - 1)
@@ -719,7 +803,11 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
                 "cigars"):
         check(np.array_equal(getattr(cr5.reads, col), getattr(rb, col)),
               f"legacy cram column {col}")
-    del cr5, cr, rb
+    cram_counters_ok(cr5, n, fields, args, file_bytes, "legacy cram read")
+    del cr5
+    policy_e2e = cram_policy_legs(torch, port, args, g, perm_want, cram, data,
+                                  offsets, fields, cr.reads)
+    del cr, rb, data
     os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
 
     shape = {"streams": len(m_ren) - 1, "bytes_in": int(m_ren[-1]),
@@ -727,8 +815,8 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     common = {"route": "cuda", "library_ms": None,
               "bound_by": bound_by, "tolerance": 0, "shape": shape,
               "bound_ms": round(bound_ms, 6),
-              "plain_on": "the same inputs (split 0's streams); B5's "
-                          "on host copies",
+              "plain_on": f"the same inputs (split 0's streams), host, "
+                          f"{procs} processes",
               "sample": f"{len(sample) + len(truncated)} streams, "
                         f"{len(truncated)} truncated"}
     kernels = [
@@ -737,6 +825,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
          "replaces": "disq_tpu/ops/rans_simd.py:91",
          "launches": launches.get("rans_simd", 0), "max_abs_err": b3_err,
          "ms": round(b3_ms, 4), "plain_ms": round(b3_plain_ms, 4),
+         "ms_device": round(b3_dev_ms, 4),
          "mismatches": b3_mism, "sample_mismatches": b3_s_mism,
          "ms_on_sample": round(b3_sample_ms, 4),
          "plain_ms_on_sample": round(b3_s_plain_ms, 4),
@@ -748,6 +837,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
          "replaces": "disq_tpu/ops/rans.py:50",
          "launches": l_launches.get("rans", 0), "max_abs_err": b5_err,
          "ms": round(b5_ms, 4), "plain_ms": round(b5_plain_ms, 4),
+         "ms_device": round(b5_dev_ms, 4),
          "mismatches": b5_mism, "sample_mismatches": b5_s_mism,
          "ms_on_sample": round(b5_sample_ms, 4),
          "plain_ms_on_sample": round(b5_s_plain_ms, 4),
@@ -759,10 +849,173 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
            "cram_write_records_per_s": round(n / cram_write_s, 1),
            "cram_read_s": round(cram_read_s, 4),
            "cram_read_records_per_s": round(n / cram_read_s, 1),
-           "cram_legacy_read_s": round(legacy_read_s, 4),
+           "cram_legacy_read_s": round(legacy_read_s, 4), **policy_e2e,
            "cram_containers": len(offsets), "cram_file_bytes": file_bytes,
            "cram_splits": -(-file_bytes // args.split_size)}
     return kernels, e2e
+
+
+def cram_counters_ok(ds, records: int, fields, args, file_bytes: int,
+                     what: str, **lost) -> None:
+    """A CRAM read's ``ds.counters`` against the file: its records (after
+    skip), one block per data container, the containers' block bytes,
+    one shard per split, and the corrupt containers counted."""
+    c = ds.counters
+    want = (-(-file_bytes // args.split_size), records, len(fields),
+            sum(length for length, _ in fields),
+            lost.get("skipped", 0), lost.get("quarantined", 0))
+    got = (c.shards, c.records, c.blocks, c.bytes_compressed,
+           c.skipped_blocks, c.quarantined_blocks)
+    check(got == want, f"{what}: counters {got}, want {want}")
+
+
+def flip_cram_container(cram: str, data: bytes, offsets, fields,
+                        split: int):
+    """A copy of the CRAM ``data`` with one byte flipped mid-payload in
+    the middle container of split 2 (one with a successor, so its bytes
+    end where the next container starts). Returns (container index, its
+    offset, its end, the flipped bytes, the copy's path, the mask of the
+    sorted records outside that container)."""
+    in_split = [k for k, off in enumerate(offsets[:-1])
+                if 2 * split <= off < 3 * split]
+    check(len(in_split) > 0, "no container of split 2 has a successor")
+    c = in_split[len(in_split) // 2]
+    off, end = offsets[c], offsets[c + 1]
+    bad = bytearray(data)
+    bad[(off + end) // 2] ^= 0x5A
+    flipped = os.path.splitext(cram)[0] + "_flipped.cram"
+    with open(flipped, "wb") as f:
+        f.write(bad)
+    shutil.rmtree(flipped + ".quarantine", ignore_errors=True)
+    first = sum(r for _, r in fields[:c])
+    keep = np.ones(sum(r for _, r in fields), bool)
+    keep[first: first + fields[c][1]] = False
+    return c, off, end, bad, flipped, keep
+
+
+RAGGED = (("name_offsets", ("names",)), ("cigar_offsets", ("cigars",)),
+          ("seq_offsets", ("seqs", "quals")), ("tag_offsets", ("tags",)))
+FIXED = ("refid", "pos", "mapq", "bin", "flag", "next_refid", "next_pos",
+         "tlen")
+CRAM_EOF = 38   # bytes of the CRAM 3.0 end-of-file container
+
+
+def head_equal(got, want, m: int, what: str) -> None:
+    """``got`` (a read batch of ``m`` records) equals the first ``m``
+    records of ``want``, column by column."""
+    check(got.count == m, f"{what}: {got.count} records, want {m}")
+    for col in FIXED:
+        check(np.array_equal(getattr(got, col), getattr(want, col)[:m]),
+              f"{what}: column {col}")
+    for off_col, cols in RAGGED:
+        off = getattr(want, off_col)
+        check(np.array_equal(getattr(got, off_col), off[: m + 1]),
+              f"{what}: column {off_col}")
+        for col in cols:
+            check(np.array_equal(getattr(got, col),
+                                 getattr(want, col)[: off[m]]),
+                  f"{what}: column {col}")
+
+
+def cram_policy_legs(torch, port, args, g, perm_want, cram, data, offsets,
+                     fields, default) -> dict:
+    """The CRAM read with the knobs users set, on the file's first 3
+    splits (the containers that start there, then the EOF container: a
+    cut of depth): the shard executor at 4 workers against the default
+    read ``default`` of the whole file, and strict, skip and quarantine
+    on a copy with one byte flipped mid-payload in a container of split
+    2. Returns the e2e fields."""
+    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime.errors import CorruptBlockError
+
+    split = args.split_size
+    cut = sum(1 for off in offsets if off < 3 * split)
+    check(data[-CRAM_EOF:][:4] == struct.pack("<i", 15),
+          "no CRAM 3.0 EOF container at the end of the file")
+    if cut < len(offsets):
+        data = data[: offsets[cut]] + data[-CRAM_EOF:]
+        offsets, fields = offsets[:cut], fields[:cut]
+    cram = os.path.splitext(cram)[0] + "_head.cram"
+    with open(cram, "wb") as f:
+        f.write(data)
+    file_bytes = len(data)
+    n = sum(r for _, r in fields)
+    splits_with_streams = len({off // split for off in offsets})
+    log(f"cram head: {len(offsets)} containers, {n} records, {file_bytes} "
+        f"bytes, {splits_with_streams} splits")
+
+    def storage():
+        return port.ReadsStorage.make_default().split_size(split)
+
+    # -- the shard executor at 4 workers --------------------------------------
+    counters.reset()
+    t0 = time.perf_counter()
+    ex = storage().executor_workers(4).read(cram)
+    torch.cuda.synchronize()
+    executor_s = time.perf_counter() - t0
+    snap = counters.snapshot()
+    log(f"cram executor read (4 workers): {executor_s:.3f}s, counters "
+        f"{ex.counters.as_dict()}, {json.dumps(snap)}")
+    check(snap["launches"].get("rans_simd", 0) == splits_with_streams,
+          f"cram executor read launches {snap['launches']}")
+    cram_counters_ok(ex, n, fields, args, file_bytes, "cram executor read")
+    head_equal(ex.reads, default, n, "cram executor read")
+    del ex
+
+    # -- the error policies on one flipped byte -------------------------------
+    c, off, end, bad, flipped, keep = flip_cram_container(
+        cram, data, offsets, fields, split)
+    try:
+        storage().read(flipped)
+    except CorruptBlockError as e:
+        check(e.block_offset == off and e.shard_id == off // split,
+              f"cram strict: {e}")
+        log(f"cram strict read: raises {e}")
+    else:
+        raise PhaseError("cram strict read of the flipped copy did not raise")
+    perm = perm_want[:n][keep]
+    sorted_cols = {col: g[col][perm]
+                   for col in ("refid", "pos", "flag", "mapq", "tlen",
+                               "next_pos")}
+    policy = {}
+    for name in ("skip", "quarantine"):
+        counters.reset()
+        t0 = time.perf_counter()
+        pd = storage().error_policy(name).read(flipped)
+        torch.cuda.synchronize()
+        policy[name] = time.perf_counter() - t0
+        snap = counters.snapshot()
+        log(f"cram {name} read: {policy[name]:.3f}s, {pd.count()} records "
+            f"({n - pd.count()} lost), counters {pd.counters.as_dict()}, "
+            f"{json.dumps(snap)}")
+        cram_counters_ok(pd, int(keep.sum()), fields, args, file_bytes,
+                         f"cram {name} read", **{
+                             "skipped" if name == "skip" else "quarantined": 1})
+        for col, want in sorted_cols.items():
+            check(np.array_equal(getattr(pd.reads, col), want),
+                  f"cram {name}: column {col}")
+        check(np.array_equal(pd.reads.names.reshape(-1, NAME_LEN),
+                             g["names"][perm]), f"cram {name}: names")
+        check(np.array_equal(pd.reads.quals.reshape(-1, READ_LEN),
+                             g["qual"][perm]), f"cram {name}: quals")
+        check(snap["launches"].get("rans_simd", 0) == splits_with_streams,
+              f"cram {name}: launches {snap['launches']}")
+        del pd
+    with open(flipped + ".quarantine/MANIFEST.jsonl") as f:
+        lines = [json.loads(ln) for ln in f.read().splitlines()]
+    check(lines[0] == {"version": 1} and len(lines) == 2,
+          f"cram quarantine manifest: {lines}")
+    entry = lines[1]
+    check(entry["block_offset"] == off and entry["kind"] == "CRAM container"
+          and entry["length"] == end - off, f"cram quarantine entry {entry}")
+    with open(entry["sidecar"], "rb") as f:
+        check(f.read() == bytes(bad[off:end]), "cram quarantine sidecar bytes")
+    del bad
+    log(f"cram policies: container {c} at {off} (split {off // split}), "
+        f"{fields[c][1]} records lost, manifest and sidecar ok")
+    return {"cram_executor4_read_s": round(executor_s, 4),
+            "cram_skip_read_s": round(policy["skip"], 4),
+            "cram_quarantine_read_s": round(policy["quarantine"], 4)}
 
 
 # -- the BAM read and write as users configure them -------------------------
@@ -912,6 +1165,16 @@ def bam_legs(torch, port, args, g, info, ds, src, work, dev, host_blob,
           "B4 differs from B1 on split 0")
     del out_h, joined
     b4_ms = cuda_ms(torch, lambda: B4.inflate_stacked(*m_args), 1, 3)
+    # the wrapper reads the largest payload size on the host, which a CUDA
+    # graph cannot capture: the graph holds the kernel's C entry alone
+    lib, (comp, pay_off, csizes, usizes) = B4._lib(), m_args
+    rows = torch.empty((len(first), B4.UMAX), dtype=torch.uint8, device=dev)
+    meta = torch.empty((len(first), 2), dtype=torch.int32, device=dev)
+    b4_dev_ms = graph_ms(torch, lambda: lib.disq_inflate_legacy_launch(
+        comp.data_ptr(), pay_off.data_ptr(), csizes.data_ptr(),
+        usizes.data_ptr(), rows.data_ptr(), meta.data_ptr(), len(first),
+        torch.cuda.current_stream().cuda_stream), 3, 2)
+    del rows, meta, comp, pay_off, csizes, usizes
     m_out = int(sum(m_us))
     b4_bytes = m_in + len(first) * (B4.UMAX + 8 + 8 + 4 + 4)
     bytes_ms = b4_bytes / HBM_BYTES_PER_S * 1e3
@@ -1037,6 +1300,7 @@ def bam_legs(torch, port, args, g, info, ds, src, work, dev, host_blob,
              "replaces": "disq_tpu/ops/inflate.py:80",
              "launches": l_launch.get("inflate_legacy", 0),
              "max_abs_err": b4_err, "ms": round(b4_ms, 4),
+             "ms_device": round(b4_dev_ms, 4),
              "plain_ms": round(b4_plain_ms, 4),
              "bound_ms": round(b4_bound, 6), "bound_by": b4_by,
              "library_ms": None, "mismatches": b4_mism, "tolerance": 0,
@@ -1260,6 +1524,7 @@ def run(args) -> dict:
           f"inflate kernel != plain version on split 0 ({b1_mismatch})")
     del k_blob, p_blob
     b1_ms = cuda_ms(torch, lambda: B1.inflate(*m_ins, m_total), 1, 5)
+    b1_dev_ms = graph_ms(torch, lambda: B1.inflate(*m_ins, m_total), 3, 2)
     b1_geom = cuda_build.geometry("inflate", len(first))
     # one payload alone: the latency of one warp's decode
     one = (m_ins[0], m_ins[1][:1].contiguous(), m_ins[2][:1].contiguous(),
@@ -1292,14 +1557,35 @@ def run(args) -> dict:
                 "next_pos", "tlen"):
         check(np.array_equal(k[col].astype(g[col].dtype), g[col]),
               f"parse column {col} vs generator")
-    # main-path shape: one split's records
+    # the edge cases (ops/parse.py::edge_starts), each in a blob that is a
+    # view at an odd byte offset of the file's blob: every residue mod 16,
+    # prefixes ending at, within 40 bytes of and past the blob's end
+    b2_sample = b2_s_mism = 0
+    for view in (0, 1, 2, 3, 5, 13):
+        e_blob = blob[view: view + 100_003]
+        e_starts = torch.from_numpy(B2.edge_starts(e_blob.numel())).to(dev)
+        e_k = B2.parse_records(e_blob, e_starts)
+        e_p = B2.parse_records_plain(e_blob, e_starts)
+        b2_s_mism += int((e_k != e_p).any(0).sum())
+        b2_sample += e_starts.numel()
+    check(b2_s_mism == 0, f"parse kernel != plain version on {b2_s_mism} "
+          f"of {b2_sample} edge-case records")
+    # main-path shape: one split's records. The device-only time (a CUDA
+    # graph of 20 launches replayed between events) and the time through
+    # the wrapper (20 Python calls between events), which counts the
+    # host's issue cost
     per = -(-n // n_splits)
     s_starts = starts[:per].contiguous()
-    b2_ms = cuda_ms(torch, lambda: B2.parse_records(blob, s_starts), 3, 20)
+    b2_call = lambda: B2.parse_records(blob, s_starts)  # noqa: E731
+    b2_wrapper_ms = cuda_ms(torch, b2_call, 3, 20)
+    b2_ms = graph_ms(torch, b2_call)
     b2_plain_ms = cuda_ms(torch, lambda: B2.parse_records_plain(blob, s_starts), 1, 3)
     b2_bytes = per * (8 + 36 + 12 * 4)
-    log(f"parse: all {n} records exact; {per} records: kernel {b2_ms:.3f} ms, "
-        f"plain {b2_plain_ms:.3f} ms")
+    b2_geom = cuda_build.geometry("parse", per)
+    log(f"parse: all {n} records exact, {b2_sample} edge-case records exact; "
+        f"{per} records: kernel {b2_ms:.4f} ms on the device alone, "
+        f"{b2_wrapper_ms:.4f} ms through the wrapper, plain "
+        f"{b2_plain_ms:.3f} ms; geometry {json.dumps(b2_geom)}")
 
     kernels = [
         {"name": "inflate", "route": "cuda",
@@ -1307,6 +1593,7 @@ def run(args) -> dict:
          "replaces": "disq_tpu/ops/inflate_simd.py:325",
          "launches": launches.get("inflate", 0), "max_abs_err": b1_err,
          "ms": round(b1_ms, 4), "plain_ms": round(b1_plain_ms, 4),
+         "ms_device": round(b1_dev_ms, 4),
          "bound_ms": round(b1_bytes / HBM_BYTES_PER_S * 1e3, 6),
          "bound_by": "bytes", "library_ms": None,
          "mismatches": b1_mismatch, "tolerance": 0,
@@ -1327,7 +1614,11 @@ def run(args) -> dict:
          "bound_ms": round(b2_bytes / HBM_BYTES_PER_S * 1e3, 6),
          "bound_by": "bytes", "library_ms": None,
          "mismatches": b2_mismatch, "tolerance": 0, "shape": {"records": per},
-         "plain_on": "the same inputs"},
+         "plain_on": "the same inputs",
+         "ms_device": round(b2_ms, 4),
+         "ms_through_wrapper": round(b2_wrapper_ms, 4),
+         "sample": f"{b2_sample} edge-case records in 6 blob views",
+         "sample_mismatches": b2_s_mism, "geometry": b2_geom},
     ]
     b4_entry, legs_e2e = bam_legs(torch, port, args, g, info, ds, src, work,
                                   dev, host_blob, stats["device_lanes"])

@@ -152,10 +152,11 @@ class ReadsStorage:
         return self
 
     def error_policy(self, policy: "ErrorPolicy | str") -> "ReadsStorage":
-        """Corrupt-block policy of BAM reads: ``strict`` (default —
-        raise ``CorruptBlockError`` with coordinates), ``skip`` (drop
-        and count) or ``quarantine`` (drop and copy to the quarantine
-        sidecar)."""
+        """Corrupt-block policy of BAM and CRAM reads: ``strict``
+        (default — raise ``CorruptBlockError`` with coordinates),
+        ``skip`` (drop and count) or ``quarantine`` (drop and copy to
+        the quarantine sidecar). The unit is a BGZF block of a BAM and a
+        container of a CRAM."""
         self._options = self._options.with_policy(policy)
         return self
 
@@ -168,11 +169,12 @@ class ReadsStorage:
     def executor_workers(self, n: int,
                          prefetch_shards: Optional[int] = None
                          ) -> "ReadsStorage":
-        """Size the BAM read's shard executor: ``n`` workers overlap
-        range reads, inflate and decode across splits, with at most
-        ``prefetch_shards`` splits ahead of the ordered emit (None ⇒
-        ``2 × n``). ``n=1`` (the default) runs splits in order on the
-        caller's thread. The result is identical for any ``n``."""
+        """Size the BAM and CRAM reads' shard executor: ``n`` workers
+        overlap range reads, inflate or container decode across splits,
+        with at most ``prefetch_shards`` splits ahead of the ordered
+        emit (None ⇒ ``2 × n``). ``n=1`` (the default) runs splits in
+        order on the caller's thread. The result is identical for any
+        ``n``."""
         self._options = self._options.with_executor(n, prefetch_shards)
         return self
 

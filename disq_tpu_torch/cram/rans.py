@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -249,18 +249,22 @@ def rans_encode_order1(raw: bytes) -> bytes:
 
 # -- decode (order 0 and 1) -------------------------------------------------
 
-def rans0_decode_streams(streams: Sequence[bytes], device) -> List[bytes]:
+def rans0_decode_streams(streams: Sequence[bytes], device,
+                         bad: Optional[Dict[int, BaseException]] = None
+                         ) -> List[Optional[bytes]]:
     """Decode order-0 streams (full streams incl. the 9-byte header) on
     ``device`` in one launch: kernel B3, or B5 when
-    ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``. A stream the kernel flags
-    raises ``ValueError`` naming it."""
+    ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``. A stream that does not parse
+    or that the kernel flags raises ``ValueError`` naming it; given a
+    dict ``bad``, every such stream is recorded there instead and the
+    others decode (``ops/rans_simd.decode_streams``)."""
     if os.environ.get("DISQ_TPU_TORCH_DEVICE_RANS", "").lower() == "legacy":
         from disq_tpu_torch.ops.rans import rans0_decode_device
 
-        return rans0_decode_device(streams, device)
+        return rans0_decode_device(streams, device, bad)
     from disq_tpu_torch.ops.rans_simd import rans0_decode_simd
 
-    return rans0_decode_simd(streams, device)
+    return rans0_decode_simd(streams, device, bad)
 
 
 def rans_decode(data: bytes) -> bytes:

@@ -1,4 +1,4 @@
-"""CramSource — the split-parallel CRAM read path, run split by split.
+"""CramSource — the split-parallel CRAM read path.
 
 Reference parity: ``impl/formats/cram/CramSource.java``: container start
 offsets are enumerated by walking container headers (payloads skipped);
@@ -7,21 +7,37 @@ containers are assigned to byte-range splits by the "container start in
 the reference supplied via ``reference_source_path`` (required for
 reference-compressed data).
 
+Splits run through the shard executor (``runtime/executor.py``), as the
+BAM read's do: stage A range-reads every container a split owns (header
+and payload in one read), stage B decodes them, and batches come back
+in split order at any ``executor_workers``. Each split has its own
+retrier and corrupt-container books (``ShardErrorContext.for_shard``),
+and ``ReadsDataset.counters`` sums one ``ShardCounters`` per split.
+
 On ``cuda`` (or with resident decode asked for on the CPU) a split
 first parses and CRC-checks every block of its containers, then decodes
 all their order-0 rANS streams in one launch (kernel B3, or B5 under
 ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``); the other blocks decompress on
 the host and the records assemble on the host, as in the reference.
 Otherwise every block decodes with the host codec. The result is a host
-``ReadBatch``. A corrupt container raises ``CorruptBlockError`` with its
-offset (the strict policy); a missing reference raises
-``MissingReferenceError``.
+``ReadBatch``.
+
+Corrupt input follows the storage's ``ErrorPolicy``, one container at a
+time: a container whose header, blocks, rANS streams or records fail
+raises ``CorruptBlockError`` with its offset under strict, is dropped
+under skip, and is also copied (header and payload) to the quarantine
+sidecar under quarantine. A stream the kernel flags costs only its
+container: the split's other streams keep what the one launch decoded,
+and nothing is decoded again on the host. A missing reference raises
+``MissingReferenceError``, and a CUDA build or launch failure raises,
+under every policy.
 """
 
 from __future__ import annotations
 
+import functools
 import struct
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 from disq_tpu_torch.bam.columnar import ReadBatch
 from disq_tpu_torch.bam.header import SamHeader
@@ -40,7 +56,12 @@ from disq_tpu_torch.fsw.filesystem import (
     compute_path_splits,
     resolve_path,
 )
-from disq_tpu_torch.runtime.errors import MissingReferenceError, corrupt
+from disq_tpu_torch.runtime.errors import (
+    ErrorPolicy,
+    MissingReferenceError,
+    context_for_storage,
+    is_transient,
+)
 
 # errors that are not corrupt input: configuration, and CUDA build or
 # launch failures
@@ -86,92 +107,168 @@ class CramSource:
     def get_reads(self, path: str):
         from disq_tpu_torch.api import ReadsDataset
         from disq_tpu_torch.cram.refsource import fetcher_for_storage
+        from disq_tpu_torch.runtime.counters import (
+            ShardCounters,
+            reduce_counters,
+        )
+        from disq_tpu_torch.runtime.executor import (
+            ShardTask,
+            executor_for_storage,
+        )
 
         fs, path = resolve_path(path)
-        header = read_cram_header(fs, path)
+        ctx = context_for_storage(self._storage, path)
+        header = ctx.retrier.call(read_cram_header, fs, path, what="header")
         ref_fetch = fetcher_for_storage(self._storage, header)
-        data_containers = [(off, hdr) for off, hdr in
-                           walk_container_offsets(fs, path)[1:]
+        containers = walk_container_offsets(fs, path, retrier=ctx.retrier,
+                                            ctx=ctx)
+        data_containers = [(off, hdr) for off, hdr in containers[1:]
                            if not hdr.is_eof]
         device = self._decode_device()
-        batches: List[ReadBatch] = []
+        tasks, shard_ctxs, owned_by_shard = [], [], []
         for i, s in enumerate(compute_path_splits(fs, path, self.split_size)):
             owned = [(off, hdr) for off, hdr in data_containers
                      if s.start <= off < s.end]
-            items = self._fetch_split_containers(fs, path, owned, i)
-            batches.extend(self._decode_split_containers(
-                items, ref_fetch, path, i, device))
-        return ReadsDataset(header=header, reads=ReadBatch.concat(batches))
+            shard_ctx = ctx.for_shard(i)
+            shard_ctxs.append(shard_ctx)
+            owned_by_shard.append(owned)
+            tasks.append(ShardTask(
+                shard_id=i,
+                fetch=functools.partial(self._fetch_split_containers, fs,
+                                        path, owned, shard_ctx),
+                decode=functools.partial(self._decode_split_containers,
+                                         ref_fetch=ref_fetch,
+                                         shard_ctx=shard_ctx, device=device),
+                retrier=shard_ctx.retrier, what=f"cram-shard{i}"))
+        batches: List[ReadBatch] = []
+        shard_counters = []
+        for res in executor_for_storage(self._storage).map_ordered(tasks):
+            sc, owned = shard_ctxs[res.shard_id], owned_by_shard[res.shard_id]
+            batches.extend(res.value)
+            shard_counters.append(ShardCounters(
+                shard_id=res.shard_id,
+                records=sum(b.count for b in res.value),
+                blocks=len(owned),
+                bytes_compressed=sum(h.length for _, h in owned),
+                wall_seconds=res.wall_seconds,
+                skipped_blocks=sc.skipped_blocks,
+                quarantined_blocks=sc.quarantined_blocks,
+                retried_reads=sc.retrier.retried))
+        counters = reduce_counters(shard_counters)
+        # the header read and the walk book on the read's own context,
+        # outside every shard
+        counters.retried_reads += ctx.retrier.retried
+        counters.skipped_blocks += ctx.skipped_blocks
+        counters.quarantined_blocks += ctx.quarantined_blocks
+        return ReadsDataset(header=header, reads=ReadBatch.concat(batches),
+                            counters=counters)
 
     # -- internals ----------------------------------------------------------
 
-    def _fetch_split_containers(self, fs, path: str, owned,
-                                shard_id: int) -> List[Tuple[int, bytes]]:
-        """Range-read every container payload this split owns:
-        ``[(offset, payload bytes), …]``."""
+    def _fetch_split_containers(self, fs, path: str, owned, shard_ctx
+                                ) -> List[Tuple[int, int, bytes]]:
+        """Stage A: range-read every container this split owns, header
+        and payload in one read: ``[(offset, header size, bytes), …]``.
+        Transient faults propagate (the executor retries the fetch); a
+        container whose header no longer parses goes to the policy and
+        is left out."""
+        # a retried attempt must not count the previous attempt's
+        # corrupt containers again (sidecar writes are idempotent)
+        shard_ctx.skipped_blocks = 0
+        shard_ctx.quarantined_blocks = 0
         length = fs.get_file_length(path)
         items = []
-        for off, _hdr in owned:
+        for off, hdr in owned:
             try:
                 h, hdr_size = read_container_header_at(fs, path, off, length)
-            except (IndexError, ValueError, struct.error) as e:
-                raise corrupt(e, kind="CRAM container", path=path,
-                              shard_id=shard_id, block_offset=off) from e
-            items.append((off, fs.read_range(path, off + hdr_size, h.length)))
+                raw = fs.read_range(path, off, hdr_size + h.length)
+            except Exception as e:  # noqa: BLE001 — classified below
+                if is_transient(e):
+                    raise
+                self._handle_corrupt_container(fs, path, off, hdr, e,
+                                               shard_ctx)
+                continue
+            items.append((off, hdr_size, raw))
         return items
 
-    def _decode_split_containers(self, items, ref_fetch, path: str,
-                                 shard_id: int, device) -> List[ReadBatch]:
-        """Decode the staged containers of one split (strict policy):
-        parse and CRC-check every block, decode every order-0 rANS
-        stream in one launch on ``device`` (when given), then decompress
-        the rest and assemble the records container by container."""
-        def fail(e: BaseException, off: int):
-            return corrupt(e, kind="CRAM container", path=path,
-                           shard_id=shard_id, block_offset=off)
-
-        stored = []
-        for off, payload in items:
+    def _decode_split_containers(self, items, ref_fetch, shard_ctx,
+                                 device) -> List[ReadBatch]:
+        """Stage B: decode the staged containers under the shard's
+        policy. Parse and CRC-check every block, decode every order-0
+        rANS stream in one launch on ``device`` (when given), then
+        decompress the rest and assemble the records container by
+        container. A container that failed at any step goes to the
+        policy in container order (strict raises ``CorruptBlockError``
+        with its offset; quarantine copies header and payload)."""
+        errors: Dict[int, BaseException] = {}
+        stored: Dict[int, list] = {}
+        for ci, (_off, hdr_size, raw) in enumerate(items):
             try:
-                stored.append(read_stored_blocks(payload))
-            except _NOT_CORRUPTION:
-                raise
-            except Exception as e:  # noqa: BLE001 — corrupt container
-                raise fail(e, off) from e
+                stored[ci] = read_stored_blocks(raw[hdr_size:])
+            except Exception as e:  # noqa: BLE001 — classified below
+                errors[ci] = _corruption(e)
         decoded: Dict[Tuple[int, int], bytes] = {}
         if device is not None:
-            decoded = self._decode_rans0(items, stored, device, fail)
+            decoded = self._decode_rans0(stored, device, errors)
         batches = []
-        for ci, (off, _payload) in enumerate(items):
-            try:
-                blocks = [b.decompress(decoded.get((ci, bi)))
-                          for bi, b in enumerate(stored[ci])]
-                batches.append(records_from_blocks(blocks, ref_fetch))
-            except _NOT_CORRUPTION:
-                raise
-            except Exception as e:  # noqa: BLE001 — corrupt container
-                raise fail(e, off) from e
+        for ci, (off, _hdr_size, raw) in enumerate(items):
+            error = errors.get(ci)
+            if error is None:
+                try:
+                    blocks = [b.decompress(decoded.get((ci, bi)))
+                              for bi, b in enumerate(stored[ci])]
+                    batches.append(records_from_blocks(blocks, ref_fetch))
+                    continue
+                except Exception as e:  # noqa: BLE001 — classified below
+                    error = _corruption(e)
+            shard_ctx.handle_corrupt_block(error, block_offset=off, raw=raw,
+                                           kind="CRAM container")
         return batches
 
     @staticmethod
-    def _decode_rans0(items, stored, device, fail
+    def _decode_rans0(stored, device, errors
                       ) -> Dict[Tuple[int, int], bytes]:
-        """Every order-0 rANS stream of the split, decoded in one launch:
-        ``{(container index, block index): bytes}``. A stream that does
-        not parse or that the kernel flags raises for its container."""
+        """Every order-0 rANS stream of the split's parsed containers,
+        decoded in one launch: ``{(container index, block index):
+        bytes}``. A stream that does not parse or that the kernel flags
+        marks its container in ``errors`` (its lowest such stream's
+        error); the other streams keep their output."""
         from disq_tpu_torch.cram.rans import rans0_decode_streams
 
-        keys = [(ci, bi) for ci, blocks in enumerate(stored)
+        keys = [(ci, bi) for ci, blocks in stored.items()
                 for bi, b in enumerate(blocks) if b.is_rans0]
         if not keys:
             return {}
-        try:
-            outs = rans0_decode_streams(
-                [stored[ci][bi].comp for ci, bi in keys], device)
-        except _NOT_CORRUPTION:
-            raise
-        except Exception as e:  # noqa: BLE001 — corrupt stream
-            k: Optional[int] = getattr(e, "stream", None)
-            off = items[keys[k][0] if k is not None else 0][0]
-            raise fail(e, off) from e
-        return dict(zip(keys, outs))
+        bad: Dict[int, BaseException] = {}
+        outs = rans0_decode_streams(
+            [stored[ci][bi].comp for ci, bi in keys], device, bad)
+        for k in sorted(bad):
+            errors.setdefault(keys[k][0], bad[k])
+        return {key: out for key, out in zip(keys, outs) if out is not None}
+
+    @staticmethod
+    def _handle_corrupt_container(fs, path: str, offset: int, hdr, error,
+                                  shard_ctx) -> None:
+        """The policy for a container that failed before its bytes were
+        staged: quarantine re-reads them best-effort (the walk's length
+        plus 1 KiB); skip and strict read nothing."""
+        raw = b""
+        if shard_ctx.policy is ErrorPolicy.QUARANTINE:
+            try:
+                length = fs.get_file_length(path)
+                raw = fs.read_range(path, offset,
+                                    min(hdr.length + 1024,
+                                        max(0, length - offset)))
+            except Exception:  # noqa: BLE001 — forensics best-effort
+                raw = b""
+        shard_ctx.handle_corrupt_block(error, block_offset=offset, raw=raw,
+                                       kind="CRAM container")
+
+
+def _corruption(error: BaseException) -> BaseException:
+    """``error`` if it marks a corrupt container; re-raised when it is
+    not corruption (a missing reference, a CUDA build or launch failure)
+    or is transient (the executor refetches the shard)."""
+    if isinstance(error, _NOT_CORRUPTION) or is_transient(error):
+        raise error
+    return error

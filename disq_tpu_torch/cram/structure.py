@@ -279,13 +279,31 @@ def read_container_header_at(
             want *= 4
 
 
-def walk_container_offsets(fs, path: str) -> List[Tuple[int, ContainerHeader]]:
+def walk_container_offsets(fs, path: str, retrier=None, ctx=None
+                           ) -> List[Tuple[int, ContainerHeader]]:
     """Enumerate (offset, header) of every container by reading headers
     and skipping payloads — htsjdk's ``CramContainerHeaderIterator``
-    walk, run before the splits are planned. Seek-dominated. A container header
-    that does not parse, or claims a negative length, raises
-    ``CorruptBlockError`` with its offset (the strict policy)."""
-    from disq_tpu_torch.runtime.errors import corrupt
+    walk, run before the splits are planned. Seek-dominated.
+
+    ``retrier`` (a ``runtime.errors.ShardRetrier``) retries each header
+    read on its own: one read per container, so a whole-walk retry
+    would never converge under a sustained transient fault rate.
+
+    A container header that does not parse, or claims a negative length,
+    is corrupt. With ``ctx`` (a ``ShardErrorContext``) it goes to the
+    policy: strict raises ``CorruptBlockError`` with its offset; skip
+    and quarantine count one ``"CRAM container header"`` unit and stop
+    the walk there (CRAM has no re-sync point past a broken length, so
+    the containers beyond it are unreachable). Without ``ctx`` it raises
+    ``CorruptBlockError``."""
+    from disq_tpu_torch.runtime.errors import corrupt, is_transient
+
+    def to_policy(e: BaseException, pos: int) -> None:
+        if ctx is None:
+            raise corrupt(e, kind="CRAM container header", path=path,
+                          shard_id=-1, block_offset=pos) from e
+        ctx.handle_corrupt_block(e, block_offset=pos,
+                                 kind="CRAM container header")
 
     length = fs.get_file_length(path)
     out: List[Tuple[int, ContainerHeader]] = []
@@ -293,15 +311,25 @@ def walk_container_offsets(fs, path: str) -> List[Tuple[int, ContainerHeader]]:
     pos = 26
     while pos < length:
         try:
-            hdr, hdr_size = read_container_header_at(fs, path, pos, length)
-            if hdr.length < 0:
-                # A garbage length would walk pos backwards (or loop):
-                # classify as corrupt rather than spin.
-                raise ValueError(
-                    f"container at {pos} claims negative length {hdr.length}")
-        except (IndexError, ValueError, struct.error) as e:
-            raise corrupt(e, kind="CRAM container header", path=path,
-                          shard_id=-1, block_offset=pos) from e
+            if retrier is not None:
+                hdr, hdr_size = retrier.call(
+                    read_container_header_at, fs, path, pos, length,
+                    what="container_header")
+            else:
+                hdr, hdr_size = read_container_header_at(fs, path, pos,
+                                                         length)
+        except Exception as e:  # noqa: BLE001 — classified below
+            if is_transient(e):
+                raise
+            to_policy(e, pos)
+            break
+        if hdr.length < 0:
+            # A garbage length would walk pos backwards (or loop):
+            # classify as corrupt rather than spin.
+            to_policy(ValueError(
+                f"container at {pos} claims negative length {hdr.length}"),
+                pos)
+            break
         out.append((pos, hdr))
         pos += hdr_size + hdr.length
         if hdr.is_eof:

@@ -1,8 +1,13 @@
 """ctypes bindings for the C++ host runtime (``native/disq_host.cpp``).
 
 The port builds its own copy of the shared library from the unedited
-source with ``g++`` into the package's git-ignored ``_build``
-directory on first use. When no toolchain is present the load raises
+source with ``g++`` into the package's git-ignored ``_build`` directory
+on first use, with libdeflate where the machine has it and zlib alone
+where it does not. The library is named by a digest of the source, the
+build variant's flags, the compiler's identity and the host
+(``library_path``), so a library that another machine, compiler or
+variant built is never loaded; a checkout copied between machines
+builds its own. When no toolchain is present the load raises
 ``ImportError`` and every caller takes its numpy/zlib path — these are
 host helpers, and the fallback is the reference's own host behaviour.
 
@@ -13,45 +18,75 @@ Byte-identity note: deflate uses zlib with the pinned parameters (level
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
+from typing import List, Sequence
 
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(_PKG), "native", "disq_host.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SO = os.path.join(BUILD_DIR, "libdisq_host.so")
+_CXX = "g++"
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+# the build variants in order of preference: with libdeflate, zlib alone
+VARIANTS = (
+    ("-DDISQ_HAVE_LIBDEFLATE", "-ldeflate", "-lz", "-pthread"),
+    ("-lz", "-pthread"),
+)
 
 _lock = threading.Lock()
 _lib = None
 _load_error: Exception | None = None
 
 
-def _build() -> None:
+def compiler_id() -> str:
+    """The compiler's version banner and target, as it reports them."""
+    out = [subprocess.run([_CXX, arg], check=True, capture_output=True,
+                          text=True).stdout.strip()
+           for arg in ("--version", "-dumpmachine")]
+    return "\n".join(out)
+
+
+def host_id() -> str:
+    """The machine: its name, architecture and operating system."""
+    return " ".join((platform.node(), platform.machine(), platform.platform()))
+
+
+def library_path(flags: Sequence[str], compiler: str, host: str) -> str:
+    """Where the host library built with ``flags`` by ``compiler`` on
+    ``host`` lives: named by a digest of the source and all three."""
+    digest = hashlib.sha1()
+    with open(_SRC, "rb") as f:
+        digest.update(f.read())
+    for part in (" ".join(flags), compiler, host):
+        digest.update(b"\0" + part.encode())
+    return os.path.join(BUILD_DIR, f"libdisq_host-{digest.hexdigest()[:12]}.so")
+
+
+def _build(paths: List[str]) -> str:
+    """Build the first variant that compiles and links here into its
+    path; returns that path."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # a unique temp name per process, published with an atomic replace:
-    # concurrent first-use builds never interleave into one file
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    base = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
-    variants = [
-        base + ["-DDISQ_HAVE_LIBDEFLATE", "-ldeflate", "-lz", "-pthread"],
-        base + ["-lz", "-pthread"],
-    ]
-    try:
-        err = None
-        for cmd in variants:
-            try:
-                subprocess.run(cmd, check=True, capture_output=True)
-                os.replace(tmp, _SO)
-                return
-            except subprocess.CalledProcessError as e:
-                err = e
-        raise err
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    err = None
+    for variant, path in zip(VARIANTS, paths):
+        # a unique temp name per process, published with an atomic
+        # replace: concurrent first-use builds never interleave
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            subprocess.run([_CXX, *_FLAGS, _SRC, "-o", tmp, *variant],
+                           check=True, capture_output=True)
+            os.replace(tmp, path)
+            return path
+        except subprocess.CalledProcessError as e:
+            err = e
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    raise err
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -118,21 +153,15 @@ def _load() -> ctypes.CDLL:
         if _load_error is not None:
             raise ImportError(f"native library unavailable: {_load_error}")
         try:
-            for attempt in (0, 1):
-                try:
-                    if attempt or not os.path.exists(_SO) or (
-                        os.path.exists(_SRC)
-                        and os.path.getmtime(_SRC) > os.path.getmtime(_SO)
-                    ):
-                        _build()
-                    lib = ctypes.CDLL(_SO)
-                    _bind(lib)
-                    break
-                except (OSError, AttributeError):
-                    # a library built elsewhere (another machine's
-                    # libdeflate, an older symbol set): rebuild once here
-                    if attempt or not os.path.exists(_SRC):
-                        raise
+            compiler, host = compiler_id(), host_id()
+            paths = [library_path(_FLAGS + v, compiler, host)
+                     for v in VARIANTS]
+            # a variant built here before is reused; else build the
+            # first one that compiles and links here
+            path = next((p for p in paths if os.path.exists(p)), None) \
+                or _build(paths)
+            lib = ctypes.CDLL(path)
+            _bind(lib)
         except (OSError, subprocess.CalledProcessError,
                 AttributeError, TypeError) as e:
             _load_error = e

@@ -10,9 +10,12 @@ of ``_FIELD_ORDER`` as columns. Word layout:
   w5 l_seq · w6 next_refID · w7 next_pos · w8 tlen
 
 On a CUDA tensor it launches the CUDA kernel (``csrc/parse.cu``), which
-fuses the prefix gather with the parse and reads the blob in place; on
-a CPU tensor it runs ``parse_records_plain``, the same gather and split
-as torch ops.
+fuses the prefix gather with the parse and reads the blob in place
+(aligned 16-byte loads of the prefix where it lies inside the blob,
+byte loads where it runs past the end); on a CPU tensor it runs
+``parse_records_plain``, the same gather and split as torch ops.
+``edge_starts`` gives the starts at the kernel's edges, which the tests
+and ``chip_smoke.py`` hold the kernel and its plain version to.
 """
 
 from __future__ import annotations
@@ -37,6 +40,19 @@ def record_prefix_words(blob: np.ndarray, offsets: np.ndarray) -> np.ndarray:
     starts = offsets[:-1].astype(np.int64)
     fixed = blob[starts[:, None] + np.arange(4 * N_WORDS)]
     return np.ascontiguousarray(fixed).view("<i4").reshape(-1, N_WORDS)
+
+
+def edge_starts(length: int) -> np.ndarray:
+    """Record starts at B2's edges in a blob of ``length`` bytes: the
+    first 64 offsets (every residue mod 16 of the address, for any
+    alignment of the blob), and every start from the one whose 36-byte
+    prefix ends 40 bytes before the blob's end to the blob's end itself
+    (prefixes ending exactly at the end, within 40 bytes of it, and past
+    it, where bytes read as zero)."""
+    front = np.arange(min(64, length), dtype=np.int64)
+    back = np.arange(max(0, length - 4 * N_WORDS - 40), length + 1,
+                     dtype=np.int64)
+    return np.concatenate([front, back])
 
 
 def _split_words(w):

@@ -17,7 +17,7 @@ shares with B3's plain version.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -71,8 +71,12 @@ def rans0_decode_legacy(ren: torch.Tensor, ren_off: torch.Tensor,
                   states, freq, total)
 
 
-def rans0_decode_device(streams: Sequence[bytes], device) -> List[bytes]:
+def rans0_decode_device(streams: Sequence[bytes], device,
+                        bad: Optional[Dict[int, BaseException]] = None
+                        ) -> List[Optional[bytes]]:
     """Decode order-0 rANS 4x8 streams (full streams incl. the 9-byte
     header) on ``device`` in one launch of B5; an overrun raises
-    ``ValueError`` as the reference's wrapper does."""
-    return decode_streams(streams, device, rans0_decode_legacy, last_stats)
+    ``ValueError`` as the reference's wrapper does, or with ``bad`` is
+    recorded there (``ops/rans_simd.decode_streams``)."""
+    return decode_streams(streams, device, rans0_decode_legacy, last_stats,
+                          bad)

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -238,12 +238,14 @@ def stream_error(error: BaseException, k: int) -> BaseException:
     return error
 
 
-def stage_streams(streams: Sequence[bytes], device):
+def stage_streams(streams: Sequence[bytes], device,
+                  bad: Optional[Dict[int, BaseException]] = None):
     """Parse every stream and upload the kernel inputs: returns ``(live
     indices, (ren, ren_off, out_off, states, freq), (host ren_off, host
     out_off))``, the live streams being those with bytes to decode. A
     stream that does not parse raises its parse error, marked by
-    ``stream_error``."""
+    ``stream_error``; given a dict ``bad``, its error is recorded there
+    under its index instead and the stream stays out of the launch."""
     from disq_tpu_torch.runtime.device_pipeline import upload
 
     device = torch.device(device)
@@ -252,7 +254,10 @@ def stage_streams(streams: Sequence[bytes], device):
         try:
             metas.append(_parse_stream(k, s))
         except Exception as e:  # noqa: BLE001 — re-raised as it is, marked
-            raise stream_error(e, k)
+            if bad is None:
+                raise stream_error(e, k)
+            bad[k] = stream_error(e, k)
+            metas.append(None)
     live = [k for k, m in enumerate(metas) if m is not None]
     n = len(live)
     ren_off = np.zeros(n + 1, dtype=np.int64)
@@ -280,36 +285,53 @@ def fetch(out: torch.Tensor, used: torch.Tensor, status: torch.Tensor):
 
 
 def decode_streams(streams: Sequence[bytes], device, decode: Callable,
-                   stats: dict) -> List[bytes]:
+                   stats: dict,
+                   bad: Optional[Dict[int, BaseException]] = None
+                   ) -> List[Optional[bytes]]:
     """The host side shared by B3 and B5: stage ``streams``, decode them
     in one call of ``decode`` (``rans0_decode`` or ``rans.
     rans0_decode_legacy``), check the statuses and slice the output;
-    ``stats["device_lanes"]`` counts the streams decoded. A flagged
-    stream raises ``ValueError`` with the reference B5's message."""
+    ``stats["device_lanes"]`` counts the streams decoded. A stream that
+    does not parse raises its parse error, and one the kernel flags a
+    ``ValueError`` with the reference B5's message, each marked by
+    ``stream_error``. Given a dict
+    ``bad``, every such stream's error is recorded there under its index
+    instead, its output is None, and the other streams keep theirs (one
+    launch all the same; nothing is decoded again)."""
     if not streams:
         return []
-    live, args, (ren_off, out_off) = stage_streams(streams, device)
-    out: List[bytes] = [b""] * len(streams)
+    live, args, (ren_off, out_off) = stage_streams(streams, device, bad)
+    out: List[Optional[bytes]] = [b""] * len(streams)
+    for k in bad or ():
+        out[k] = None
     if not live:
         return out
     blob, used, status = fetch(*decode(*args, int(out_off[-1])))
     clen = np.diff(ren_off)
-    bad = np.nonzero(status)[0]
-    if len(bad):
-        i = int(bad[0])
-        raise stream_error(ValueError(
+    flagged = set()
+    for i in np.nonzero(status)[0].tolist():
+        e = stream_error(ValueError(
             f"device rANS decode overran stream {live[i]} "
             f"(consumed {int(used[i])} of {int(clen[i])})"), live[i])
-    counters.add_stats(stats, device_lanes=len(live))
+        if bad is None:
+            raise e
+        bad[live[i]] = e
+        out[live[i]] = None
+        flagged.add(i)
+    counters.add_stats(stats, device_lanes=len(live) - len(flagged))
     for i, k in enumerate(live):
-        out[k] = blob[out_off[i]: out_off[i + 1]].tobytes()
+        if i not in flagged:
+            out[k] = blob[out_off[i]: out_off[i + 1]].tobytes()
     return out
 
 
-def rans0_decode_simd(streams: Sequence[bytes], device) -> List[bytes]:
+def rans0_decode_simd(streams: Sequence[bytes], device,
+                      bad: Optional[Dict[int, BaseException]] = None
+                      ) -> List[Optional[bytes]]:
     """Decode order-0 rANS 4x8 streams (full streams incl. the 9-byte
     header) on ``device``, all of them in one launch of B3. A stream the
     kernel flags (renorm consumed past its compressed length) is corrupt
-    input and raises ``ValueError`` naming it; there is no host
-    re-decode and no size cap."""
-    return decode_streams(streams, device, rans0_decode, last_stats)
+    input and raises ``ValueError`` naming it, or with ``bad`` is
+    recorded there (``decode_streams``); there is no host re-decode and
+    no size cap."""
+    return decode_streams(streams, device, rans0_decode, last_stats, bad)

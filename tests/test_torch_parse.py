@@ -112,6 +112,51 @@ def test_random_starts_and_bytes_past_the_end():
                                       P._split_words(words)[k])
 
 
+def _reference_zero_past_end(blob, starts):
+    """The JAX function on ``blob`` followed by zeros, so that a prefix
+    running past the end reads zero there as the port's rule says (the
+    JAX gather clamps to the last word instead)."""
+    return _reference(np.concatenate([blob, np.zeros(48, np.uint8)]), starts)
+
+
+@pytest.mark.parametrize("view_offset", [0, 1, 2, 3, 5, 13])
+def test_edge_starts_equal_jax_kernel(view_offset):
+    """Starts at every residue mod 4 and mod 16, prefixes ending exactly
+    at the blob's end, within 40 bytes of it and past it, in a blob that
+    is a view at ``view_offset`` bytes into a larger tensor."""
+    rng = np.random.default_rng(17 + view_offset)
+    big = torch.from_numpy(rng.integers(0, 256, 1000, dtype=np.uint8))
+    blob = big[view_offset: view_offset + 777]
+    assert blob.is_contiguous() and blob.storage_offset() == view_offset
+    starts = P.edge_starts(blob.numel())
+    assert set((starts[:64] % 16).tolist()) == set(range(16))
+    ends = starts + 36
+    n = blob.numel()
+    assert (ends == n).any() and ((ends > n - 40) & (ends < n)).any() \
+        and (ends > n).any() and starts.max() == n
+    want = _reference_zero_past_end(blob.numpy(), starts)
+    got = P.columns(P.parse_records(blob, torch.from_numpy(starts)))
+    for k in REF_FIELDS:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].astype(np.int32),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("residue", range(16))
+def test_records_at_every_residue_equal_jax_kernel(residue):
+    """The decoded records shifted to start ``residue`` bytes into a
+    16-byte-aligned buffer, the last record ending at the blob's end."""
+    blob, offs = _decoded(300, seed=residue)
+    shifted = np.concatenate([np.zeros(residue, np.uint8), blob])
+    starts = offs[:-1] + residue
+    assert offs[-1] == len(blob)
+    want = _reference(shifted, starts)
+    got = P.columns(P.parse_records(torch.from_numpy(shifted),
+                                    torch.from_numpy(starts)))
+    for k in REF_FIELDS:
+        np.testing.assert_array_equal(got[k].numpy(), want[k].astype(np.int32),
+                                      err_msg=k)
+
+
 def test_cpu_parse_books_no_launch():
     before = counters.snapshot()["launches"].get("parse", 0)
     P.parse_records(torch.zeros(64, dtype=torch.uint8),

@@ -331,12 +331,12 @@ def test_decode_routes_by_device(monkeypatch):
     for mod, name in ((B3, "rans0_decode_simd"), (B5, "rans0_decode_device")):
         real = getattr(mod, name)
 
-        def spy(streams, device, _real=real, _name=name):
+        def spy(streams, device, bad=None, *, _real=real, _name=name):
             device = torch.device(device)
             calls.append((_name, device.type))
             if device.type == "cuda":   # no card here: stand in for it
                 return [port_rans.rans_decode(s) for s in streams]
-            return _real(streams, device)
+            return _real(streams, device, bad)
 
         monkeypatch.setattr(mod, name, spy)
     counters.reset()
