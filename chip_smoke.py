@@ -22,6 +22,16 @@ through their public entry points on ``cuda``:
     cr = storage.read(out_cram); cr.count(); cr.flagstat()         # CRAM
     storage.executor_workers(4).read(head_cram)                    # executor
     storage.error_policy("skip" | "quarantine").read(flipped_head) # policies
+    storage.num_shards(8).write(sorted_ds, out, BaiWriteOption.ENABLE,
+                                SbiWriteOption.ENABLE)             # SBI
+    storage.num_shards(8).write(ds, out_dir, FileCardinalityWriteOption
+                                .MULTIPLE, ReadsFormatWriteOption.BAM)
+    storage.num_shards(4).write(head_200k, out_dir, ..MULTIPLE, ..CRAM)
+    storage.num_shards(8).write(sorted_ds, out, StageManifestWriteOption(m),
+                                BaiWriteOption.ENABLE, SbiWriteOption.ENABLE)
+    storage.read_ledger(dir).read("fault://" + path)               # resume
+    ds.depth(1024); ds.reads.filter(mapq >= 20); ds.reads.permuted(order)
+    ds.device_columns()
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -39,7 +49,22 @@ the same for CRAM on the file's first 3 splits (the 4-worker read against
 the default one; the strict, skip and quarantine reads of a copy with one
 byte flipped in a container of split 2, the sidecar against that
 container's bytes), every
-CRAM read's ``ds.counters`` against the file's containers, shows from
+CRAM read's ``ds.counters`` against the file's containers; then the
+rest of the configured read and write: the 8-shard BAM + BAI with the
+SBI byte-identical to the write without it, every SBI offset on a record
+start found by a host walk of the output, and the re-read planned by the
+SBI alone; the directory of 8 BAMs and of 4 CRAMs (the first 200,000
+sorted records: a cut of depth), each part re-read equal to its slice;
+a manifest-resumed write (shard 3 fails in a wrapper of the sink's
+per-shard step; the resume runs shards 3-7 and writes the uninterrupted
+write's BAM, BAI and SBI byte for byte); ledger-resumed BAM and CRAM
+reads (split 4 of the BAM and split 2 of the CRAM head copy fail their
+fetch through the fault-injecting filesystem; the resume launches B1 for
+the unfinished splits only, B2 once more for each spilled split, B3
+once, and its records and counters equal the uninterrupted read's);
+depth against a numpy difference array of the generator; filter and
+permuted device-backed and equal to the host batch's; device_columns
+with no transfer. It shows from
 the launch counts (zeroed just before each path, read just after) that
 each path went through its kernels, holds each kernel against its plain
 version on the inputs of split 0 (the inflate kernels' pure-Python plain
@@ -615,7 +640,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     """Write the sorted dataset as CRAM, read it back on the card through
     B3 and (legacy knob) B5, and hold both kernels against their plain
     versions and B3 against the native decoder; returns (kernel entries,
-    e2e fields)."""
+    e2e fields, the 3-split head copy of ``cram_policy_legs``)."""
     from disq_tpu_torch.native import rans_decode_native
     from disq_tpu_torch.ops import cuda_build
     from disq_tpu_torch.ops import rans as B5
@@ -805,8 +830,8 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
               f"legacy cram column {col}")
     cram_counters_ok(cr5, n, fields, args, file_bytes, "legacy cram read")
     del cr5
-    policy_e2e = cram_policy_legs(torch, port, args, g, perm_want, cram, data,
-                                  offsets, fields, cr.reads)
+    policy_e2e, head = cram_policy_legs(torch, port, args, g, perm_want, cram,
+                                        data, offsets, fields, cr.reads)
     del cr, rb, data
     os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
 
@@ -852,7 +877,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
            "cram_legacy_read_s": round(legacy_read_s, 4), **policy_e2e,
            "cram_containers": len(offsets), "cram_file_bytes": file_bytes,
            "cram_splits": -(-file_bytes // args.split_size)}
-    return kernels, e2e
+    return kernels, e2e, head
 
 
 def cram_counters_ok(ds, records: int, fields, args, file_bytes: int,
@@ -924,7 +949,8 @@ def cram_policy_legs(torch, port, args, g, perm_want, cram, data, offsets,
     cut of depth): the shard executor at 4 workers against the default
     read ``default`` of the whole file, and strict, skip and quarantine
     on a copy with one byte flipped mid-payload in a container of split
-    2. Returns the e2e fields."""
+    2. Returns the e2e fields and the head copy (path, container offsets,
+    records, the 4-worker read's batch and counters)."""
     from disq_tpu_torch.runtime import counters
     from disq_tpu_torch.runtime.errors import CorruptBlockError
 
@@ -960,6 +986,8 @@ def cram_policy_legs(torch, port, args, g, perm_want, cram, data, offsets,
           f"cram executor read launches {snap['launches']}")
     cram_counters_ok(ex, n, fields, args, file_bytes, "cram executor read")
     head_equal(ex.reads, default, n, "cram executor read")
+    head = {"path": cram, "offsets": offsets, "records": n,
+            "reads": ex.reads, "counters": ex.counters.as_dict()}
     del ex
 
     # -- the error policies on one flipped byte -------------------------------
@@ -1015,7 +1043,7 @@ def cram_policy_legs(torch, port, args, g, perm_want, cram, data, offsets,
         f"{fields[c][1]} records lost, manifest and sidecar ok")
     return {"cram_executor4_read_s": round(executor_s, 4),
             "cram_skip_read_s": round(policy["skip"], 4),
-            "cram_quarantine_read_s": round(policy["quarantine"], 4)}
+            "cram_quarantine_read_s": round(policy["quarantine"], 4)}, head
 
 
 # -- the BAM read and write as users configure them -------------------------
@@ -1325,6 +1353,466 @@ def bam_legs(torch, port, args, g, info, ds, src, work, dev, host_blob,
     return entry, e2e
 
 
+# -- the rest of the configured read and write -------------------------------
+
+
+def record_voffsets(data: bytes):
+    """(virtual offset of every record start, end-of-data virtual offset)
+    of a BAM, by a host walk: zlib inflates every block and the record
+    chain is followed from the end of the header."""
+    blocks = walk_blocks(data)
+    with ThreadPoolExecutor(8) as pool:
+        payloads = list(pool.map(
+            lambda b: zlib.decompress(data[b[0] + b[2]: b[0] + b[1] - 8], -15),
+            blocks))
+    usize = np.array([len(p) for p in payloads], np.int64)
+    ustart = np.concatenate([[0], np.cumsum(usize)[:-1]])
+    cstart = np.array([b[0] for b in blocks], np.int64)
+    blob = b"".join(payloads)
+    del payloads
+    l_text = struct.unpack_from("<i", blob, 4)[0]
+    p = 8 + l_text
+    n_ref = struct.unpack_from("<i", blob, p)[0]
+    p += 4
+    for _ in range(n_ref):
+        p += 8 + struct.unpack_from("<i", blob, p)[0]
+    starts, unpack, end = [], struct.Struct("<i").unpack_from, len(blob)
+    while p < end:
+        starts.append(p)
+        p += 4 + unpack(blob, p)[0]
+    check(p == end, "record chain overruns the data")
+
+    def voffset(u):
+        # a start on a block boundary belongs to the next block
+        b = np.searchsorted(ustart, u, side="right") - 1
+        return (cstart[b].astype(np.uint64) << np.uint64(16)) | \
+            (u - ustart[b]).astype(np.uint64)
+
+    # the end of data as the writer's canonical blocking names it: past a
+    # full last block, the next block's start; else within the last block
+    last = len(blocks) - 2  # the block before the EOF block
+    end_vo = (int(cstart[last + 1]) << 16 if usize[last] == MAX_PAYLOAD
+              else int(cstart[last]) << 16 | int(usize[last]))
+    return voffset(np.array(starts, np.int64)), end_vo
+
+
+def read_sbi(path: str):
+    with open(path, "rb") as f:
+        raw = f.read()
+    magic, _flen, _md5, _uuid, total, gran, n = struct.unpack_from(
+        "<4sQ16s16sQQQ", raw)
+    check(magic == b"SBI\x01", "SBI magic")
+    offsets = np.frombuffer(raw, "<u8", n, struct.calcsize("<4sQ16s16sQQQ"))
+    return total, gran, offsets
+
+
+def generator_columns(g: dict, rows) -> dict:
+    return {col: g[col][rows] for col in FIXED}
+
+
+def equal_to_generator(torch, got, g: dict, rows, what: str) -> None:
+    """A device-backed read equals the generator's records ``rows``: the
+    fixed columns on the device, names and qualities from the host."""
+    check(got.count() == len(rows), f"{what}: {got.count()} records, "
+          f"want {len(rows)}")
+    check(got.reads.device_backed, f"{what}: not device-backed")
+    cols = got.reads.device_columns()
+    for col, want in generator_columns(g, rows).items():
+        check(np.array_equal(cols[col].cpu().numpy(), want.astype(np.int32)),
+              f"{what}: column {col}")
+    rb = got.reads.to_read_batch()
+    check(np.array_equal(rb.names.reshape(-1, NAME_LEN), g["names"][rows]),
+          f"{what}: names")
+    check(np.array_equal(rb.quals.reshape(-1, READ_LEN), g["qual"][rows]),
+          f"{what}: quals")
+
+
+def numpy_depth(g: dict, window: int) -> dict:
+    """Windowed depth of the generator's mapped records by a numpy
+    difference array."""
+    code, length = g["cig"] & 0xF, (g["cig"] >> 4).astype(np.int64)
+    used = np.arange(3)[None, :] < g["ncig"][:, None]
+    reflen = (length * (used & np.isin(code, (0, 2, 3, 7, 8)))).sum(1)
+    ends = g["pos"].astype(np.int64) + np.maximum(reflen, 1)
+    mapped = ((g["flag"] & 4) == 0) & (g["refid"] >= 0)
+    out = {}
+    for r, (_name, ln) in enumerate(REFS):
+        nw = max(1, -(-ln // window))
+        sel = mapped & (g["refid"] == r)
+        lo = np.clip(g["pos"][sel].astype(np.int64) // window, 0, nw - 1)
+        hi = np.clip((ends[sel] - 1) // window, 0, nw - 1)
+        diff = np.zeros(nw + 1, np.int64)
+        np.add.at(diff, lo, 1)
+        np.add.at(diff, hi + 1, -1)
+        out[r] = np.cumsum(diff)[:-1].astype(np.int32)
+    return out
+
+
+def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
+    """The BAM write with the options users set: the SBI beside the BAI,
+    a directory of per-shard BAMs and CRAMs, and a write that resumes
+    from its stage manifest. Returns the e2e fields and the phases'
+    launches."""
+    from disq_tpu_torch.bam import source as bam_source
+    from disq_tpu_torch.bam.sink import BamSink
+    from disq_tpu_torch.runtime import counters
+
+    n, split = args.records, args.split_size
+    n_splits = -(-info["file_bytes"] // split)
+    sorted_ds = ds.coordinate_sorted()
+
+    def storage():
+        return port.ReadsStorage.make_default().split_size(split)
+
+    e2e, launches = {}, {}
+
+    # -- sbi write ----------------------------------------------------------
+    t0 = time.perf_counter()
+    sbi_out = os.path.join(work, "sorted_sbi.bam")
+    (storage().num_shards(WRITE_SHARDS).writer_workers(4)
+     .write(sorted_ds, sbi_out, port.BaiWriteOption.ENABLE,
+            port.SbiWriteOption.ENABLE))
+    write_s = time.perf_counter() - t0
+    plain_out = os.path.join(work, "sorted_w1.bam")  # leg 4's, without SBI
+    for ext in ("", ".bai"):
+        with open(sbi_out + ext, "rb") as a, open(plain_out + ext, "rb") as b:
+            check(a.read() == b.read(),
+                  f"sbi write: {ext or '.bam'} differs from the write "
+                  f"without SBI")
+    with open(sbi_out, "rb") as f:
+        starts, end_vo = record_voffsets(f.read())
+    total, gran, offsets = read_sbi(sbi_out + ".sbi")
+    check(total == n and len(starts) == n, f"sbi write: {total} records")
+    check(gran == 4096, f"sbi granularity {gran}")
+    check(bool(np.isin(offsets[:-1], starts).all()),
+          "sbi write: an SBI offset is not the start of a record")
+    check(bool((np.diff(offsets.astype(np.int64)) > 0).all()),
+          "sbi write: SBI offsets not increasing")
+    check(int(offsets[-1]) == end_vo, "sbi write: end-of-data offset")
+    # per-part sampling: every 4096th record of each of the 8 parts
+    bounds = np.linspace(0, n, WRITE_SHARDS + 1).astype(np.int64)
+    want = np.concatenate([starts[lo:hi:4096]
+                           for lo, hi in zip(bounds[:-1], bounds[1:])])
+    check(np.array_equal(offsets[:-1], want),
+          "sbi write: offsets are not every 4096th record of each part")
+
+    def no_guess(*_a, **_k):
+        raise PhaseError("the re-read guessed a boundary: the SBI was not used")
+
+    guess = bam_source.BamSource._guess_record_voffset
+    bam_source.BamSource._guess_record_voffset = no_guess
+    try:
+        counters.reset()
+        t0 = time.perf_counter()
+        back = storage().read(sbi_out)
+        torch.cuda.synchronize()
+        reread_s = time.perf_counter() - t0
+        snap = counters.snapshot()
+    finally:
+        bam_source.BamSource._guess_record_voffset = guess
+    equal_to_generator(torch, back, g, perm_want, "sbi re-read")
+    check(snap["launches"].get("inflate", 0) == n_splits
+          and snap["launches"].get("parse", 0) == n_splits,
+          f"sbi re-read launches {snap['launches']}")
+    del back
+    log(f"sbi write: {write_s:.3f}s (8 shards, BAI + SBI), {len(offsets)} "
+        f"SBI offsets on record starts, BAM and BAI byte-identical to the "
+        f"write without SBI; re-read on the SBI's splits {reread_s:.3f}s, "
+        f"launches {json.dumps(snap['launches'])}")
+    e2e.update(sbi_write_s=round(write_s, 4), sbi_reread_s=round(reread_s, 4))
+
+    # -- multi write --------------------------------------------------------
+    t0 = time.perf_counter()
+    bam_dir = os.path.join(work, "parts_bam")
+    (storage().num_shards(WRITE_SHARDS).writer_workers(4)
+     .write(ds, bam_dir, port.FileCardinalityWriteOption.MULTIPLE,
+            port.ReadsFormatWriteOption.BAM))
+    multi_s = time.perf_counter() - t0
+    names = sorted(os.listdir(bam_dir))
+    check(names == [f"part-r-{k:05d}.bam" for k in range(WRITE_SHARDS)],
+          f"multi write: parts {names}")
+    counters.reset()
+    t0 = time.perf_counter()
+    for k, name in enumerate(names):
+        part = os.path.join(bam_dir, name)
+        with open(part, "rb") as f:
+            data = f.read()
+        check(data.endswith(EOF_BLOCK), f"{name}: no terminator")
+        zlib_check_all(data)
+        equal_to_generator(torch, storage().read(part), g,
+                           np.arange(bounds[k], bounds[k + 1]), name)
+    torch.cuda.synchronize()
+    multi_read_s = time.perf_counter() - t0
+    snap = counters.snapshot()
+    check(snap["launches"].get("inflate", 0) >= WRITE_SHARDS
+          and snap["launches"].get("parse", 0) >= WRITE_SHARDS,
+          f"multi re-read launches {snap['launches']}")
+    launches["multi_bam_reads"] = snap["launches"]
+
+    m = min(200_000, n)
+    os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
+    try:
+        head = port.ReadsDataset(sorted_ds.header,
+                                 sorted_ds.reads.slice(0, m))
+        cram_dir = os.path.join(work, "parts_cram")
+        t0 = time.perf_counter()
+        storage().num_shards(4).write(
+            head, cram_dir, port.FileCardinalityWriteOption.MULTIPLE,
+            port.ReadsFormatWriteOption.CRAM)
+        cram_multi_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
+    del head
+    names = sorted(os.listdir(cram_dir))
+    check(names == [f"part-r-{k:05d}.cram" for k in range(4)],
+          f"cram multi write: parts {names}")
+    cb = np.linspace(0, m, 5).astype(np.int64)
+    counters.reset()
+    for k, name in enumerate(names):
+        part = storage().read(os.path.join(cram_dir, name))
+        rows = perm_want[cb[k]: cb[k + 1]]
+        check(part.count() == len(rows), f"{name}: {part.count()} records")
+        for col in ("refid", "pos", "flag", "mapq", "tlen", "next_pos"):
+            check(np.array_equal(getattr(part.reads, col), g[col][rows]),
+                  f"{name}: column {col}")
+        check(np.array_equal(part.reads.names.reshape(-1, NAME_LEN),
+                             g["names"][rows]), f"{name}: names")
+        check(np.array_equal(part.reads.quals.reshape(-1, READ_LEN),
+                             g["qual"][rows]), f"{name}: quals")
+    snap = counters.snapshot()
+    check(snap["launches"].get("rans_simd", 0) == 4,
+          f"cram part reads launches {snap['launches']}")
+    launches["multi_cram_reads"] = snap["launches"]
+    log(f"multi write: BAM {WRITE_SHARDS} parts {multi_s:.3f}s, each "
+        f"re-read equal to its slice and every block inflating with zlib "
+        f"({multi_read_s:.3f}s); CRAM 4 parts of the first {m} sorted "
+        f"records {cram_multi_s:.3f}s, each re-read equal to its slice")
+    e2e.update(multi_bam_write_s=round(multi_s, 4),
+               multi_cram_write_s=round(cram_multi_s, 4))
+
+    # -- write resume -------------------------------------------------------
+    out = os.path.join(work, "resumed.bam")
+    manifest = os.path.join(work, "write.manifest")
+    opts = (port.StageManifestWriteOption(manifest),
+            port.BaiWriteOption.ENABLE, port.SbiWriteOption.ENABLE)
+    encode_shard = BamSink._encode_shard
+    ran = []
+
+    def failing(self, batch, bounds, k):
+        ran.append(k)
+        if k == 3 and fail[0]:
+            raise OSError("injected: shard 3 lost its disk")
+        return encode_shard(self, batch, bounds, k)
+
+    fail = [True]
+    BamSink._encode_shard = failing
+    try:
+        t0 = time.perf_counter()
+        try:
+            storage().num_shards(WRITE_SHARDS).write(sorted_ds, out, *opts)
+        except RuntimeError as e:
+            check("shard 3" in str(e), f"write resume: {e}")
+        else:
+            raise PhaseError("write resume: the failing write did not raise")
+        crash_s = time.perf_counter() - t0
+        check(os.path.exists(manifest), "write resume: manifest gone")
+        staged = sorted(os.listdir(out + ".parts"))
+        check(staged == sorted(f"part-{k:05d}{x}" for k in range(3)
+                               for x in ("", ".bai-frag", ".sbi-frag")),
+              f"write resume: staged {staged}")
+        fail[0] = False
+        ran.clear()
+        t0 = time.perf_counter()
+        storage().num_shards(WRITE_SHARDS).write(sorted_ds, out, *opts)
+        resume_s = time.perf_counter() - t0
+    finally:
+        BamSink._encode_shard = encode_shard
+    check(ran == list(range(3, WRITE_SHARDS)), f"write resume: ran {ran}")
+    check(not os.path.exists(manifest) and not os.path.exists(out + ".parts"),
+          "write resume: manifest or staging left behind")
+    for ext in ("", ".bai", ".sbi"):
+        with open(out + ext, "rb") as a, open(sbi_out + ext, "rb") as b:
+            check(a.read() == b.read(),
+                  f"write resume: {ext or '.bam'} differs from the "
+                  f"uninterrupted write")
+    log(f"write resume: shard 3 failed after {crash_s:.3f}s (manifest and "
+        f"3 staged parts kept); the resume ran shards {ran} in "
+        f"{resume_s:.3f}s; BAM, BAI and SBI byte-identical to the "
+        f"uninterrupted write")
+    e2e.update(write_crash_s=round(crash_s, 4),
+               write_resume_s=round(resume_s, 4))
+    return e2e, launches
+
+
+def read_resume_legs(torch, port, args, g, info, ds, src, work, head):
+    """The BAM read of the file and the CRAM read of its 3-split head
+    copy with a read ledger, each crashed at one split's fetch by the
+    fault-injecting filesystem and run again. Returns the e2e fields and
+    the resumed reads' launches."""
+    from disq_tpu_torch.fsw.faultfs import (
+        FaultInjectingFileSystemWrapper,
+        FaultSpec,
+    )
+    from disq_tpu_torch.fsw.filesystem import (
+        PosixFileSystemWrapper,
+        register_filesystem,
+    )
+    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime.errors import DisqOptions, TransientIOError
+    from disq_tpu_torch.runtime.manifest import ReadLedger
+
+    split = args.split_size
+    n_splits = -(-info["file_bytes"] // split)
+
+    def leg(path, crash, ledger):
+        """(crash seconds, resumed dataset, its seconds, its books)."""
+        opts = DisqOptions(max_retries=0).with_read_ledger(ledger)
+        storage = port.ReadsStorage.make_default().split_size(split) \
+            .options(opts)
+        register_filesystem("fault", FaultInjectingFileSystemWrapper(
+            PosixFileSystemWrapper(),
+            [FaultSpec(kind="transient", path_substr=os.path.basename(path),
+                       offset=crash, times=-1)]))
+        t0 = time.perf_counter()
+        try:
+            storage.read("fault://" + path)
+        except TransientIOError:
+            pass
+        else:
+            raise PhaseError(f"read resume: the read of {path} did not fail")
+        crash_s = time.perf_counter() - t0
+        register_filesystem("fault", FaultInjectingFileSystemWrapper(
+            PosixFileSystemWrapper(), []))
+        done = ReadLedger(ledger).completed_shards()
+        counters.reset()
+        t0 = time.perf_counter()
+        got = storage.read("fault://" + path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        snap = counters.snapshot()
+        check(not os.path.exists(os.path.join(ledger, "MANIFEST.json"))
+              and not ReadLedger(ledger).completed_shards(),
+              "read resume: the ledger outlived the read")
+        return crash_s, done, got, resume_s, snap
+
+    # -- BAM: split 4's fetch fails (at a byte that no header or boundary
+    # read covers) ---------------------------------------------------------
+    crash_at = 4 * split + split * 3 // 4
+    crash_s, done, got, resume_s, snap = leg(
+        src, crash_at, os.path.join(work, "ledger_bam"))
+    check(done == [0, 1, 2, 3], f"read resume: ledger holds {done}")
+    same_reads(torch, got, ds, "resumed read")
+    fresh = n_splits - len(done)
+    bam_l = snap["launches"]
+    check(bam_l.get("inflate", 0) == fresh,
+          f"resumed read: inflate launches {bam_l} for {fresh} splits")
+    rebuilds = bam_l.get("parse", 0) - fresh
+    check(rebuilds == len(done),
+          f"resumed read: parse launches {bam_l}, {len(done)} spills")
+    keys = ("records", "blocks", "bytes_compressed", "bytes_uncompressed",
+            "skipped_blocks", "quarantined_blocks", "retried_reads",
+            "shards")
+    check(all(getattr(got.counters, k) == getattr(ds.counters, k)
+              for k in keys),
+          f"resumed read counters {got.counters} != {ds.counters}")
+    del got
+    log(f"read resume: BAM crashed at split 4 after {crash_s:.3f}s, ledger "
+        f"held splits {done}; the resume took {resume_s:.3f}s: "
+        f"{bam_l.get('inflate', 0)} inflate launches for {fresh} fresh "
+        f"splits, {bam_l.get('parse', 0)} parse launches ("
+        f"{rebuilds} rebuilding spills), counters and every column equal "
+        f"the uninterrupted read, device-backed")
+
+    # -- CRAM: split 2 of the head copy fails -------------------------------
+    offs = [o for o in head["offsets"] if 2 * split <= o < 3 * split]
+    check(len(offs) > 1, "no container of split 2 to fail")
+    c = len(offs) // 2
+    os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
+    try:
+        c_crash_s, c_done, cr, c_resume_s, c_snap = leg(
+            head["path"], (offs[c] + offs[c + 1]) // 2,
+            os.path.join(work, "ledger_cram"))
+    finally:
+        os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
+    check(c_done == [0, 1], f"cram read resume: ledger holds {c_done}")
+    check(c_snap["launches"].get("rans_simd", 0) == 1,
+          f"cram resumed read launches {c_snap['launches']}")
+    got_c = {k: getattr(cr.counters, k) for k in keys}
+    check(got_c == {k: head["counters"][k] for k in keys},
+          f"cram resumed read counters {got_c} != {head['counters']}")
+    head_equal(cr.reads, head["reads"], head["records"], "cram resumed read")
+    del cr
+    log(f"read resume: CRAM head crashed at split 2 after {c_crash_s:.3f}s, "
+        f"ledger held splits {c_done}; the resume took {c_resume_s:.3f}s, "
+        f"{c_snap['launches'].get('rans_simd', 0)} rans_simd launch(es), "
+        f"counters and records equal the uninterrupted read")
+    return ({"read_crash_s": round(crash_s, 4),
+             "read_resume_s": round(resume_s, 4),
+             "cram_read_crash_s": round(c_crash_s, 4),
+             "cram_read_resume_s": round(c_resume_s, 4)},
+            {"inflate": bam_l.get("inflate", 0),
+             "parse": bam_l.get("parse", 0), "parse_rebuilds": rebuilds,
+             "rans_simd": c_snap["launches"].get("rans_simd", 0)})
+
+
+def device_op_legs(torch, g, perm_want, ds) -> dict:
+    """depth, filter, permuted and device_columns on the resident
+    dataset. Returns the e2e fields."""
+    from disq_tpu_torch.runtime import counters
+
+    t0 = time.perf_counter()
+    depth = ds.depth(1024)
+    torch.cuda.synchronize()
+    depth_s = time.perf_counter() - t0
+    want = numpy_depth(g, 1024)
+    check(sorted(depth) == sorted(want), "depth: references")
+    for r in want:
+        check(np.array_equal(depth[r], want[r]), f"depth: reference {r}")
+
+    host = ds.reads.to_read_batch()
+    t0 = time.perf_counter()
+    mask = ds.reads.mapq >= 20
+    kept = ds.reads.filter(mask)
+    perm = ds.reads.permuted(perm_want)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    for what, got, rb in (("filter", kept, host.filter(mask)),
+                          ("permuted", perm, host.take(perm_want))):
+        check(got.device_backed and got.device.type == "cuda",
+              f"{what}: not device-backed")
+        cols = got.device_columns()
+        for col in FIXED:
+            check(np.array_equal(cols[col].cpu().numpy(),
+                                 getattr(rb, col).astype(np.int32)),
+                  f"{what}: device column {col}")
+        mat = got.to_read_batch()
+        for col in FIXED + ("name_offsets", "names", "cigar_offsets",
+                            "cigars", "seq_offsets", "seqs", "quals",
+                            "tag_offsets", "tags"):
+            check(np.array_equal(getattr(mat, col), getattr(rb, col)),
+                  f"{what}: record column {col}")
+        del mat, rb
+    check(np.array_equal(perm.sort_permutation(), np.arange(ds.count())),
+          "permuted: not in coordinate order")
+    check(kept.count == int(mask.sum()), "filter: count")
+    del kept, perm, host
+
+    counters.reset()
+    cols = ds.device_columns()
+    books = counters.snapshot()["transfer_bytes"]
+    own = ds.reads.device_columns()
+    check(books == {}, f"device_columns moved bytes: {books}")
+    check(all(cols[k].data_ptr() == own[k].data_ptr() for k in FIXED),
+          "device_columns: not the resident tensors")
+    log(f"device ops: depth(1024) {depth_s:.3f}s equal to a numpy "
+        f"difference array; filter (mapq >= 20, {int(mask.sum())} kept) and "
+        f"permuted (coordinate order) {transform_s:.3f}s, device-backed, "
+        f"columns and records equal the host ReadBatch's; device_columns "
+        f"with no transfer")
+    return {"depth_s": round(depth_s, 4),
+            "filter_permuted_s": round(transform_s, 4)}
+
+
 def run(args) -> dict:
     import torch
 
@@ -1623,14 +2111,38 @@ def run(args) -> dict:
     b4_entry, legs_e2e = bam_legs(torch, port, args, g, info, ds, src, work,
                                   dev, host_blob, stats["device_lanes"])
     del host_blob, blob
-    cram_kernels, cram_e2e = cram_phases(
+    cram_kernels, cram_e2e, head = cram_phases(
         torch, port, args, g, perm_want, ds, storage, work, dev)
     kernels += cram_kernels + [b4_entry]
+
+    # -- the rest of the configured read and write ---------------------------
+    t0 = time.perf_counter()
+    write_e2e, write_launches = configured_write_legs(
+        torch, port, args, g, perm_want, info, ds, work)
+    log(f"phase write options: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    resume_e2e, resumed = read_resume_legs(torch, port, args, g, info, ds,
+                                           src, work, head)
+    del head
+    log(f"phase read resume: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    ops_e2e = device_op_legs(torch, g, perm_want, ds)
+    log(f"phase device ops: {time.perf_counter() - t0:.3f}s")
+    by_name = {k["name"]: k for k in kernels}
+    by_name["inflate"]["launches_on_resumed_read"] = resumed["inflate"]
+    by_name["parse"]["launches_on_resumed_read"] = resumed["parse"]
+    by_name["parse"]["spill_rebuilds_on_resumed_read"] = \
+        resumed["parse_rebuilds"]
+    by_name["rans_simd"]["launches_on_resumed_cram_read"] = \
+        resumed["rans_simd"]
+    by_name["rans_simd"]["launches_on_cram_part_reads"] = \
+        write_launches["multi_cram_reads"].get("rans_simd", 0)
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
-           "splits": n_splits, **legs_e2e, **cram_e2e,
+           "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
+           **resume_e2e, **ops_e2e,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
     shutil.rmtree(work, ignore_errors=True)

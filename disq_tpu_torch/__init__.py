@@ -13,7 +13,9 @@ from disq_tpu_torch.api import (  # noqa: F401
     ReadsFormatWriteOption,
     ReadsStorage,
     SbiWriteOption,
+    StageManifestWriteOption,
     TempPartsDirectoryWriteOption,
+    ValidationStringency,
     WriteOption,
 )
 from disq_tpu_torch.runtime.errors import (  # noqa: F401

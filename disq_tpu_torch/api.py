@@ -14,6 +14,16 @@ Usage::
     storage.error_policy("skip").executor_workers(4).writer_workers(4)
     ds = storage.read("sample.bam"); ds.counters.skipped_blocks
 
+    # the splitting index, a directory of per-shard BAMs, a write that
+    # resumes from its manifest, a read that resumes from its ledger
+    storage.write(ds, "sorted.bam", BaiWriteOption.ENABLE,
+                  SbiWriteOption.ENABLE, sort=True)
+    storage.write(ds, "parts/", FileCardinalityWriteOption.MULTIPLE)
+    storage.write(ds, "out.bam", StageManifestWriteOption("out.manifest"))
+    ds = storage.read_ledger("ledger/").read("sample.bam")
+    ds.depth(1024); ds.device_columns()
+    ds.reads.filter(ds.reads.mapq >= 20)
+
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
 and without an explicit CPU request, ``read`` and ``write`` raise. On
@@ -60,6 +70,16 @@ class TempPartsDirectoryWriteOption(WriteOption):
     path: str
 
 
+@dataclass(frozen=True)
+class StageManifestWriteOption(WriteOption):
+    """Resumable BAM write: each staged shard is recorded in the stage
+    manifest at ``path`` and staged parts survive a failure, so a write
+    run again with the same manifest re-runs only the missing shards
+    (``runtime/manifest.py:StageManifest``)."""
+
+    path: str
+
+
 class BaiWriteOption(WriteOption, enum.Enum):
     ENABLE = True
     DISABLE = False
@@ -73,6 +93,12 @@ class SbiWriteOption(WriteOption, enum.Enum):
 class CraiWriteOption(WriteOption, enum.Enum):
     ENABLE = True
     DISABLE = False
+
+
+class ValidationStringency(enum.Enum):
+    STRICT = "strict"
+    LENIENT = "lenient"
+    SILENT = "silent"
 
 
 def option_enabled(options: Sequence[WriteOption], cls) -> bool:
@@ -106,6 +132,8 @@ class ReadsDataset:
     header: "SamHeader"
     reads: object
     counters: PipelineCounters = field(default_factory=PipelineCounters)
+    # the device of the storage that read it (None: ``cuda``)
+    device: Optional[torch.device] = None
 
     def count(self) -> int:
         return int(self.reads.count)
@@ -124,7 +152,34 @@ class ReadsDataset:
         from disq_tpu_torch.sort.coordinate import coordinate_sort_batch
 
         return ReadsDataset(header=self.header.with_sort_order("coordinate"),
-                            reads=coordinate_sort_batch(self.reads))
+                            reads=coordinate_sort_batch(self.reads),
+                            device=self.device)
+
+    def device_columns(self) -> dict:
+        """The 8 fixed columns as int32 tensors on the dataset's device.
+        A device-backed batch returns its own columns (no transfer); a
+        host batch uploads each column once."""
+        from disq_tpu_torch.bam.columnar import FIXED_COLUMNS
+        from disq_tpu_torch.runtime.columnar import ColumnarBatch
+        from disq_tpu_torch.runtime.device_pipeline import upload
+        from disq_tpu_torch.util import resolve_device
+
+        if isinstance(self.reads, ColumnarBatch) and self.reads.device_backed:
+            return self.reads.device_columns()
+        device = resolve_device(self.device)
+        return {name: upload(np.asarray(getattr(self.reads, name),
+                                        dtype=np.int32), device)
+                for name in FIXED_COLUMNS}
+
+    def depth(self, window: int = 1024) -> dict:
+        """Windowed coverage depth of the mapped records per reference
+        (``{refid: int32 array}``), the difference array summed on the
+        batch's device (``ops/depth.py``)."""
+        from disq_tpu_torch.ops.depth import window_depth
+
+        return window_depth(self.reads,
+                            [s.length for s in self.header.sequences],
+                            window, self.device)
 
 
 class ReadsStorage:
@@ -136,6 +191,7 @@ class ReadsStorage:
         self._device = device
         self._resident_decode = False
         self._reference_source_path: Optional[str] = None
+        self._stringency = ValidationStringency.STRICT
         self._options = DisqOptions()
 
     @classmethod
@@ -187,6 +243,20 @@ class ReadsStorage:
         (None ⇒ ``2 × n``). Written files and indexes are byte-identical
         for any ``n``."""
         self._options = self._options.with_writer(n, prefetch_shards)
+        return self
+
+    def read_ledger(self, path: str) -> "ReadsStorage":
+        """Make BAM and CRAM reads resumable: each decoded split is
+        spilled under ``path`` as it emits, and a read run again with
+        the same ledger decodes only the unfinished splits
+        (``runtime/manifest.py:ReadLedger``)."""
+        self._options = self._options.with_read_ledger(path)
+        return self
+
+    def validation_stringency(self, s: ValidationStringency
+                              ) -> "ReadsStorage":
+        """Stored as the reference stores it; no read consults it."""
+        self._stringency = s
         return self
 
     def device(self, device) -> "ReadsStorage":

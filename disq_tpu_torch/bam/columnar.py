@@ -123,6 +123,9 @@ class ReadBatch:
             tag_offsets=tag_off, tags=tags,
         )
 
+    def filter(self, mask: np.ndarray) -> "ReadBatch":
+        return self.take(np.nonzero(np.asarray(mask))[0])
+
     def slice(self, start: int, stop: int) -> "ReadBatch":
         return self.take(np.arange(start, stop, dtype=np.int64))
 

@@ -1,34 +1,49 @@
-"""BamSink — single-file BAM write with an optional BAI.
+"""BamSink and BamSinkMultiple — single-file and multi-file BAM writes.
 
-Protocol (the reference's): shards write headerless, terminatorless
-BGZF parts to a temp dir, each with a part-local BAI fragment; then a
-header-only BGZF prefix, the parts and the 28-byte terminator are
-concatenated, and the fragments merge by shifting each part's virtual
-offsets by its absolute start. Per-record virtual offsets inside a part
+Single-file protocol (the reference's): shards write headerless,
+terminatorless BGZF parts to a temp dir, each with part-local BAI and
+SBI fragments; then a header-only BGZF prefix, the parts and the 28-byte
+terminator are concatenated, and the fragments merge by shifting each
+part's virtual offsets by its absolute start (which includes the
+header's compressed length). Per-record virtual offsets inside a part
 are array arithmetic: canonical BGZF blocking puts 65280 payload bytes
 in every block, so ``voffset(u) = (block_comp_start[u // 65280] << 16)
 | (u % 65280)``.
 
 Shards run through the write pipeline (``runtime/executor.py``):
 encode (slice and record encode) → deflate (BGZF blocks, virtual
-offsets, BAI fragment) → stage (the part's write, retried on transient
-faults), then the merge in shard order. With ``writer_workers > 1`` the
-steps of different shards overlap; the bytes are the same at any width.
+offsets, index fragments) → stage (the part's write, retried on
+transient faults), then the merge in shard order. With ``writer_workers
+> 1`` the steps of different shards overlap; the bytes are the same at
+any width.
+
+With a ``StageManifestWriteOption`` the write resumes: each staged
+shard is recorded in the manifest (with its index fragments pickled
+beside its part), staging survives a failure, and a write run again with
+the same manifest and the same input re-runs only the missing shards.
+A shard that still fails after its retry raises ``RuntimeError`` naming
+it. The manifest goes at the commit point, before the staging dir.
+
+``BamSinkMultiple`` writes a directory of complete per-shard BAMs
+(``part-r-NNNNN.bam``, each with its header and terminator).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import zlib
 from typing import Sequence, Tuple
 
 import numpy as np
 
-from disq_tpu_torch.bam.codec import encode_records_with_offsets
+from disq_tpu_torch.bam.codec import encode_records, encode_records_with_offsets
 from disq_tpu_torch.bam.header import SamHeader
 from disq_tpu_torch.bgzf.block import BGZF_EOF_MARKER, BGZF_MAX_PAYLOAD
 from disq_tpu_torch.bgzf.codec import compress_to_bgzf, deflate_blob
 from disq_tpu_torch.fsw.filesystem import resolve_path
 from disq_tpu_torch.index.bai import build_bai, merge_bai_fragments
+from disq_tpu_torch.index.sbi import SbiIndex
 from disq_tpu_torch.runtime.executor import (
     WriteShardTask,
     run_write_stage,
@@ -36,6 +51,19 @@ from disq_tpu_torch.runtime.executor import (
     writer_for_storage,
 )
 from disq_tpu_torch.util import shard_bounds
+
+SBI_GRANULARITY = 4096  # htsjdk SBIIndexWriter default
+
+
+def _batch_digest(batch) -> int:
+    """CRC32 over every column: a manifest written for one dataset must
+    not adopt parts staged from another."""
+    crc = 0
+    for col in (batch.refid, batch.pos, batch.mapq, batch.flag, batch.tlen,
+                batch.names, batch.cigars, batch.seqs, batch.quals,
+                batch.tags):
+        crc = zlib.crc32(np.ascontiguousarray(col).tobytes(), crc)
+    return crc
 
 
 def voffsets_from_csizes(csizes: np.ndarray, record_offsets: np.ndarray
@@ -63,6 +91,7 @@ class BamSink:
         from disq_tpu_torch.api import (
             BaiWriteOption,
             SbiWriteOption,
+            StageManifestWriteOption,
             TempPartsDirectoryWriteOption,
             option_enabled,
         )
@@ -71,9 +100,7 @@ class BamSink:
         header: SamHeader = dataset.header
         batch = dataset.reads
         write_bai = option_enabled(options, BaiWriteOption)
-        if option_enabled(options, SbiWriteOption):
-            raise NotImplementedError(
-                "SBI writes are not ported to the PyTorch package yet")
+        write_sbi = option_enabled(options, SbiWriteOption)
         temp_dir = next(
             (o.path for o in options
              if isinstance(o, TempPartsDirectoryWriteOption)),
@@ -84,58 +111,159 @@ class BamSink:
                 "BAI requires a coordinate-sorted header; "
                 "sort first (ReadsStorage.write(..., sort=True))")
         n_shards, bounds = shard_bounds(self._storage, batch.count)
+        manifest = None
+        manifest_opt = next((o for o in options
+                             if isinstance(o, StageManifestWriteOption)), None)
+        if manifest_opt is not None:
+            from disq_tpu_torch.runtime.manifest import StageManifest
+
+            manifest = StageManifest(manifest_opt.path, params={
+                "target": path,
+                "records": int(batch.count),
+                "digest": _batch_digest(batch),
+                "n_shards": int(n_shards),
+                "bai": write_bai,
+                "sbi": write_sbi,
+            })
         fs.mkdirs(temp_dir)
         try:
-            parts = run_write_stage(
-                writer_for_storage(self._storage), n_shards,
-                lambda k: self._write_task(fs, header, batch, temp_dir,
-                                           bounds, k, write_bai))
-            self._merge(fs, header, path, temp_dir,
-                        [(p, n) for p, n, _ in parts],
-                        [f for _, _, f in parts], write_bai)
-        finally:
-            fs.delete(temp_dir, recursive=True)
+            self._write_parts_and_merge(fs, header, batch, path, temp_dir,
+                                        n_shards, bounds, write_bai,
+                                        write_sbi, manifest)
+        except BaseException:
+            # the merge is the commit point: without a manifest staging
+            # never outlives save(); with one, the staged parts survive
+            # for the resume
+            if manifest is None:
+                fs.delete(temp_dir, recursive=True)
+            raise
+        # manifest first: a crash between the two leaves only a stale
+        # staging dir, never a manifest naming parts that are gone
+        if manifest is not None:
+            manifest.finish()
+        fs.delete(temp_dir, recursive=True)
 
-    def _write_task(self, fs, header, batch, temp_dir, bounds, k, write_bai):
-        """Shard ``k``'s encode, deflate and stage steps; the stage step
-        returns (part path, compressed length, BAI fragment or None)."""
+    # -- the steps of one shard (encode → deflate → stage) ------------------
 
-        def encode():
-            part = batch.slice(int(bounds[k]), int(bounds[k + 1]))
-            return (part,) + encode_records_with_offsets(part)
+    def _encode_shard(self, batch, bounds, k):
+        part = batch.slice(int(bounds[k]), int(bounds[k + 1]))
+        return (part,) + encode_records_with_offsets(part)
 
-        def deflate(payload):
-            part, blob, rec_offs = payload
-            comp, csizes = deflate_blob(blob)
-            frag = None
-            if write_bai:
-                voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
-                frag = build_bai(part.refid, part.pos, part.alignment_ends(),
+    def _deflate_shard(self, header, write_bai, write_sbi, payload):
+        """BGZF deflate, the records' virtual offsets, and the part's
+        SBI and BAI fragments (part-local offsets)."""
+        part, blob, rec_offs = payload
+        comp, csizes = deflate_blob(blob)
+        voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
+        sbi_frag = bai_frag = None
+        if write_sbi:
+            sbi_frag = SbiIndex.build(
+                voffs, int(end_voffs[-1]) if part.count else 0, 0,
+                granularity=SBI_GRANULARITY)
+        if write_bai:
+            bai_frag = build_bai(part.refid, part.pos, part.alignment_ends(),
                                  part.flag, voffs, end_voffs, header.n_ref)
-            return comp, frag
+        return comp, sbi_frag, bai_frag
 
-        def stage(payload):
-            comp, frag = payload
-            part_path = os.path.join(temp_dir, f"part-{k:05d}")
-            fs.write_all(part_path, comp)
-            return part_path, len(comp), frag
+    def _stage_shard(self, fs, temp_dir, k, frag_cache, payload) -> dict:
+        """Write the part; returns the shard's manifest record. The
+        fragments go to ``frag_cache``, or, when it is None (the
+        manifest path, which resumes from disk), pickled beside the
+        part."""
+        comp, sbi_frag, bai_frag = payload
+        part_path = os.path.join(temp_dir, f"part-{k:05d}")
+        fs.write_all(part_path, comp)
+        info = {"part": part_path, "len": len(comp), "sbi": None,
+                "bai": None}
+        for key, frag in (("sbi", sbi_frag), ("bai", bai_frag)):
+            if frag is not None:
+                info[key] = f"{part_path}.{key}-frag"
+                if frag_cache is None:
+                    fs.write_all(info[key], pickle.dumps(
+                        frag, protocol=pickle.HIGHEST_PROTOCOL))
+        if frag_cache is not None:
+            frag_cache[k] = {"sbi": sbi_frag, "bai": bai_frag}
+        return info
 
-        return WriteShardTask(shard_id=k, encode=encode, deflate=deflate,
-                              stage=stage,
-                              retrier=write_retrier_for_storage(self._storage),
-                              what="bam.part")
+    def _make_write_task(self, fs, header, batch, temp_dir, bounds,
+                         write_bai, write_sbi, k, frag_cache):
+        return WriteShardTask(
+            shard_id=k,
+            encode=lambda: self._encode_shard(batch, bounds, k),
+            deflate=lambda p: self._deflate_shard(header, write_bai,
+                                                  write_sbi, p),
+            stage=lambda p: self._stage_shard(fs, temp_dir, k, frag_cache,
+                                              p),
+            retrier=write_retrier_for_storage(self._storage),
+            what="bam.part")
 
-    def _merge(self, fs, header, path, temp_dir, parts, frags, write_bai):
+    # -- the parts and the merge --------------------------------------------
+
+    def _write_parts_and_merge(self, fs, header, batch, path, temp_dir,
+                               n_shards, bounds, write_bai, write_sbi,
+                               manifest=None) -> None:
+        frag_cache = None if manifest is not None else {}
+        infos = run_write_stage(
+            writer_for_storage(self._storage), n_shards,
+            lambda k: self._make_write_task(fs, header, batch, temp_dir,
+                                            bounds, write_bai, write_sbi, k,
+                                            frag_cache),
+            manifest=manifest, stage_name="bam.parts")
+
+        def frags(key):
+            if frag_cache is not None:
+                return [frag_cache[k][key] for k in range(n_shards)]
+            return [pickle.loads(fs.read_all(i[key])) for i in infos]
+
         header_comp = compress_to_bgzf(header.to_bam_bytes(),
                                        with_terminator=False)
         header_path = os.path.join(temp_dir, "_header")
         fs.write_all(header_path, header_comp)
         term_path = os.path.join(temp_dir, "_terminator")
         fs.write_all(term_path, BGZF_EOF_MARKER)
-        fs.concat([header_path] + [p for p, _ in parts] + [term_path], path)
+        fs.concat([header_path] + [i["part"] for i in infos] + [term_path],
+                  path)
+        starts = np.zeros(n_shards + 1, dtype=np.int64)
+        np.cumsum([i["len"] for i in infos], out=starts[1:])
+        starts = [int(s) for s in starts[:-1] + len(header_comp)]
+        if write_sbi:
+            merged = SbiIndex.merge(frags("sbi"), starts,
+                                    fs.get_file_length(path))
+            fs.write_all(path + ".sbi", merged.to_bytes())
         if write_bai:
-            starts = np.zeros(len(parts) + 1, dtype=np.int64)
-            np.cumsum([n for _, n in parts], out=starts[1:])
-            starts = starts[:-1] + len(header_comp)
-            merged = merge_bai_fragments(frags, [int(s) for s in starts])
+            merged = merge_bai_fragments(frags("bai"), starts)
             fs.write_all(path + ".bai", merged.to_bytes())
+
+
+class BamSinkMultiple:
+    """A directory of complete BAMs, one per write shard
+    (``FileCardinalityWriteOption.MULTIPLE``)."""
+
+    def __init__(self, storage):
+        self._storage = storage
+
+    def save(self, dataset, path: str, options: Sequence = ()) -> None:
+        fs, path = resolve_path(path)
+        batch = dataset.reads
+        header_bytes = dataset.header.to_bam_bytes()
+        n_shards, bounds = shard_bounds(self._storage, batch.count)
+        fs.mkdirs(path)
+
+        def make_task(k):
+            def encode():
+                part = batch.slice(int(bounds[k]), int(bounds[k + 1]))
+                return header_bytes + encode_records(part)
+
+            def stage(data):
+                part_path = os.path.join(path, f"part-r-{k:05d}.bam")
+                fs.write_all(part_path, data)
+                return part_path
+
+            return WriteShardTask(
+                shard_id=k, encode=encode, deflate=compress_to_bgzf,
+                stage=stage,
+                retrier=write_retrier_for_storage(self._storage),
+                what="bam.part")
+
+        run_write_stage(writer_for_storage(self._storage), n_shards,
+                        make_task)

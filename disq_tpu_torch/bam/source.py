@@ -31,6 +31,12 @@ dataset stays device-backed. A block that inflates alone on the host
 after the batch flagged it makes the read raise the batch's error: a
 kernel fault is never served as a salvaged batch (on the host route,
 the same holds when every block inflates alone).
+
+With a read ledger (``ReadsStorage.read_ledger``) each split's batch is
+spilled as it emits, with its counts; a read run again loads the
+finished splits (a device-backed one parses its spilled bytes again on
+the device with the parse kernel) and fetches and inflates only the
+others. Its counters equal those of an uninterrupted read.
 """
 
 from __future__ import annotations
@@ -108,7 +114,8 @@ class BamSource:
         # header and boundary reads retry outside any shard
         totals.retried_reads += ctx.retrier.retried
         return ReadsDataset(header=header, reads=ColumnarBatch.concat(batches),
-                            counters=totals)
+                            counters=totals,
+                            device=self._storage._resolved_device())
 
     # -- split machinery ----------------------------------------------------
 
@@ -116,41 +123,43 @@ class BamSource:
                            header: SamHeader, first_voffset: int,
                            ctx) -> List:
         """One batch per split, in split order, through the shard
-        executor; each shard gets its own retrier and corrupt-block
-        books (``ctx.for_shard``)."""
+        executor (resumable under the storage's read ledger); each
+        shard gets its own retrier and corrupt-block books
+        (``ctx.for_shard``)."""
         from disq_tpu_torch.runtime.counters import ShardCounters
         from disq_tpu_torch.runtime.executor import (
             ShardTask,
             executor_for_storage,
+            map_ordered_resumable,
+            read_ledger_for_storage,
         )
 
         splits = compute_path_splits(fs, path, self.split_size)
         sbi = ctx.retrier.call(self._try_load_sbi, fs, path, what="sbi")
         bounds = self._split_boundaries(fs, path, header, first_voffset,
                                         splits, sbi, ctx)
-        tasks, shard_ctxs = [], []
+        tasks = []
         for i in range(len(splits)):
             shard_ctx = ctx.for_shard(i)
-            shard_ctxs.append(shard_ctx)
             tasks.append(ShardTask(
                 shard_id=i,
                 fetch=functools.partial(self._fetch_range, fs, path,
                                         bounds[i], bounds[i + 1], shard_ctx),
-                decode=functools.partial(self._decode_fetched, header,
+                decode=functools.partial(self._decode_booked, header,
                                          ctx=shard_ctx),
                 retrier=shard_ctx.retrier, what=f"shard{i}"))
+        ledger = read_ledger_for_storage(self._storage, path, len(tasks),
+                                         self._resident())
         out = []
         self._last_counters = []
-        for res in executor_for_storage(self._storage).map_ordered(tasks):
-            batch, stats = res.value
-            sc = shard_ctxs[res.shard_id]
+        for res in map_ordered_resumable(executor_for_storage(self._storage),
+                                         tasks, ledger):
+            batch, stats, (skipped, quarantined, retried) = res.value
             self._last_counters.append(ShardCounters(
                 shard_id=res.shard_id, records=batch.count, blocks=stats[0],
                 bytes_compressed=stats[1], bytes_uncompressed=stats[2],
-                wall_seconds=res.wall_seconds,
-                skipped_blocks=sc.skipped_blocks,
-                quarantined_blocks=sc.quarantined_blocks,
-                retried_reads=sc.retrier.retried))
+                wall_seconds=res.wall_seconds, skipped_blocks=skipped,
+                quarantined_blocks=quarantined, retried_reads=retried))
             out.append(batch)
         return out
 
@@ -306,6 +315,17 @@ class BamSource:
         return self._storage._resolved_device().type == "cuda" or \
             self._storage._resident_decode
 
+
+    def _decode_booked(self, header: SamHeader, fetched: Optional[Tuple],
+                       ctx) -> Tuple[object, Tuple[int, int, int],
+                                     Tuple[int, int, int]]:
+        """Stage B with the shard's books: (batch, stats, (skipped,
+        quarantined, retried)). The books are final once the decode
+        returns (its fetch and every retry came before), and they travel
+        with the batch into a read ledger's spill."""
+        batch, stats = self._decode_fetched(header, fetched, ctx)
+        return batch, stats, (ctx.skipped_blocks, ctx.quarantined_blocks,
+                              ctx.retrier.retried)
 
     def _decode_fetched(self, header: SamHeader, fetched: Optional[Tuple],
                         ctx) -> Tuple[object, Tuple[int, int, int]]:

@@ -1,11 +1,17 @@
-"""CramSink — single-file CRAM write with an optional CRAI.
+"""CramSink and CramSinkMultiple — single-file and multi-file CRAM writes.
 
 Reference parity: ``impl/formats/cram/CramSink.java``: per-shard
 container streams staged as parts, then the file definition + SAM-header
 container prefix, the parts and the CRAM EOF container are concatenated,
 and the per-part ``.crai`` fragments merge by shifting their container
-offsets (htsjdk ``CRAIIndexMerger``). Shards encode one after another;
-each shard's record counter starts at its absolute record index, so the
+offsets (htsjdk ``CRAIIndexMerger``). ``CramSinkMultiple`` writes a
+directory of complete CRAMs instead (``part-r-NNNNN.cram``, each with
+the file definition, the header container and the EOF container).
+
+Shards run through the write pipeline (``run_cram_write_stage``): the
+container encode, which compresses inside, on its encode workers, and
+the part writes on its stage workers. A single file's shard numbers its
+records from its absolute start (a part of a directory from 0), so the
 bytes do not depend on how the shards run.
 """
 
@@ -30,9 +36,47 @@ from disq_tpu_torch.cram.structure import (
     file_definition,
 )
 from disq_tpu_torch.fsw.filesystem import resolve_path
+from disq_tpu_torch.runtime.executor import (
+    WriteShardTask,
+    run_write_stage,
+    write_retrier_for_storage,
+    writer_for_storage,
+)
 from disq_tpu_torch.util import shard_bounds
 
 MAX_SLICE_RECORDS = 10_000
+
+
+def run_cram_write_stage(storage, fs, batch, bounds, n_shards, ref_fetch,
+                         part_path_for, assemble=None) -> List[dict]:
+    """Every shard's containers, encoded on the write pipeline's encode
+    workers and written to ``part_path_for(k)`` on its stage workers;
+    ``assemble(part_bytes)`` wraps a shard's containers into a complete
+    file (a directory's part). Returns each shard's ``{"part", "len",
+    "crai"}`` in shard order."""
+
+    def make_task(k):
+        def encode():
+            lo, hi = int(bounds[k]), int(bounds[k + 1])
+            part_bytes, entries = encode_part(
+                batch.slice(lo, hi), lo if assemble is None else 0,
+                ref_fetch)
+            if assemble is not None:
+                part_bytes = assemble(part_bytes)
+            return part_bytes, entries
+
+        def stage(payload):
+            part_bytes, entries = payload
+            p = part_path_for(k)
+            fs.write_all(p, part_bytes)
+            return {"part": p, "len": len(part_bytes),
+                    "crai": CraiIndex(entries)}
+
+        return WriteShardTask(shard_id=k, encode=encode, stage=stage,
+                              retrier=write_retrier_for_storage(storage),
+                              what="cram.part")
+
+    return run_write_stage(writer_for_storage(storage), n_shards, make_task)
 
 
 def _header_container(header) -> bytes:
@@ -116,16 +160,12 @@ class CramSink:
         fs.mkdirs(temp_dir)
         try:
             prefix = file_definition() + _header_container(header)
-            part_paths, part_lens, frags = [], [], []
-            for k in range(n_shards):
-                lo, hi = int(bounds[k]), int(bounds[k + 1])
-                part_bytes, entries = encode_part(batch.slice(lo, hi), lo,
-                                                  ref_fetch)
-                part_path = os.path.join(temp_dir, f"part-{k:05d}")
-                fs.write_all(part_path, part_bytes)
-                part_paths.append(part_path)
-                part_lens.append(len(part_bytes))
-                frags.append(CraiIndex(entries))
+            infos = run_cram_write_stage(
+                self._storage, fs, batch, bounds, n_shards, ref_fetch,
+                lambda k: os.path.join(temp_dir, f"part-{k:05d}"))
+            part_paths = [i["part"] for i in infos]
+            part_lens = [i["len"] for i in infos]
+            frags = [i["crai"] for i in infos]
             prefix_path = os.path.join(temp_dir, "_prefix")
             fs.write_all(prefix_path, prefix)
             eof_path = os.path.join(temp_dir, "_eof")
@@ -139,3 +179,26 @@ class CramSink:
                 fs.write_all(path + ".crai", merged.to_bytes())
         finally:
             fs.delete(temp_dir, recursive=True)
+
+
+class CramSinkMultiple:
+    """A directory of complete CRAMs, one per write shard
+    (``FileCardinalityWriteOption.MULTIPLE``)."""
+
+    def __init__(self, storage):
+        self._storage = storage
+
+    def save(self, dataset, path: str, options: Sequence = ()) -> None:
+        from disq_tpu_torch.runtime.columnar import as_read_batch
+
+        fs, path = resolve_path(path)
+        header = dataset.header
+        batch = as_read_batch(dataset.reads)
+        ref_fetch = fetcher_for_storage(self._storage, header)
+        n_shards, bounds = shard_bounds(self._storage, batch.count)
+        fs.mkdirs(path)
+        prefix = file_definition() + _header_container(header)
+        run_cram_write_stage(
+            self._storage, fs, batch, bounds, n_shards, ref_fetch,
+            lambda k: os.path.join(path, f"part-r-{k:05d}.cram"),
+            assemble=lambda part_bytes: prefix + part_bytes + EOF_CONTAINER)

@@ -31,6 +31,11 @@ container: the split's other streams keep what the one launch decoded,
 and nothing is decoded again on the host. A missing reference raises
 ``MissingReferenceError``, and a CUDA build or launch failure raises,
 under every policy.
+
+With a read ledger (``ReadsStorage.read_ledger``) each split's batches
+are spilled as they emit, with the split's counts; a read run again
+loads the finished splits and fetches and decodes only the others (one
+device launch each). Its counters equal those of an uninterrupted read.
 """
 
 from __future__ import annotations
@@ -114,6 +119,8 @@ class CramSource:
         from disq_tpu_torch.runtime.executor import (
             ShardTask,
             executor_for_storage,
+            map_ordered_resumable,
+            read_ledger_for_storage,
         )
 
         fs, path = resolve_path(path)
@@ -125,35 +132,36 @@ class CramSource:
         data_containers = [(off, hdr) for off, hdr in containers[1:]
                            if not hdr.is_eof]
         device = self._decode_device()
-        tasks, shard_ctxs, owned_by_shard = [], [], []
+        tasks, owned_by_shard = [], []
         for i, s in enumerate(compute_path_splits(fs, path, self.split_size)):
             owned = [(off, hdr) for off, hdr in data_containers
                      if s.start <= off < s.end]
             shard_ctx = ctx.for_shard(i)
-            shard_ctxs.append(shard_ctx)
             owned_by_shard.append(owned)
             tasks.append(ShardTask(
                 shard_id=i,
                 fetch=functools.partial(self._fetch_split_containers, fs,
                                         path, owned, shard_ctx),
-                decode=functools.partial(self._decode_split_containers,
+                decode=functools.partial(self._decode_booked,
                                          ref_fetch=ref_fetch,
                                          shard_ctx=shard_ctx, device=device),
                 retrier=shard_ctx.retrier, what=f"cram-shard{i}"))
+        ledger = read_ledger_for_storage(self._storage, path, len(tasks),
+                                         device is not None)
         batches: List[ReadBatch] = []
         shard_counters = []
-        for res in executor_for_storage(self._storage).map_ordered(tasks):
-            sc, owned = shard_ctxs[res.shard_id], owned_by_shard[res.shard_id]
-            batches.extend(res.value)
+        for res in map_ordered_resumable(executor_for_storage(self._storage),
+                                         tasks, ledger):
+            shard_batches, (skipped, quarantined, retried) = res.value
+            owned = owned_by_shard[res.shard_id]
+            batches.extend(shard_batches)
             shard_counters.append(ShardCounters(
                 shard_id=res.shard_id,
-                records=sum(b.count for b in res.value),
+                records=sum(b.count for b in shard_batches),
                 blocks=len(owned),
                 bytes_compressed=sum(h.length for _, h in owned),
-                wall_seconds=res.wall_seconds,
-                skipped_blocks=sc.skipped_blocks,
-                quarantined_blocks=sc.quarantined_blocks,
-                retried_reads=sc.retrier.retried))
+                wall_seconds=res.wall_seconds, skipped_blocks=skipped,
+                quarantined_blocks=quarantined, retried_reads=retried))
         counters = reduce_counters(shard_counters)
         # the header read and the walk book on the read's own context,
         # outside every shard
@@ -161,7 +169,8 @@ class CramSource:
         counters.skipped_blocks += ctx.skipped_blocks
         counters.quarantined_blocks += ctx.quarantined_blocks
         return ReadsDataset(header=header, reads=ReadBatch.concat(batches),
-                            counters=counters)
+                            counters=counters,
+                            device=self._storage._resolved_device())
 
     # -- internals ----------------------------------------------------------
 
@@ -190,6 +199,17 @@ class CramSource:
                 continue
             items.append((off, hdr_size, raw))
         return items
+
+    def _decode_booked(self, items, ref_fetch, shard_ctx, device
+                       ) -> Tuple[List[ReadBatch], Tuple[int, int, int]]:
+        """Stage B with the split's books: (batches, (skipped,
+        quarantined, retried)), final once the decode returns, and
+        spilled with the batches under a read ledger."""
+        batches = self._decode_split_containers(items, ref_fetch, shard_ctx,
+                                                device)
+        return batches, (shard_ctx.skipped_blocks,
+                         shard_ctx.quarantined_blocks,
+                         shard_ctx.retrier.retried)
 
     def _decode_split_containers(self, items, ref_fetch, shard_ctx,
                                  device) -> List[ReadBatch]:

@@ -1,7 +1,8 @@
 """Format dispatch — path extension / write option → source or sink.
 
-BAM and CRAM with single-file output are ported so far; SAM and
-directory-of-parts output raise.
+BAM and CRAM are ported, each with single-file output and with a
+directory of complete per-shard files
+(``FileCardinalityWriteOption.MULTIPLE``); SAM raises.
 """
 
 from __future__ import annotations
@@ -38,16 +39,14 @@ class SamFormat(enum.Enum):
 
     def make_sink(self, storage, cardinality: FileCardinalityWriteOption):
         self._check_ported()
-        if cardinality is not FileCardinalityWriteOption.SINGLE:
-            raise NotImplementedError(
-                "multi-file writes are not ported to the PyTorch package yet")
+        single = cardinality is FileCardinalityWriteOption.SINGLE
         if self is SamFormat.CRAM:
-            from disq_tpu_torch.cram.sink import CramSink
+            from disq_tpu_torch.cram.sink import CramSink, CramSinkMultiple
 
-            return CramSink(storage)
-        from disq_tpu_torch.bam.sink import BamSink
+            return CramSink(storage) if single else CramSinkMultiple(storage)
+        from disq_tpu_torch.bam.sink import BamSink, BamSinkMultiple
 
-        return BamSink(storage)
+        return BamSink(storage) if single else BamSinkMultiple(storage)
 
 
 def sam_format_from_path(path: str) -> SamFormat:

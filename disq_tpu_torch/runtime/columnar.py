@@ -15,6 +15,15 @@ device:
   tags) come lazily from the host copy of the decoded blob, which the
   read path holds anyway for the CRC check and the record scan;
   ``to_read_batch()`` / ``take()`` materialize a plain ``ReadBatch``.
+- **Device transforms.** ``permuted(order)`` and ``filter(mask)`` gather
+  the fixed columns on the device with one index upload and stay
+  device-backed: a permuted batch keeps the host blob and the pending
+  order (applied at the host parse), a filtered one compacts the blob.
+- **Pickling** (the read ledger's spills) stores host data only: a
+  device-backed batch spills its record blob, offsets, reference count,
+  pending order and device, and parses the blob again with the parse
+  kernel on that device when loaded (raising if it is absent); a host
+  batch spills its ``ReadBatch``.
 """
 
 from __future__ import annotations
@@ -84,6 +93,8 @@ class ColumnarBatch:
         self._cache: Dict[str, np.ndarray] = {}
         self._ragged_rb: Optional[ReadBatch] = None
         self._rb: Optional[ReadBatch] = None
+        # logical record i is blob record _order[i] (a permuted batch)
+        self._order: Optional[np.ndarray] = None
         # lazy builds and fetches happen once even under threads
         self._lock = threading.RLock()
 
@@ -210,8 +221,11 @@ class ColumnarBatch:
                 if self._ragged_rb is None:
                     from disq_tpu_torch.bam.codec import decode_records
 
-                    self._ragged_rb = decode_records(
-                        self._host_blob(), self._offsets, n_ref=self._n_ref)
+                    rb = decode_records(self._host_blob(), self._offsets,
+                                        n_ref=self._n_ref)
+                    if self._order is not None:
+                        rb = rb.take(self._order)
+                    self._ragged_rb = rb
         return self._ragged_rb
 
     def __getattr__(self, name: str):
@@ -233,6 +247,69 @@ class ColumnarBatch:
 
     def take(self, indices: np.ndarray) -> ReadBatch:
         return self.to_read_batch().take(indices)
+
+    # -- device transforms --------------------------------------------------
+
+    def _gathered(self, indices: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The fixed columns gathered by ``indices`` on their device (one
+        index upload)."""
+        from disq_tpu_torch.runtime.device_pipeline import upload
+
+        idx = upload(np.asarray(indices, dtype=np.int64), self.device)
+        return {name: torch.index_select(self._dev[name], 0, idx)
+                for name in FIXED_COLUMNS}
+
+    def permuted(self, order: np.ndarray) -> "ColumnarBatch":
+        """The records in ``order``, still device-backed: the fixed
+        columns are gathered on the device, the host blob is shared and
+        the order is applied when the ragged columns are parsed. A
+        host-backed batch gives a host-backed result."""
+        order = np.asarray(order, dtype=np.int64)
+        if len(order) != self._n:
+            raise ValueError(
+                f"permutation of {len(order)} over {self._n} records")
+        if self._dev is None or self._offsets is None:
+            return ColumnarBatch.from_host(self.to_read_batch().take(order))
+        out = ColumnarBatch()
+        out._n = self._n
+        out._n_ref = self._n_ref
+        out._dev = self._gathered(order)
+        with self._lock:
+            out._blob, out._blob_parts = self._blob, self._blob_parts
+        out._offsets = self._offsets
+        out._order = self._order[order] if self._order is not None else order
+        return out
+
+    def filter(self, mask: np.ndarray) -> "ReadBatch | ColumnarBatch":
+        """The records where ``mask`` is true. A device-backed batch
+        stays device-backed: the kept rows of the fixed columns are
+        gathered on the device, and the host blob is compacted to the
+        kept records (the pending order folded in). A host-backed
+        batch filters its ``ReadBatch``."""
+        if self._dev is None or self._offsets is None:
+            return self.to_read_batch().filter(mask)
+        keep = np.nonzero(np.asarray(mask))[0]
+        if len(keep) == 0:
+            return ColumnarBatch.from_host(ReadBatch.empty())
+        from disq_tpu_torch.bam.columnar import segment_gather
+
+        src = self._order[keep] if self._order is not None else keep
+        out = ColumnarBatch()
+        out._n = len(keep)
+        out._n_ref = self._n_ref
+        out._dev = self._gathered(keep)
+        out._blob, out._offsets = segment_gather(self._host_blob(),
+                                                 self._offsets, src)
+        return out
+
+    # -- pickling (the read ledger's spills) --------------------------------
+
+    def __reduce__(self):
+        if self._dev is not None and self._offsets is not None:
+            return (_rebuild_from_blob,
+                    (self._host_blob(), self._offsets, self._n_ref,
+                     self._order, str(self.device)))
+        return (_rebuild_from_host, (self.to_read_batch(),))
 
     def slice(self, start: int, stop: int) -> ReadBatch:
         return self.to_read_batch().slice(start, stop)
@@ -297,6 +374,13 @@ class ColumnarBatch:
                 at += b._n
                 base += int(b._offsets[-1])
             self._offsets = offs
+            if any(b._order is not None for b in batches):
+                orders, at = [], 0
+                for b in batches:
+                    orders.append(at + (b._order if b._order is not None
+                                        else np.arange(b._n)))
+                    at += b._n
+                self._order = np.concatenate(orders)
             for b in batches:
                 b.release()
             return self
@@ -306,6 +390,28 @@ class ColumnarBatch:
         """Drop the device columns (host caches and blob stay)."""
         with self._lock:
             self._dev = None
+
+
+def _rebuild_from_blob(blob: np.ndarray, offsets: np.ndarray,
+                       n_ref: Optional[int], order: Optional[np.ndarray],
+                       device: str) -> ColumnarBatch:
+    """Unpickle a spilled device-backed batch: the blob goes up to
+    ``device`` once and the parse kernel reads it from offset 0. A
+    ``cuda`` spill loaded without CUDA raises."""
+    from disq_tpu_torch.runtime.device_pipeline import upload
+    from disq_tpu_torch.util import resolve_device
+
+    dev = resolve_device(device)
+    batch = ColumnarBatch.from_blob(blob, offsets, upload(blob, dev),
+                                    n_ref=n_ref)
+    if order is not None:
+        batch = batch.permuted(order)
+    return batch
+
+
+def _rebuild_from_host(batch: ReadBatch) -> ColumnarBatch:
+    """Unpickle a spilled host-backed batch."""
+    return ColumnarBatch.from_host(batch)
 
 
 def as_read_batch(batch) -> ReadBatch:

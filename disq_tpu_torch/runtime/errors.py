@@ -16,7 +16,8 @@ Counterpart of ``disq_tpu/runtime/errors.py``:
     to a sidecar recorded in a ``QuarantineManifest``
     (``runtime/manifest.py``).
 
-``DisqOptions`` carries the fields this path reads; the reference's
+``DisqOptions`` carries the fields this path reads, and ``read_ledger``
+(the crash-resumable read, ``runtime/manifest.py``); the reference's
 resilience, introspection, SLO and flight-recorder fields are not
 ported yet.
 """
@@ -67,6 +68,11 @@ class DisqOptions:
     in flight past the emit frontier (None ⇒ ``2 × executor_workers``).
     ``writer_workers`` / ``writer_prefetch_shards`` are the write-side
     mirror (``ShardWritePipeline``). Output is identical at any width.
+
+    ``read_ledger`` points the crash-resumable read ledger at a
+    directory: each decoded split is spilled there as it emits, and a
+    read run again with the same ledger decodes only the unfinished
+    splits (``runtime/manifest.py:ReadLedger``).
     """
 
     error_policy: ErrorPolicy = ErrorPolicy.STRICT
@@ -77,6 +83,7 @@ class DisqOptions:
     prefetch_shards: Optional[int] = None
     writer_workers: int = 1
     writer_prefetch_shards: Optional[int] = None
+    read_ledger: Optional[str] = None
 
     def with_policy(self, policy: "ErrorPolicy | str") -> "DisqOptions":
         return replace(self, error_policy=ErrorPolicy.coerce(policy))
@@ -94,6 +101,9 @@ class DisqOptions:
             raise ValueError(f"writer_workers must be >= 1, got {workers}")
         return replace(self, writer_workers=int(workers),
                        writer_prefetch_shards=prefetch_shards)
+
+    def with_read_ledger(self, path: str) -> "DisqOptions":
+        return replace(self, read_ledger=path)
 
 
 class CorruptBlockError(ValueError):

@@ -1,9 +1,9 @@
 """Pipelined shard executor: bounded stage overlap in both directions.
 
 Counterpart of ``disq_tpu/runtime/executor.py`` (without its live
-introspection, hedging, deadlines, read ledger and manifest resume).
-One core, ``_BoundedStagePipeline``, runs N stages, each on its own
-thread pool, and emits results in task order:
+introspection, hedging, deadlines and scheduler leases). One core,
+``_BoundedStagePipeline``, runs N stages, each on its own thread pool,
+and emits results in task order:
 
 - **Read** (``ShardPipelineExecutor``): fetch (range read and BGZF block
   walk) → decode (inflate, record scan, parse) → ordered emit.
@@ -25,6 +25,11 @@ Guarantees:
   faults in fetch retry the fetch; a transient fault escaping decode
   (a salvage re-read) re-runs the shard from fetch. The first raising
   shard aborts the run, raised at its turn in the emit order.
+- **Resume.** ``run_write_stage`` with a ``StageManifest`` skips the
+  shards it records and records each fresh one as its part lands;
+  ``map_ordered_resumable`` with a ``ReadLedger`` serves finished splits
+  from their spills and spills each fresh one as it emits
+  (``runtime/manifest.py``).
 
 Kernel launches from decode threads go to the calling thread's current
 CUDA stream; the executor adds no streams of its own.
@@ -35,10 +40,11 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 from disq_tpu_torch.runtime.errors import DisqOptions, ShardRetrier, is_transient
+from disq_tpu_torch.runtime.manifest import retry_shard
 
 
 @dataclass
@@ -264,6 +270,56 @@ def executor_for_storage(storage) -> ShardPipelineExecutor:
                                  prefetch_shards=opts.prefetch_shards)
 
 
+def read_ledger_for_storage(storage, path: str, n_shards: int,
+                            resident: bool):
+    """The read's ``ReadLedger``, or None when ``DisqOptions.read_ledger``
+    is unset. Its fingerprint holds everything that changes what a split
+    decodes to: the path, the split count, the error policy, and the
+    route actually taken (``resident``: a device-backed split spills as
+    host bytes and parses again on its device when loaded), so resuming
+    any other read starts afresh."""
+    opts = getattr(storage, "_options", None) or DisqOptions()
+    if not opts.read_ledger:
+        return None
+    from disq_tpu_torch.runtime.errors import ErrorPolicy
+    from disq_tpu_torch.runtime.manifest import ReadLedger
+
+    return ReadLedger(opts.read_ledger, params={
+        "path": path,
+        "shards": int(n_shards),
+        "error_policy": ErrorPolicy.coerce(opts.error_policy).value,
+        "resident_decode": bool(resident),
+    })
+
+
+def map_ordered_resumable(executor: ShardPipelineExecutor,
+                          tasks: Sequence[ShardTask],
+                          ledger=None) -> Iterator[ShardResult]:
+    """``executor.map_ordered`` with read resume: splits the ledger holds
+    come from their spills (no fetch, no decode), fresh splits run
+    through the executor and are spilled as they emit, and a run read to
+    its end reaches the ledger's commit point (``finish``). Without a
+    ledger this is ``map_ordered``."""
+    tasks = list(tasks)
+    if ledger is None:
+        return executor.map_ordered(tasks)
+
+    def gen() -> Iterator[ShardResult]:
+        cached = {t.shard_id for t in tasks if ledger.is_done(t.shard_id)}
+        fresh = executor.map_ordered(
+            [t for t in tasks if t.shard_id not in cached])
+        for t in tasks:
+            if t.shard_id in cached:
+                yield ShardResult(t.shard_id, ledger.load(t.shard_id))
+            else:
+                res = next(fresh)
+                ledger.record(res.shard_id, res.value)
+                yield res
+        ledger.finish()
+
+    return gen()
+
+
 # -- write direction: encode → deflate → stage -------------------------------
 
 
@@ -385,11 +441,51 @@ def write_retrier_for_storage(storage) -> ShardRetrier:
     return ShardRetrier(opts.max_retries, opts.retry_backoff_s)
 
 
+def _checkpointed(task: WriteShardTask, manifest, stage_name: str
+                  ) -> WriteShardTask:
+    """``task`` with each step under ``retry_shard`` and its stage result
+    recorded in ``manifest`` as it lands."""
+    k = task.shard_id
+
+    def retried(fn):
+        return None if fn is None else retry_shard(fn, stage_name, k)
+
+    stage = retried(task.stage)
+
+    def marked(payload):
+        info = payload if stage is None else stage(payload)
+        manifest.mark_done(stage_name, k, info)
+        return info
+
+    return replace(task, encode=retried(task.encode),
+                   deflate=retried(task.deflate), stage=marked)
+
+
 def run_write_stage(pipeline: ShardWritePipeline, n_shards: int,
-                    make_task: Callable[[int], WriteShardTask]) -> List[Any]:
+                    make_task: Callable[[int], WriteShardTask],
+                    manifest=None, stage_name: str = "write.parts"
+                    ) -> List[Any]:
     """Run one write stage's shards through ``pipeline``; returns each
-    shard's stage result in shard order."""
+    shard's stage result in shard order. With a ``StageManifest``,
+    recorded shards are skipped (their recorded info is returned), each
+    step of a fresh shard runs under ``manifest.retry_shard`` (a shard
+    that still fails raises ``RuntimeError`` naming it), and each fresh
+    shard is recorded when its stage step lands, on the stage worker, in
+    completion order: a crash while a straggler holds up the ordered
+    emit keeps every shard already staged."""
     infos: List[Any] = [None] * n_shards
-    for res in pipeline.map_ordered([make_task(k) for k in range(n_shards)]):
+    pending: List[int] = []
+    for k in range(n_shards):
+        if manifest is not None and manifest.is_done(stage_name, k):
+            infos[k] = manifest.shard_info(stage_name, k)
+        else:
+            pending.append(k)
+    tasks = []
+    for k in pending:
+        task = make_task(k)
+        if manifest is not None:
+            task = _checkpointed(task, manifest, stage_name)
+        tasks.append(task)
+    for res in pipeline.map_ordered(tasks):
         infos[res.shard_id] = res.value
     return infos

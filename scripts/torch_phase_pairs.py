@@ -2,6 +2,7 @@
 """Time the port's read phases for two checkouts in alternating turns on one GPU.
 
     python3 scripts/torch_phase_pairs.py --trees OLD,NEW [--pairs 3]
+                                         [--phases executor4_read_s,...]
 
 Each tree is the root of a checkout that holds ``disq_tpu_torch``. The
 script synthesizes ``chip_smoke.py``'s BAM from the seed once (2,000,000
@@ -27,15 +28,22 @@ in this order, each phase ending in ``torch.cuda.synchronize()``:
     executor4_read_s the same read with .executor_workers(4)
     legacy_read_s    the same read under DISQ_TPU_TORCH_DEVICE_INFLATE=legacy
                      (kernel B4)
+    cram_write_s     the single-file CRAM write, with its CRAI, of the
+                     first 200,000 coordinate-sorted reads (QS as order-0
+                     rANS), checked by a re-read
     cram_read_s      the CRAM read (kernel B3)
     cram_executor4_read_s  the CRAM read with .executor_workers(4)
-    cram_skip_read_s, cram_quarantine_read_s  the flipped copy's read with
-                     .error_policy("skip" / "quarantine"); null for a tree
-                     whose CRAM read raises there (it ignores the policy)
+    cram_skip_read_s, cram_quarantine_read_s  (phase cram_policy_reads)
+                     the flipped copy's read with .error_policy("skip" /
+                     "quarantine"); null for a tree whose CRAM read
+                     raises there (it ignores the policy)
     cram_legacy_read_s  the CRAM read under DISQ_TPU_TORCH_DEVICE_RANS=legacy
 
 and checks every read's count and flagstat against the generator (the
-policy reads against its records outside the flipped container). It
+policy reads against its records outside the flipped container).
+``--phases`` runs only the named phases (``parse`` for the four
+``parse_*`` numbers); without a CRAM read among them the CRAM and its
+flipped copy are not written. It
 prints one JSON line per turn and, last, one JSON object with each
 phase's value per tree in turn order. Work files go under ``.smoke/``
 of the checkout that holds this script, removed at the end.
@@ -58,6 +66,7 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ["inflate", "parse", "rans_simd", "rans", "inflate_legacy"]
+CRAM_WRITE_RECORDS = 200_000
 
 # B2's memory traffic without its parse: per record the start, the 3
 # aligned 16-byte vectors that hold most of its prefix, 12 int32 stores
@@ -173,6 +182,14 @@ def parse_times(torch, smoke, bam: str, split_size: int, floor: str) -> dict:
             "parse_floor_ms": profiled_ms(torch, gather, "gather_floor", 20)}
 
 
+# the phases that read the CRAM or its flipped copy (``--phases`` without
+# any of them skips writing both)
+CRAM_READS = ("cram_read_s", "cram_executor4_read_s", "cram_policy_reads",
+              "cram_legacy_read_s")
+PHASES = ("parse", "bam_read_s", "sort_write_s", "executor4_read_s",
+          "legacy_read_s", "cram_write_s") + CRAM_READS
+
+
 def child(args) -> dict:
     smoke = smoke_helpers()
     sys.path.insert(0, args.tree)
@@ -208,53 +225,78 @@ def child(args) -> dict:
         ds = storage().read(args.bam)
         os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
         storage().write(ds.coordinate_sorted(), args.cram,
-                      port.CraiWriteOption.ENABLE)
+                        port.CraiWriteOption.ENABLE)
         return {"cram_bytes": os.path.getsize(args.cram)}
-    res = parse_times(torch, smoke, args.bam, args.split_size, args.floor)
-    ds, res["bam_read_s"] = timed(lambda: storage().read(args.bam))
-    held(ds, "bam read")
-    out = os.path.join(os.path.dirname(args.bam), "sorted.bam")
-    _, res["sort_write_s"] = timed(lambda: storage().write(
-        ds, out, port.BaiWriteOption.ENABLE, sort=True))
-    del ds
-    ex, res["executor4_read_s"] = timed(
-        lambda: storage().executor_workers(4).read(args.bam))
-    held(ex, "4-worker read")
-    del ex
-    os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"] = "legacy"
-    lg, res["legacy_read_s"] = timed(lambda: storage().read(args.bam))
-    del os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"]
-    held(lg, "legacy read")
-    del lg
-    cr, res["cram_read_s"] = timed(lambda: storage().read(args.cram))
-    held(cr, "cram read")
-    del cr
-    cr, res["cram_executor4_read_s"] = timed(
-        lambda: storage().executor_workers(4).read(args.cram))
-    held(cr, "4-worker cram read")
-    del cr
-    from disq_tpu_torch.runtime.errors import CorruptBlockError
+    phases = args.phases.split(",") if args.phases else PHASES
+    res = {}
 
-    for policy in ("skip", "quarantine"):
-        shutil.rmtree(args.flipped + ".quarantine", ignore_errors=True)
-        try:
-            cr, t = timed(
-                lambda: storage().error_policy(policy).read(args.flipped))
-        except CorruptBlockError:
-            res[f"cram_{policy}_read_s"] = None  # the policy is ignored
-            continue
-        held(cr, f"cram {policy} read", "policy")
-        res[f"cram_{policy}_read_s"] = t
-        del cr
-    os.environ["DISQ_TPU_TORCH_DEVICE_RANS"] = "legacy"
-    cr, res["cram_legacy_read_s"] = timed(lambda: storage().read(args.cram))
-    held(cr, "legacy cram read")
+    def read_phase(key, path, what, make=storage, want_key=None):
+        ds, res[key] = timed(lambda: make().read(path))
+        held(ds, what, want_key)
+
+    if "parse" in phases:
+        res.update(parse_times(torch, smoke, args.bam, args.split_size,
+                               args.floor))
+    if "bam_read_s" in phases:
+        read_phase("bam_read_s", args.bam, "bam read")
+    if "sort_write_s" in phases:
+        ds = storage().read(args.bam)
+        out = os.path.join(os.path.dirname(args.bam), "sorted.bam")
+        _, res["sort_write_s"] = timed(lambda: storage().write(
+            ds, out, port.BaiWriteOption.ENABLE, sort=True))
+        del ds
+    if "executor4_read_s" in phases:
+        read_phase("executor4_read_s", args.bam, "4-worker read",
+                   lambda: storage().executor_workers(4))
+    if "legacy_read_s" in phases:
+        os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"] = "legacy"
+        read_phase("legacy_read_s", args.bam, "legacy read")
+        del os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"]
+    if "cram_write_s" in phases:
+        # the single-file CRAM write of the first CRAM_WRITE_RECORDS
+        # sorted records, with its CRAI; the sort is set-up
+        srt = storage().read(args.bam).coordinate_sorted()
+        head = port.ReadsDataset(srt.header,
+                                 srt.reads.slice(0, CRAM_WRITE_RECORDS))
+        del srt
+        out = os.path.join(os.path.dirname(args.bam), "head.cram")
+        os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
+        _, res["cram_write_s"] = timed(lambda: storage().write(
+            head, out, port.CraiWriteOption.ENABLE))
+        del os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"]
+        back = storage().read(out)
+        if back.count() != CRAM_WRITE_RECORDS or not np.array_equal(
+                back.reads.pos, head.reads.pos):
+            raise SystemExit("cram write: the re-read differs")
+        del head, back
+    if "cram_read_s" in phases:
+        read_phase("cram_read_s", args.cram, "cram read")
+    if "cram_executor4_read_s" in phases:
+        read_phase("cram_executor4_read_s", args.cram, "4-worker cram read",
+                   lambda: storage().executor_workers(4))
+    if "cram_policy_reads" in phases:
+        from disq_tpu_torch.runtime.errors import CorruptBlockError
+
+        for policy in ("skip", "quarantine"):
+            shutil.rmtree(args.flipped + ".quarantine", ignore_errors=True)
+            try:
+                read_phase(f"cram_{policy}_read_s", args.flipped,
+                           f"cram {policy} read",
+                           lambda: storage().error_policy(policy), "policy")
+            except CorruptBlockError:
+                res[f"cram_{policy}_read_s"] = None  # the policy is ignored
+    if "cram_legacy_read_s" in phases:
+        os.environ["DISQ_TPU_TORCH_DEVICE_RANS"] = "legacy"
+        read_phase("cram_legacy_read_s", args.cram, "legacy cram read")
+        del os.environ["DISQ_TPU_TORCH_DEVICE_RANS"]
     return res
 
 
 def run_child(tree: str, args, files: dict, make_cram: bool = False) -> dict:
     cmd = [sys.executable, os.path.abspath(__file__), "--child", "--tree", tree,
            "--split-size", str(args.split_size), *(f"--{k}={v}" for k, v in files.items())]
+    if args.phases:
+        cmd.append(f"--phases={args.phases}")
     if make_cram:
         cmd.append("--make-cram")
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -270,6 +312,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--records", type=int, default=2_000_000)
     ap.add_argument("--split-size", type=int, default=64 << 20)
+    ap.add_argument("--phases", help="comma-separated subset of "
+                    + ",".join(PHASES) + " (default: all)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--make-cram", action="store_true", help=argparse.SUPPRESS)
     for k in ("tree", "bam", "cram", "flipped", "want", "floor"):
@@ -294,23 +338,32 @@ def main(argv=None) -> int:
                  "floor": build_floor(work)}
         g = chip_smoke.synthesize(args.records, args.seed)
         chip_smoke.write_bam(files["bam"], g, args.records)
-        make = {k: v for k, v in files.items() if k in ("bam", "cram")}
-        print(json.dumps(run_child(new, args, make, make_cram=True)),
-              flush=True)
-        data = open(files["cram"], "rb").read()
-        offsets = chip_smoke.crai_container_offsets(files["cram"] + ".crai")
-        fields = [chip_smoke.container_fields(data, off) for off in offsets]
-        *_, flipped, keep = chip_smoke.flip_cram_container(
-            files["cram"], data, offsets, fields, args.split_size)
-        del data
-        perm = np.argsort(chip_smoke.coordinate_keys(g["refid"], g["pos"]),
-                          kind="stable")
+        want = {"count": args.records,
+                "flagstat": chip_smoke.numpy_flagstat(g["flag"])}
+        phases = args.phases.split(",") if args.phases else PHASES
+        unknown = set(phases) - set(PHASES)
+        if unknown:
+            raise SystemExit(f"unknown phases {sorted(unknown)}")
+        if set(phases) & set(CRAM_READS):
+            make = {k: v for k, v in files.items() if k in ("bam", "cram")}
+            print(json.dumps(run_child(new, args, make, make_cram=True)),
+                  flush=True)
+            data = open(files["cram"], "rb").read()
+            offsets = chip_smoke.crai_container_offsets(
+                files["cram"] + ".crai")
+            fields = [chip_smoke.container_fields(data, off)
+                      for off in offsets]
+            *_, flipped, keep = chip_smoke.flip_cram_container(
+                files["cram"], data, offsets, fields, args.split_size)
+            del data
+            perm = np.argsort(
+                chip_smoke.coordinate_keys(g["refid"], g["pos"]),
+                kind="stable")
+            want["policy"] = {"count": int(keep.sum()),
+                              "flagstat": chip_smoke.numpy_flagstat(
+                                  g["flag"][perm][keep])}
         with open(files["want"], "w") as f:
-            json.dump({"count": args.records,
-                       "flagstat": chip_smoke.numpy_flagstat(g["flag"]),
-                       "policy": {"count": int(keep.sum()),
-                                  "flagstat": chip_smoke.numpy_flagstat(
-                                      g["flag"][perm][keep])}}, f)
+            json.dump(want, f)
         del g
         print(chip_smoke.card_line(), flush=True)
         turns = {old: [], new: []}
