@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed 0] [--records 2000000]
 
-It builds the five CUDA kernels from ``disq_tpu_torch/csrc`` (one
+It builds the seven CUDA kernels from ``disq_tpu_torch/csrc`` (one
 ``nvcc`` each, all started together), synthesizes an unsorted paired-end
 BAM from the seed (150 bp reads over 3 references, compressed with
 stdlib zlib into standard BGZF blocks), and drives the port's paths
@@ -32,6 +32,10 @@ through their public entry points on ``cuda``:
     storage.read_ledger(dir).read("fault://" + path)               # resume
     ds.depth(1024); ds.reads.filter(mapq >= 20); ds.reads.permuted(order)
     ds.device_columns()
+    storage.device_deflate().write(ds, out, BaiWriteOption.ENABLE,
+                                   sort=True)                      # W1, W2
+    storage.num_shards(8).writer_workers(4).device_deflate().write(
+        ds, out, BaiWriteOption.ENABLE, SbiWriteOption.ENABLE, sort=True)
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -64,7 +68,14 @@ the unfinished splits only, B2 once more for each spilled split, B3
 once, and its records and counters equal the uninterrupted read's);
 depth against a numpy difference array of the generator; filter and
 permuted device-backed and equal to the host batch's; device_columns
-with no transfer. It shows from
+with no transfer; the device write path (records gathered by W1 and
+literal-Huffman coded by W2) at the main path's one shard and at 8
+shards with 4 writer workers, each output inflating with zlib to the
+zlib-6 write's stream, its BAI and SBI mapping (virtual offset to
+uncompressed offset) to the zlib-6 write's, its re-read equal to the
+generator, W1 and W2 held against their plain versions on the whole shard
+(W2 also on edge lanes under 15-bit codes, an incompressible one taking
+the host route), and the write's stages replayed one by one. It shows from
 the launch counts (zeroed just before each path, read just after) that
 each path went through its kernels, holds each kernel against its plain
 version on the inputs of split 0 (the inflate kernels' pure-Python plain
@@ -73,8 +84,8 @@ truncated and edge-case inputs (B3 also against the native host decoder
 on every stream of the file), and times them: through the wrapper with
 CUDA events, and on the device alone as a CUDA graph of their launches
 replayed between events (``graph_ms``), B1, B3, B4 and B5 also on one
-payload or stream alone, beside their launch geometry. Any failed phase exits
-non-zero.
+payload or stream alone, beside their launch geometry. The default writes
+do no device deflate work. Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -1813,6 +1824,416 @@ def device_op_legs(torch, g, perm_want, ds) -> dict:
             "filter_permuted_s": round(transform_s, 4)}
 
 
+# -- the device write path ---------------------------------------------------
+
+
+def bgzf_layout(data: bytes):
+    """(uncompressed stream, block compressed starts, block uncompressed
+    starts) of a BGZF file, every block inflated by zlib with its CRC and
+    ISIZE checked; the starts include the EOF block's."""
+    blocks = walk_blocks(data)
+
+    def one(blk):
+        p, total, hdr = blk
+        raw = zlib.decompress(data[p + hdr: p + total - 8], -15)
+        crc, isize = struct.unpack_from("<II", data, p + total - 8)
+        check(zlib.crc32(raw) == crc and len(raw) == isize,
+              f"block at {p} fails CRC/ISIZE")
+        return raw
+
+    with ThreadPoolExecutor(8) as pool:
+        payloads = list(pool.map(one, blocks))
+    usize = np.array([len(p) for p in payloads], np.int64)
+    ustart = np.concatenate([[0], np.cumsum(usize)[:-1]])
+    cstart = np.array([b[0] for b in blocks], np.int64)
+    return b"".join(payloads), cstart, ustart
+
+
+def uncompressed_offsets(values, cstart, ustart) -> np.ndarray:
+    """Virtual offsets → offsets in the uncompressed stream."""
+    v = np.asarray(values, np.uint64)
+    coff = (v >> np.uint64(16)).astype(np.int64)
+    b = np.clip(np.searchsorted(cstart, coff), 0, len(cstart) - 1)
+    check(bool((cstart[b] == coff).all()),
+          "a virtual offset names no block start")
+    return ustart[b] + (v & np.uint64(0xFFFF)).astype(np.int64)
+
+
+def bai_mapped(raw: bytes, cstart, ustart) -> np.ndarray:
+    """A BAI (independent parse) as one int64 vector: bin ids and chunk
+    counts as they are, every virtual offset as its uncompressed offset,
+    the metadata pseudo-bin's record counts as they are."""
+    check(raw[:4] == b"BAI\x01", "BAI magic")
+    out = []
+    n_ref = struct.unpack_from("<i", raw, 4)[0]
+    p = 8
+    for _ in range(n_ref):
+        n_bin = struct.unpack_from("<i", raw, p)[0]
+        p += 4
+        for _ in range(n_bin):
+            b, n_chunk = struct.unpack_from("<Ii", raw, p)
+            p += 8
+            pairs = np.frombuffer(raw, "<u8", 2 * n_chunk, p)
+            p += 16 * n_chunk
+            out.append(np.array([b, n_chunk], np.int64))
+            if b == 37450:  # ref_beg, ref_end, n_mapped, n_unmapped
+                out.append(uncompressed_offsets(pairs[:2], cstart, ustart))
+                out.append(pairs[2:].astype(np.int64))
+            else:
+                out.append(uncompressed_offsets(pairs, cstart, ustart))
+        n_intv = struct.unpack_from("<i", raw, p)[0]
+        p += 4
+        out.append(uncompressed_offsets(
+            np.frombuffer(raw, "<u8", n_intv, p), cstart, ustart))
+        p += 8 * n_intv
+    out.append(np.frombuffer(raw, "<u8", (len(raw) - p) // 8, p)
+               .astype(np.int64))
+    return np.concatenate(out)
+
+
+def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
+    """The device write path (``.device_deflate()``) on the resident
+    dataset: (a) the main path's sorted write (1 shard, BAI), (b) the
+    same at 8 shards, 4 writer workers, BAI + SBI. Each output decompresses
+    to the default zlib-6 write's stream, its BAI (and SBI) map to the
+    default write's, and it re-reads to the generator's sorted records.
+    Then W1 and W2 at (a)'s shapes against their plain versions, and (a)'s
+    stages replayed one by one. Returns (W1 and W2 kernel entries, e2e
+    fields)."""
+    from disq_tpu_torch.bam.sink import (
+        _batch_digest,
+        _LazySlice,
+        voffsets_from_csizes,
+    )
+    from disq_tpu_torch.bgzf.codec import compress_to_bgzf
+    from disq_tpu_torch.index.bai import build_bai
+    from disq_tpu_torch.ops import cuda_build
+    from disq_tpu_torch.ops import deflate as DF
+    from disq_tpu_torch.ops import record_gather as W1
+    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime.device_pipeline import upload
+    from disq_tpu_torch.runtime.device_write import ResidentShardEncoder
+
+    n, split = args.records, args.split_size
+    check(all(v == 0 for v in DF.device_stats.values()),
+          f"a default write ran device deflate work: {DF.device_stats}")
+
+    def storage():
+        return port.ReadsStorage.make_default().split_size(split)
+
+    legs = {"a": (1, 1, os.path.join(work, "sorted.bam"), False),
+            "b": (WRITE_SHARDS, 4, os.path.join(work, "sorted_sbi.bam"),
+                  True)}
+    seconds, sizes, books = {}, {}, {}
+    for leg, (shards, workers, default_path, sbi) in legs.items():
+        out = os.path.join(work, f"device_{leg}.bam")
+        opts = [port.BaiWriteOption.ENABLE]
+        if sbi:
+            opts.append(port.SbiWriteOption.ENABLE)
+        st = (storage().num_shards(shards).writer_workers(workers)
+              .device_deflate())
+        counters.reset()
+        t0 = time.perf_counter()
+        st.write(ds, out, *opts, sort=True)
+        seconds[leg] = time.perf_counter() - t0
+        books[leg] = counters.snapshot()
+        launches = books[leg]["launches"]
+        # one W2 launch per shard and one for the header block
+        check(launches.get("record_gather", 0) == shards
+              and launches.get("deflate", 0) == shards + 1,
+              f"device write ({leg}): launches {launches}")
+        with open(out, "rb") as f:
+            got = f.read()
+        with open(default_path, "rb") as f:
+            want = f.read()
+        sizes[leg] = (len(got), len(want))
+        got_u, got_c, got_s = bgzf_layout(got)
+        want_u, want_c, want_s = bgzf_layout(want)
+        check(got_u == want_u, f"device write ({leg}): uncompressed stream "
+              f"differs from the zlib-6 write's")
+        del got, want, got_u, want_u
+        exts = (".bai", ".sbi") if sbi else (".bai",)
+        for ext in exts:
+            with open(out + ext, "rb") as f:
+                got_i = f.read()
+            with open(default_path + ext, "rb") as f:
+                want_i = f.read()
+            if ext == ".bai":
+                same = np.array_equal(bai_mapped(got_i, got_c, got_s),
+                                      bai_mapped(want_i, want_c, want_s))
+            else:
+                gt, gg, go = read_sbi(out + ext)
+                wt, wg, wo = read_sbi(default_path + ext)
+                same = (gt, gg) == (wt, wg) and np.array_equal(
+                    uncompressed_offsets(go, got_c, got_s),
+                    uncompressed_offsets(wo, want_c, want_s))
+            check(same, f"device write ({leg}): {ext} does not map to the "
+                  f"zlib-6 write's")
+        back = storage().read(out)
+        equal_to_generator(torch, back, g, perm_want, f"device write ({leg})")
+        del back
+        log(f"device write ({leg}): {shards} shards, {workers} writer "
+            f"workers, {seconds[leg]:.3f}s, {sizes[leg][0]} bytes against "
+            f"{sizes[leg][1]} for zlib-6; stream, "
+            f"{' and '.join(e[1:].upper() for e in exts)} map to the zlib-6 "
+            f"write's; re-read equal to the generator; counters "
+            f"{json.dumps(books[leg])}")
+
+    # -- (a)'s stages, one by one, on the same inputs -------------------------
+    stages = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        stages[name] = round(time.perf_counter() - t0, 4)
+        return res
+
+    sorted_ds = stage("sort", lambda: ds.coordinate_sorted(keep_resident=True))
+    check(sorted_ds.reads.device_backed, "keep_resident: not device-backed")
+    enc = stage("upload", lambda: ResidentShardEncoder(sorted_ds.reads, dev))
+    shard = stage("W1", lambda: enc.encode_shard(0, n))
+    host = stage("host gather", shard.host_payload)
+    table = stage("histogram + table", shard.table)
+    bodies, end = stage("W2", shard.encode)
+    body_h, end_h = stage("d2h", lambda: DF.fetch(bodies, end, table))
+    n_blocks = shard.n_blocks
+
+    def finalize():
+        payloads = [host[b * MAX_PAYLOAD: (b + 1) * MAX_PAYLOAD]
+                    for b in range(n_blocks)]
+        blocks = [b""] * n_blocks
+
+        def host_route(flagged):
+            for j in flagged:
+                blocks[j] = DF.host_block(payloads[j])
+
+        flagged = DF.finalize_chunk(body_h, end_h, table, payloads,
+                                    blocks.__setitem__, host_route)
+        return DF.join_blocks(blocks) + (flagged,)
+
+    comp, csizes, flagged = stage("host finalize", finalize)
+    del body_h
+
+    def index():
+        voffs, end_voffs = voffsets_from_csizes(csizes, shard.record_offsets)
+        part = _LazySlice(sorted_ds.reads, 0, n)
+        return build_bai(part.refid, part.pos, part.alignment_ends(),
+                         part.flag, voffs, end_voffs, len(REFS))
+
+    stage("index build", index)
+    staged = os.path.join(work, "device_stages.bam")
+
+    def stage_out():
+        header = compress_to_bgzf(sorted_ds.header.to_bam_bytes(),
+                                  with_terminator=False, device=dev)
+        with open(staged, "wb") as f:
+            f.write(header)
+            f.write(comp)
+            f.write(EOF_BLOCK)
+            f.flush()
+            os.fsync(f.fileno())
+
+    stage("stage", stage_out)
+    with open(os.path.join(work, "device_a.bam"), "rb") as f:
+        check(f.read() == open(staged, "rb").read(),
+              "the replayed stages differ from the device write (a)")
+    log(f"device write stages (a): {json.dumps(stages)}, sum "
+        f"{sum(stages.values()):.4f}s against the write's "
+        f"{seconds['a']:.4f}s")
+    # what a StageManifestWriteOption adds: the digest of a permuted
+    # batch materializes its ragged columns (the reference does the same)
+    fresh = ds.reads.permuted(sorted_ds.reads._order)
+    t0 = time.perf_counter()
+    _batch_digest(fresh)
+    digest_s = time.perf_counter() - t0
+    del fresh
+    log(f"device write: the manifest digest of the sorted batch "
+        f"{digest_s:.4f}s")
+
+    # -- W1 against its plain version on the whole shard ---------------------
+    blob, nbytes = enc._blob, shard.nbytes
+    src = upload(enc._src_starts, dev)
+    dst = upload(enc._perm_off, dev)
+    w1 = lambda: W1.gather_records(blob, src, dst, nbytes)  # noqa: E731
+    k_pay = w1()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_pay = W1.gather_plain(blob, src, dst, nbytes)
+    torch.cuda.synchronize()
+    w1_plain_ms = (time.perf_counter() - t0) * 1e3
+    w1_mism = int((k_pay != p_pay).sum())
+    w1_err = int((k_pay.int() - p_pay.int()).abs().max()) if nbytes else 0
+    check(w1_mism == 0, f"record_gather != plain version ({w1_mism} bytes)")
+    check(np.array_equal(k_pay.cpu().numpy(), host),
+          "record_gather != the host gather")
+    del p_pay
+    w1_ms = cuda_ms(torch, w1, 2, 10)
+    w1_dev_ms = graph_ms(torch, w1, 5, 4)
+    w1_geom = cuda_build.geometry("record_gather", n)
+    w1_bytes = 2 * nbytes + 8 * n + 8 * (n + 1)
+
+    # -- W2 against its plain version on the whole shard ---------------------
+    pay_off = upload(np.arange(n_blocks, dtype=np.int64) * MAX_PAYLOAD, dev)
+    pay_len = upload(np.minimum(nbytes - np.arange(n_blocks, dtype=np.int64)
+                                * MAX_PAYLOAD, MAX_PAYLOAD).astype(np.int32),
+                     dev)
+    luts = table.luts(dev)
+    w2 = lambda: DF.encode(k_pay, pay_off, pay_len, *luts,  # noqa: E731
+                           table.header_bits, table.out_bytes)
+
+    def w2_against_plain(payload, off, ln, tab):
+        lt = tab.luts(dev)
+        kb, ke = DF.encode(payload, off, ln, *lt, tab.header_bits,
+                           tab.out_bytes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb, pe = DF.encode_plain(payload, off, ln, *lt, tab.header_bits,
+                                 tab.out_bytes)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        occ = torch.from_numpy(DF.occupied_bytes(
+            pe.cpu().numpy(), tab.out_bytes)).to(dev)
+        cols = torch.arange(tab.out_bytes, device=dev)
+        mism = int((ke != pe).sum())
+        err = int((ke.long() - pe.long()).abs().max()) if ke.numel() else 0
+        for lo in range(0, kb.shape[0], 512):
+            hi = min(lo + 512, kb.shape[0])
+            m = cols[None, :] < occ[lo:hi, None]
+            mism += int(((kb[lo:hi] != pb[lo:hi]) & m).sum())
+            d = (kb[lo:hi].int() - pb[lo:hi].int()).abs()
+            err = max(err, int(torch.where(m, d, 0).max()))
+        return kb, ke, pb, pe, mism, err, plain_ms
+
+    kb, ke, pb, pe, w2_mism, w2_err, w2_plain_ms = w2_against_plain(
+        k_pay, pay_off, pay_len, table)
+    check(w2_mism == 0, f"deflate != plain version on the shard ({w2_mism})")
+    check(np.array_equal(ke.cpu().numpy(), end_h),
+          "deflate end bits differ from the write's")
+    plain_h, plain_end = DF.fetch(pb, pe, table)
+    plain_flagged = [
+        j for j in range(n_blocks)
+        if DF.expanded(DF.finalize_stream(plain_h[j], int(plain_end[j]),
+                                          table),
+                       host[j * MAX_PAYLOAD: (j + 1) * MAX_PAYLOAD])]
+    expanded_a = books["a"]["host_fallback_blocks"].get("expanded", 0)
+    check(len(plain_flagged) == len(flagged) == expanded_a,
+          f"expanded lanes: plain {len(plain_flagged)}, kernel "
+          f"{len(flagged)}, write (a) {expanded_a}")
+    body_bytes = int(((ke.long() + 7) // 8).sum())
+    del kb, pb, plain_h
+    w2_ms = cuda_ms(torch, w2, 1, 5)
+    w2_dev_ms = graph_ms(torch, w2, 2, 3)
+    w2_geom = cuda_build.geometry("deflate", n_blocks)
+    w2_bytes = nbytes + body_bytes + 4 * n_blocks + 12 * n_blocks + 2048
+
+    # W2 edge cases: 1, 255 and 65,280 bytes and an incompressible lane,
+    # at odd offsets, under a table with 15-bit codes
+    rng = np.random.default_rng(args.seed + 8)
+    edge = [np.minimum(rng.geometric(0.5, size) - 1, 255).astype(np.uint8)
+            for size in (1, 255, MAX_PAYLOAD)]
+    edge.append(rng.integers(0, 256, MAX_PAYLOAD, np.uint8))
+    # symbol i is 2^-i as common as symbol 0: code lengths 1, 2, 3, ...
+    # up to 15, where the limit binds
+    freq = np.array([1 << max(0, 40 - i) for i in range(256)], np.int64)
+    e_tab = DF.DeflateTable(freq, len(edge))
+    check(e_tab.max_code == 15, f"edge table max_code {e_tab.max_code}")
+    offs, buf = [], bytearray()
+    for p in edge:
+        buf += b"\0" * (3 + len(buf) % 2)
+        offs.append(len(buf))
+        buf += p.tobytes()
+    e_pay = torch.frombuffer(buf, dtype=torch.uint8).to(dev)
+    e_off = torch.tensor(offs, dtype=torch.int64, device=dev)
+    e_len = torch.tensor([len(p) for p in edge], dtype=torch.int32,
+                         device=dev)
+    ekb, eke, epb, epe, e_mism, e_err, _ = w2_against_plain(
+        e_pay, e_off, e_len, e_tab)
+    check(e_mism == 0, f"deflate != plain version on the edge lanes "
+          f"({e_mism})")
+    ep_body, ep_end = DF.fetch(epb, epe, e_tab)
+    e_plain_flagged = [
+        j for j, p in enumerate(edge)
+        if DF.expanded(DF.finalize_stream(ep_body[j], int(ep_end[j]), e_tab),
+                       p.tobytes())]
+    e_body, e_end = DF.fetch(ekb, eke, e_tab)
+    e_blocks = [None] * len(edge)
+
+    def e_route(fl):
+        for j in fl:
+            e_blocks[j] = DF.host_block(edge[j].tobytes())
+
+    e_flagged = DF.finalize_chunk(e_body, e_end, e_tab,
+                                  [p.tobytes() for p in edge],
+                                  e_blocks.__setitem__, e_route)
+    check(e_flagged == e_plain_flagged and 3 in e_flagged
+          and 2 not in e_flagged,
+          f"edge lanes taking the host route: {e_flagged}, plain "
+          f"{e_plain_flagged}")
+    for p, blk in zip(edge, e_blocks):
+        check(zlib.decompress(blk[18:-8], -15) == p.tobytes(),
+              "an edge lane's block does not inflate to its payload")
+    log(f"record_gather: {n} records, {nbytes} bytes, 0 mismatches against "
+        f"the plain version and the host gather; {w1_ms:.4f} ms through the "
+        f"wrapper, {w1_dev_ms:.4f} ms on the device, plain "
+        f"{w1_plain_ms:.2f} ms; geometry {json.dumps(w1_geom)}")
+    log(f"deflate: {n_blocks} payloads, max_code {table.max_code}, "
+        f"header {table.header_bits} bits, rows of {table.out_bytes} bytes, "
+        f"{body_bytes} body bytes, 0 mismatches against the plain version "
+        f"(bodies to each lane's occupied end, end bits), expanded lanes "
+        f"{len(flagged)} (plain {len(plain_flagged)}); edge lanes (1, 255, "
+        f"65,280 bytes, incompressible; 15-bit codes) exact, lanes "
+        f"{e_flagged} (plain {e_plain_flagged}) on the host route; "
+        f"{w2_ms:.4f} ms through the "
+        f"wrapper, {w2_dev_ms:.4f} ms on the device, plain "
+        f"{w2_plain_ms:.2f} ms; geometry {json.dumps(w2_geom)}")
+    la = books["a"]["launches"]
+    kernels = [
+        {"name": "record_gather", "route": "cuda",
+         "source": "disq_tpu_torch/csrc/record_gather.cu",
+         "replaces": "disq_tpu/runtime/device_write.py:64 (XLA, not Pallas)",
+         "launches": la.get("record_gather", 0),
+         "launches_w4": books["b"]["launches"].get("record_gather", 0),
+         "max_abs_err": w1_err, "ms": round(w1_ms, 4),
+         "ms_device": round(w1_dev_ms, 4), "plain_ms": round(w1_plain_ms, 4),
+         "bound_ms": round(w1_bytes / HBM_BYTES_PER_S * 1e3, 6),
+         "bound_by": "bytes", "library_ms": None, "mismatches": w1_mism,
+         "tolerance": 0, "shape": {"records": n, "bytes": nbytes},
+         "plain_on": "the same inputs (the whole shard), on the card",
+         "geometry": w1_geom},
+        {"name": "deflate", "route": "cuda",
+         "source": "disq_tpu_torch/csrc/deflate.cu",
+         "replaces": "disq_tpu/ops/deflate.py:261 (XLA, not Pallas)",
+         "launches": la.get("deflate", 0),
+         "launches_w4": books["b"]["launches"].get("deflate", 0),
+         "max_abs_err": max(w2_err, e_err), "ms": round(w2_ms, 4),
+         "ms_device": round(w2_dev_ms, 4), "plain_ms": round(w2_plain_ms, 4),
+         "bound_ms": round(w2_bytes / HBM_BYTES_PER_S * 1e3, 6),
+         "bound_by": "bytes", "library_ms": None, "mismatches": w2_mism,
+         "tolerance": 0,
+         "shape": {"payloads": n_blocks, "bytes_in": nbytes,
+                   "body_bytes": body_bytes, "max_code": table.max_code,
+                   "row_bytes": table.out_bytes},
+         "plain_on": "the same inputs (every payload of the shard), on the "
+                     "card",
+         "sample": "4 edge lanes (1, 255, 65,280 bytes, incompressible) "
+                   "under 15-bit codes",
+         "sample_mismatches": e_mism, "sample_host_route": e_flagged,
+         "expanded_lanes": len(flagged),
+         "expanded_lanes_plain": len(plain_flagged), "geometry": w2_geom},
+    ]
+    del k_pay, enc, shard, sorted_ds
+    e2e = {"device_write_s": round(seconds["a"], 4),
+           "device_write_w4_s": round(seconds["b"], 4),
+           "device_write_bytes": sizes["a"][0],
+           "zlib6_write_bytes": sizes["a"][1],
+           "device_write_w4_bytes": sizes["b"][0],
+           "zlib6_write_w4_bytes": sizes["b"][1],
+           "device_write_stages_s": stages,
+           "device_write_digest_s": round(digest_s, 4)}
+    return kernels, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -1839,7 +2260,7 @@ def run(args) -> dict:
     log(f"setup: CUDA context and host library {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     build_s = cuda_build.build(["inflate", "parse", "rans_simd", "rans",
-                                "inflate_legacy"])
+                                "inflate_legacy", "record_gather", "deflate"])
     log(f"build: {json.dumps({k: round(v, 3) for k, v in build_s.items()})} "
         f"wall {time.perf_counter() - t0:.3f}s")
 
@@ -2128,6 +2549,11 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     ops_e2e = device_op_legs(torch, g, perm_want, ds)
     log(f"phase device ops: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    write_kernels, dw_e2e = device_write_legs(torch, port, args, g, perm_want,
+                                              ds, work, dev)
+    kernels += write_kernels
+    log(f"phase device write: {time.perf_counter() - t0:.3f}s")
     by_name = {k["name"]: k for k in kernels}
     by_name["inflate"]["launches_on_resumed_read"] = resumed["inflate"]
     by_name["parse"]["launches_on_resumed_read"] = resumed["parse"]
@@ -2142,7 +2568,7 @@ def run(args) -> dict:
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
-           **resume_e2e, **ops_e2e,
+           **resume_e2e, **ops_e2e, **dw_e2e,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
     shutil.rmtree(work, ignore_errors=True)

@@ -24,6 +24,11 @@ Usage::
     ds.depth(1024); ds.device_columns()
     ds.reads.filter(ds.reads.mapq >= 20)
 
+    # the device write path: records gathered and literal-Huffman coded
+    # on the card (valid BGZF, not the zlib-6 bytes)
+    storage.device_deflate().write(ds, "sorted.bam", BaiWriteOption.ENABLE,
+                                   sort=True)
+
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
 and without an explicit CPU request, ``read`` and ``write`` raise. On
@@ -148,11 +153,18 @@ class ReadsDataset:
             return self.reads.flagstat()
         return flagstat_counts(np.asarray(self.reads.flag))
 
-    def coordinate_sorted(self) -> "ReadsDataset":
+    def coordinate_sorted(self, keep_resident: bool = False
+                          ) -> "ReadsDataset":
+        """Coordinate-sort the dataset. ``keep_resident`` keeps a
+        device-backed batch device-backed (fixed columns permuted on the
+        device, host records not materialized) for the device write
+        path; ``ReadsStorage.write(..., sort=True)`` arms it when
+        ``device_deflate`` is on."""
         from disq_tpu_torch.sort.coordinate import coordinate_sort_batch
 
         return ReadsDataset(header=self.header.with_sort_order("coordinate"),
-                            reads=coordinate_sort_batch(self.reads),
+                            reads=coordinate_sort_batch(
+                                self.reads, keep_resident=keep_resident),
                             device=self.device)
 
     def device_columns(self) -> dict:
@@ -275,6 +287,17 @@ class ReadsStorage:
         self._resident_decode = enable
         return self
 
+    def device_deflate(self, enable: bool = True) -> "ReadsStorage":
+        """Arm the device write path: every BGZF deflate of this
+        storage's sinks runs the literal-Huffman coder (kernel W2) on the
+        storage's device, and ``write(..., sort=True)`` of a device-backed
+        dataset keeps the sorted records resident and gathers each
+        shard's records with kernel W1. The blocks are valid BGZF that
+        decompresses to the same bytes, but not the canonical zlib-6
+        bytes. Env equivalent: ``DISQ_TPU_TORCH_DEVICE_DEFLATE``."""
+        self._options = self._options.with_device_deflate(enable)
+        return self
+
     def _resolved_device(self) -> torch.device:
         from disq_tpu_torch.util import resolve_device
 
@@ -292,7 +315,10 @@ class ReadsStorage:
 
         self._resolved_device()
         if sort:
-            dataset = dataset.coordinate_sorted()
+            from disq_tpu_torch.bgzf.codec import device_deflate_enabled
+
+            dataset = dataset.coordinate_sorted(
+                keep_resident=device_deflate_enabled(self))
         fmt = sam_format_from_write_options(
             path, _opt(options, ReadsFormatWriteOption, None))
         cardinality = _opt(options, FileCardinalityWriteOption,

@@ -26,6 +26,14 @@ it. The manifest goes at the commit point, before the staging dir.
 
 ``BamSinkMultiple`` writes a directory of complete per-shard BAMs
 (``part-r-NNNNN.bam``, each with its header and terminator).
+
+With ``DisqOptions.device_deflate`` armed every deflate (parts, header
+block, directory parts) runs the device coder on the storage's device
+(``ops/deflate.py``), and a sorted batch with an encode source gathers
+each shard's records on the device too (``runtime/device_write.py``):
+then the index fragments read host columns only when an index is asked
+for (``_LazySlice``). The knob is part of the stage manifest's params,
+so flipping it between a crash and the resume starts the staging afresh.
 """
 
 from __future__ import annotations
@@ -33,14 +41,18 @@ from __future__ import annotations
 import os
 import pickle
 import zlib
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from disq_tpu_torch.bam.codec import encode_records, encode_records_with_offsets
 from disq_tpu_torch.bam.header import SamHeader
 from disq_tpu_torch.bgzf.block import BGZF_EOF_MARKER, BGZF_MAX_PAYLOAD
-from disq_tpu_torch.bgzf.codec import compress_to_bgzf, deflate_blob
+from disq_tpu_torch.bgzf.codec import (
+    compress_to_bgzf,
+    deflate_blob,
+    deflate_device_for,
+)
 from disq_tpu_torch.fsw.filesystem import resolve_path
 from disq_tpu_torch.index.bai import build_bai, merge_bai_fragments
 from disq_tpu_torch.index.sbi import SbiIndex
@@ -81,11 +93,49 @@ def voffsets_from_csizes(csizes: np.ndarray, record_offsets: np.ndarray
     return voffs[:-1], voffs[1:]
 
 
+def bgzf_compress_with_voffsets(blob: bytes, record_offsets: np.ndarray,
+                                device=None
+                                ) -> Tuple[bytes, np.ndarray, np.ndarray]:
+    """Deflate ``blob`` into BGZF (no terminator): (compressed bytes,
+    start voffsets, end voffsets) of the records at uncompressed offsets
+    ``record_offsets``. ``device`` routes the deflate as in
+    ``bgzf.codec.deflate_blob``."""
+    comp, csizes = deflate_blob(blob, device=device)
+    voffs, end_voffs = voffsets_from_csizes(csizes, record_offsets)
+    return comp, voffs, end_voffs
+
+
+class _LazySlice:
+    """A shard's records for the index fragments of the device write
+    path: host columns materialize only when an index reads them."""
+
+    __slots__ = ("_batch", "_lo", "_hi", "_part")
+
+    def __init__(self, batch, lo: int, hi: int) -> None:
+        self._batch = batch
+        self._lo, self._hi = lo, hi
+        self._part = None
+
+    @property
+    def count(self) -> int:
+        return self._hi - self._lo
+
+    def _mat(self):
+        if self._part is None:
+            self._part = self._batch.slice(self._lo, self._hi)
+        return self._part
+
+    def __getattr__(self, name: str):
+        return getattr(self._mat(), name)
+
+
 class BamSink:
     """Single-file BAM write."""
 
     def __init__(self, storage):
         self._storage = storage
+        # where the deflates run: None for the canonical host zlib
+        self._device: Optional[object] = None
 
     def save(self, dataset, path: str, options: Sequence = ()) -> None:
         from disq_tpu_torch.api import (
@@ -111,6 +161,12 @@ class BamSink:
                 "BAI requires a coordinate-sorted header; "
                 "sort first (ReadsStorage.write(..., sort=True))")
         n_shards, bounds = shard_bounds(self._storage, batch.count)
+        self._device = deflate_device_for(self._storage)
+        resident = None
+        if self._device is not None:
+            from disq_tpu_torch.runtime import device_write
+
+            resident = device_write.resident_encoder_for(self._storage, batch)
         manifest = None
         manifest_opt = next((o for o in options
                              if isinstance(o, StageManifestWriteOption)), None)
@@ -124,12 +180,15 @@ class BamSink:
                 "n_shards": int(n_shards),
                 "bai": write_bai,
                 "sbi": write_sbi,
+                # the device coder's bytes are not the zlib pin's: flipping
+                # the knob between a crash and the resume resets staging
+                "device_deflate": self._device is not None,
             })
         fs.mkdirs(temp_dir)
         try:
             self._write_parts_and_merge(fs, header, batch, path, temp_dir,
                                         n_shards, bounds, write_bai,
-                                        write_sbi, manifest)
+                                        write_sbi, manifest, resident)
         except BaseException:
             # the merge is the commit point: without a manifest staging
             # never outlives save(); with one, the staged parts survive
@@ -145,16 +204,28 @@ class BamSink:
 
     # -- the steps of one shard (encode → deflate → stage) ------------------
 
-    def _encode_shard(self, batch, bounds, k):
-        part = batch.slice(int(bounds[k]), int(bounds[k + 1]))
+    def _encode_shard(self, batch, bounds, k, resident=None):
+        """Slice shard ``k`` and encode its records: on the host, or, with
+        the device write path's encoder, as a W1 gather on the device
+        (the payload stays there for the deflate)."""
+        lo, hi = int(bounds[k]), int(bounds[k + 1])
+        if resident is not None:
+            enc = resident.encode_shard(lo, hi)
+            return _LazySlice(batch, lo, hi), enc, enc.record_offsets
+        part = batch.slice(lo, hi)
         return (part,) + encode_records_with_offsets(part)
 
     def _deflate_shard(self, header, write_bai, write_sbi, payload):
         """BGZF deflate, the records' virtual offsets, and the part's
-        SBI and BAI fragments (part-local offsets)."""
+        SBI and BAI fragments (part-local offsets). A shard encoded on
+        the device deflates there from its payload."""
         part, blob, rec_offs = payload
-        comp, csizes = deflate_blob(blob)
-        voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
+        if hasattr(blob, "deflate"):  # runtime/device_write.EncodedShard
+            comp, csizes = blob.deflate()
+            voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
+        else:
+            comp, voffs, end_voffs = bgzf_compress_with_voffsets(
+                blob, rec_offs, device=self._device)
         sbi_frag = bai_frag = None
         if write_sbi:
             sbi_frag = SbiIndex.build(
@@ -186,10 +257,17 @@ class BamSink:
         return info
 
     def _make_write_task(self, fs, header, batch, temp_dir, bounds,
-                         write_bai, write_sbi, k, frag_cache):
+                         write_bai, write_sbi, k, frag_cache, resident=None):
+        # the 3-argument encode call stays when the device path is off
+        if resident is None:
+            def encode():
+                return self._encode_shard(batch, bounds, k)
+        else:
+            def encode():
+                return self._encode_shard(batch, bounds, k, resident)
         return WriteShardTask(
             shard_id=k,
-            encode=lambda: self._encode_shard(batch, bounds, k),
+            encode=encode,
             deflate=lambda p: self._deflate_shard(header, write_bai,
                                                   write_sbi, p),
             stage=lambda p: self._stage_shard(fs, temp_dir, k, frag_cache,
@@ -201,14 +279,19 @@ class BamSink:
 
     def _write_parts_and_merge(self, fs, header, batch, path, temp_dir,
                                n_shards, bounds, write_bai, write_sbi,
-                               manifest=None) -> None:
+                               manifest=None, resident=None) -> None:
         frag_cache = None if manifest is not None else {}
-        infos = run_write_stage(
-            writer_for_storage(self._storage), n_shards,
-            lambda k: self._make_write_task(fs, header, batch, temp_dir,
-                                            bounds, write_bai, write_sbi, k,
-                                            frag_cache),
-            manifest=manifest, stage_name="bam.parts")
+        try:
+            infos = run_write_stage(
+                writer_for_storage(self._storage), n_shards,
+                lambda k: self._make_write_task(fs, header, batch, temp_dir,
+                                                bounds, write_bai, write_sbi,
+                                                k, frag_cache, resident),
+                manifest=manifest, stage_name="bam.parts")
+        finally:
+            if resident is not None:
+                # the uploaded record blob is done with the parts stage
+                resident.release()
 
         def frags(key):
             if frag_cache is not None:
@@ -216,7 +299,8 @@ class BamSink:
             return [pickle.loads(fs.read_all(i[key])) for i in infos]
 
         header_comp = compress_to_bgzf(header.to_bam_bytes(),
-                                       with_terminator=False)
+                                       with_terminator=False,
+                                       device=self._device)
         header_path = os.path.join(temp_dir, "_header")
         fs.write_all(header_path, header_comp)
         term_path = os.path.join(temp_dir, "_terminator")
@@ -248,6 +332,7 @@ class BamSinkMultiple:
         header_bytes = dataset.header.to_bam_bytes()
         n_shards, bounds = shard_bounds(self._storage, batch.count)
         fs.mkdirs(path)
+        device = deflate_device_for(self._storage)
 
         def make_task(k):
             def encode():
@@ -260,7 +345,8 @@ class BamSinkMultiple:
                 return part_path
 
             return WriteShardTask(
-                shard_id=k, encode=encode, deflate=compress_to_bgzf,
+                shard_id=k, encode=encode,
+                deflate=lambda data: compress_to_bgzf(data, device=device),
                 stage=stage,
                 retrier=write_retrier_for_storage(self._storage),
                 what="bam.part")

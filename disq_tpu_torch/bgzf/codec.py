@@ -17,8 +17,13 @@ Two inflate routes share this module's block framing:
   blob is uploaded once more for the parse kernel.
 
 **Canonical deflate pin**: raw DEFLATE, zlib level 6, memLevel 8,
-default strategy — every BGZF byte this package writes uses exactly
-these parameters, so writes are byte-identical to the reference's.
+default strategy — every BGZF byte this package writes by default uses
+exactly these parameters, so writes are byte-identical to the
+reference's. ``DisqOptions.device_deflate`` (env
+``DISQ_TPU_TORCH_DEVICE_DEFLATE``) routes a storage's deflates to the
+literal-Huffman device coder instead (``ops/deflate.py``, kernel W2):
+valid BGZF that decompresses to the same bytes, byte-identical to the
+reference's device coder, but not the zlib-6 bytes.
 """
 
 from __future__ import annotations
@@ -210,14 +215,48 @@ def _crc_failures(data, blocks, base, blob, offsets, skip) -> list:
     return [i for i in idx if flags[i]]
 
 
-def deflate_blob(blob: bytes) -> Tuple[bytes, np.ndarray]:
-    """Deflate a payload into canonical BGZF blocks of ≤65280 payload
-    bytes (no terminator); returns (compressed bytes, per-block
-    compressed sizes) — the sizes make write-side virtual offsets plain
-    array arithmetic. Native-threaded when built, else zlib on the
-    shared pool (same bytes either way)."""
+def device_deflate_enabled(storage=None) -> bool:
+    """True when the device write path is armed for ``storage``:
+    ``DisqOptions.device_deflate`` or ``DISQ_TPU_TORCH_DEVICE_DEFLATE``."""
+    opts = getattr(storage, "_options", None)
+    if opts is not None and getattr(opts, "device_deflate", False):
+        return True
+    from disq_tpu_torch.runtime.debug import env_flag
+
+    return env_flag("DISQ_TPU_TORCH_DEVICE_DEFLATE")
+
+
+def deflate_device_for(storage):
+    """Where ``storage``'s BGZF deflates run: None (the canonical host
+    zlib) unless the device write path is armed, else the storage's
+    device (``cuda`` unless it asked for another; without CUDA this
+    raises)."""
+    if not device_deflate_enabled(storage):
+        return None
+    from disq_tpu_torch.util import resolve_device
+
+    return resolve_device(getattr(storage, "_device", None))
+
+
+def deflate_blob_for(storage, blob) -> Tuple[bytes, np.ndarray]:
+    """``deflate_blob`` routed by ``storage``'s knob."""
+    return deflate_blob(blob, device=deflate_device_for(storage))
+
+
+def deflate_blob(blob: bytes, device=None) -> Tuple[bytes, np.ndarray]:
+    """Deflate a payload into BGZF blocks of ≤65280 payload bytes (no
+    terminator); returns (compressed bytes, per-block compressed sizes)
+    — the sizes make write-side virtual offsets plain array arithmetic.
+
+    ``device`` None: the canonical zlib-6 blocks, native-threaded when
+    built, else zlib on the shared pool (same bytes either way). A
+    device: the literal-Huffman coder on it (``ops/deflate.py``)."""
     if len(blob) == 0:
         return b"", np.zeros(0, dtype=np.int64)
+    if device is not None:
+        from disq_tpu_torch.ops.deflate import deflate_blob_device
+
+        return deflate_blob_device(blob, device)
     pay_off = np.arange(0, len(blob) + BGZF_MAX_PAYLOAD, BGZF_MAX_PAYLOAD,
                         dtype=np.int64)
     pay_off[-1] = len(blob)
@@ -257,9 +296,11 @@ def deflate_block(payload) -> bytes:
     )
 
 
-def compress_to_bgzf(data: bytes, with_terminator: bool = True) -> bytes:
-    """Whole buffer → BGZF bytes (blocks of ≤65280 payload)."""
-    comp, _ = deflate_blob(data)
+def compress_to_bgzf(data: bytes, with_terminator: bool = True,
+                     device=None) -> bytes:
+    """Whole buffer → BGZF bytes (blocks of ≤65280 payload); ``device``
+    routes the deflate as in ``deflate_blob``."""
+    comp, _ = deflate_blob(data, device=device)
     return comp + BGZF_EOF_MARKER if with_terminator else comp
 
 

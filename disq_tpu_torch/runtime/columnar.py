@@ -19,6 +19,8 @@ device:
   the fixed columns on the device with one index upload and stay
   device-backed: a permuted batch keeps the host blob and the pending
   order (applied at the host parse), a filtered one compacts the blob.
+  ``encode_source()`` hands the blob, offsets and pending order to the
+  device write path.
 - **Pickling** (the read ledger's spills) stores host data only: a
   device-backed batch spills its record blob, offsets, reference count,
   pending order and device, and parses the blob again with the parse
@@ -301,6 +303,17 @@ class ColumnarBatch:
         out._blob, out._offsets = segment_gather(self._host_blob(),
                                                  self._offsets, src)
         return out
+
+    def encode_source(self):
+        """``(host record blob, record offsets, pending order or None)``,
+        what the device write path gathers the sorted records from
+        (``runtime/device_write.py``), or None when this batch holds no
+        record blob (a wrapper of a host ``ReadBatch``)."""
+        with self._lock:
+            if self._offsets is None or (
+                    self._blob is None and self._blob_parts is None):
+                return None
+        return self._host_blob(), self._offsets, self._order
 
     # -- pickling (the read ledger's spills) --------------------------------
 

@@ -73,6 +73,13 @@ class DisqOptions:
     directory: each decoded split is spilled there as it emits, and a
     read run again with the same ledger decodes only the unfinished
     splits (``runtime/manifest.py:ReadLedger``).
+
+    ``device_deflate`` arms the device write path (``ops/deflate.py``,
+    ``runtime/device_write.py``; env ``DISQ_TPU_TORCH_DEVICE_DEFLATE``):
+    every BGZF deflate of the storage's sinks runs kernel W2, and a
+    sorted device-backed batch gathers its records with kernel W1. Its
+    blocks are valid BGZF that decompresses to the same bytes, but not
+    the zlib-6 bytes, so it is off by default.
     """
 
     error_policy: ErrorPolicy = ErrorPolicy.STRICT
@@ -84,6 +91,7 @@ class DisqOptions:
     writer_workers: int = 1
     writer_prefetch_shards: Optional[int] = None
     read_ledger: Optional[str] = None
+    device_deflate: bool = False
 
     def with_policy(self, policy: "ErrorPolicy | str") -> "DisqOptions":
         return replace(self, error_policy=ErrorPolicy.coerce(policy))
@@ -104,6 +112,9 @@ class DisqOptions:
 
     def with_read_ledger(self, path: str) -> "DisqOptions":
         return replace(self, read_ledger=path)
+
+    def with_device_deflate(self, enable: bool = True) -> "DisqOptions":
+        return replace(self, device_deflate=bool(enable))
 
 
 class CorruptBlockError(ValueError):

@@ -4,7 +4,8 @@ SAM coordinate order: ascending refID (unmapped refID −1 LAST), then
 ascending pos; ties keep input order (stable). A device-backed batch
 sorts its device refid/pos columns with one stable ``torch.sort`` of
 the int64 key; a host batch uses numpy's stable argsort of the same
-key. Ragged columns are reordered on the host by one segment gather.
+key. Ragged columns are reordered on the host by one segment gather,
+unless the device write path keeps the sorted batch resident.
 """
 
 from __future__ import annotations
@@ -26,12 +27,27 @@ def coordinate_keys(refid: np.ndarray, pos: np.ndarray) -> np.ndarray:
     )
 
 
-def coordinate_sort_batch(batch) -> ReadBatch:
+def coordinate_sort_batch(batch, keep_resident: bool = False):
     """Sort a batch (``ReadBatch`` or ``ColumnarBatch``) into coordinate
-    order, single device."""
+    order, single device.
+
+    ``keep_resident`` (the device write path) returns
+    ``batch.permuted(order)`` for a batch with an encode source instead
+    of materializing host records: the fixed columns are permuted on the
+    device and the record bytes stay where the device write gathers
+    them from (``runtime/device_write.py``)."""
     from disq_tpu_torch.runtime.columnar import ColumnarBatch
 
+    resident_src = None
     if isinstance(batch, ColumnarBatch):
-        return batch.take(batch.sort_permutation())
+        if batch.device_backed and batch.count > 0:
+            order = batch.sort_permutation()
+            if keep_resident and batch.encode_source() is not None:
+                return batch.permuted(order)
+            return batch.take(order)
+        resident_src = batch if keep_resident else None
+        batch = batch.to_read_batch()
     order = np.argsort(coordinate_keys(batch.refid, batch.pos), kind="stable")
+    if resident_src is not None and resident_src.encode_source() is not None:
+        return resident_src.permuted(order)
     return batch.take(order)
