@@ -36,6 +36,12 @@ through their public entry points on ``cuda``:
                                    sort=True)                      # W1, W2
     storage.num_shards(8).writer_workers(4).device_deflate().write(
         ds, out, BaiWriteOption.ENABLE, SbiWriteOption.ENABLE, sort=True)
+    # DISQ_TPU_TORCH_DEVICE_SERVICE=1: B1, B3 and W2 fed by the service
+    storage.executor_workers(1 | 4).read(path)
+    storage.executor_workers(4).read(head_cram)    # service flush 5 s
+    storage.num_shards(8).writer_workers(4).device_deflate().write(
+        sorted_host, out, BaiWriteOption.ENABLE, SbiWriteOption.ENABLE)
+    tracing.start_trace(dir); storage.read(path); tracing.stop_trace()
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -85,7 +91,26 @@ on every stream of the file), and times them: through the wrapper with
 CUDA events, and on the device alone as a CUDA graph of their launches
 replayed between events (``graph_ms``), B1, B3, B4 and B5 also on one
 payload or stream alone, beside their launch geometry. The default writes
-do no device deflate work. Any failed phase exits non-zero.
+do no device deflate work. Through the device service: the BAM read at
+1 and 4 executor workers equal to the default read, every submitted lane
+decoded on the card (``device_lanes == submitted``, no lane decoded
+again on the host), one B1 launch per flush; the CRAM read (4 workers)
+of the 3-split head equal to the generator, its splits' order-0 streams
+sharing B3 launches (fewer launches than splits, under a 5 s flush
+window) and none decoded on the host; the device write of the sorted
+host batch through the service's deflate engine inflating to the zlib-6
+write's stream, no lane but an expanded one on host zlib, and
+re-reading to the generator; and, on the chunk of each engine that
+coalesced the most owners, what the dispatcher itself fetched for that
+launch: B1's blob against zlib on every lane and its plain version on a
+sample, B3's against the native decoder on every stream and its plain
+version on a sample, W2's against its plain version on every lane. The ``spans`` line sums the span ring per stage for the default
+BAM read, the zlib-6 sort+write and the CRAM read; the ``hbm`` line sets
+the ``device.hbm_bytes`` gauge's peak over the read beside
+``torch.cuda.max_memory_allocated``; the ``trace`` line counts B1 and B2
+kernel events in a ``torch.profiler`` trace of one BAM read against
+their launches and, when they agree, gives the device's busy share of
+the read. Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -606,19 +631,38 @@ def plain_on_payloads(kind: str, payloads, usizes, jobs_per_proc: int = 4):
     ``jobs_per_proc`` chunks each; the pool starts and imports before the
     clock does. Returns (the outputs, each joined in payload order; wall
     ms; processes)."""
+    return plain_async(kind, payloads, usizes, jobs_per_proc)()
+
+
+def plain_async(kind: str, payloads, usizes, jobs_per_proc: int = 4):
+    """``plain_on_payloads`` started in the background: returns the call
+    that waits for it and returns its result (the wall ms end when the
+    last chunk is done, not when the caller waits)."""
     import multiprocessing
 
     procs = max(1, min(8, os.cpu_count() or 1))
     step = -(-len(payloads) // (jobs_per_proc * procs))
     jobs = [(kind, payloads[i: i + step], list(usizes[i: i + step]))
             for i in range(0, len(payloads), step)]
-    with multiprocessing.get_context("spawn").Pool(
-            procs, initializer=_import_plain) as pool:
-        pool.map(time.sleep, [0.5] * procs, chunksize=1)
-        t0 = time.perf_counter()
-        parts = pool.map(_plain_chunk, jobs, chunksize=1)
-        ms = (time.perf_counter() - t0) * 1e3
-    return [np.concatenate(col) for col in zip(*parts)], ms, procs
+    pool = multiprocessing.get_context("spawn").Pool(
+        procs, initializer=_import_plain)
+    pool.map(time.sleep, [0.5] * procs, chunksize=1)
+    done = {}
+    t0 = time.perf_counter()
+    res = pool.map_async(_plain_chunk, jobs, chunksize=1,
+                         callback=lambda _: done.setdefault(
+                             "t", time.perf_counter()))
+
+    def wait():
+        try:
+            parts = res.get()
+        finally:
+            pool.close()
+            pool.join()
+        ms = (done.get("t", time.perf_counter()) - t0) * 1e3
+        return [np.concatenate(col) for col in zip(*parts)], ms, procs
+
+    return wait
 
 
 def rans_errors(k, p, n_truncated: int):
@@ -656,7 +700,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     from disq_tpu_torch.ops import cuda_build
     from disq_tpu_torch.ops import rans as B5
     from disq_tpu_torch.ops import rans_simd as B3
-    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime import counters, tracing
 
     n = args.records
     cram = os.path.join(work, "sorted.cram")
@@ -677,10 +721,12 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     # -- the CRAM read on cuda (B3) -----------------------------------------
     counters.reset()
     B3.last_stats.update(device_lanes=0, host_big=0, host_fallback=0)
+    tracing.reset_spans()
     t0 = time.perf_counter()
     cr = storage.read(cram)
     torch.cuda.synchronize()
     cram_read_s = time.perf_counter() - t0
+    cram_spans = span_sums(tracing)
     count, fstat = cr.count(), cr.flagstat()
     main = counters.snapshot()
     stats = dict(B3.last_stats)
@@ -887,7 +933,8 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
            "cram_read_records_per_s": round(n / cram_read_s, 1),
            "cram_legacy_read_s": round(legacy_read_s, 4), **policy_e2e,
            "cram_containers": len(offsets), "cram_file_bytes": file_bytes,
-           "cram_splits": -(-file_bytes // args.split_size)}
+           "cram_splits": -(-file_bytes // args.split_size),
+           "spans": cram_spans}
     return kernels, e2e, head
 
 
@@ -1891,6 +1938,67 @@ def bai_mapped(raw: bytes, cstart, ustart) -> np.ndarray:
     return np.concatenate(out)
 
 
+def w2_against_plain(torch, dev, payload, off, ln, tab):
+    """W2 and its plain version on the same lanes under ``tab``: (kernel
+    rows, end bits, plain rows, end bits, mismatches, max abs error,
+    plain ms), rows compared up to each lane's occupied end."""
+    from disq_tpu_torch.ops import deflate as DF
+
+    lt = tab.luts(dev)
+    kb, ke = DF.encode(payload, off, ln, *lt, tab.header_bits, tab.out_bytes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pb, pe = DF.encode_plain(payload, off, ln, *lt, tab.header_bits,
+                             tab.out_bytes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    occ = torch.from_numpy(DF.occupied_bytes(
+        pe.cpu().numpy(), tab.out_bytes)).to(dev)
+    cols = torch.arange(tab.out_bytes, device=dev)
+    mism = int((ke != pe).sum())
+    err = int((ke.long() - pe.long()).abs().max()) if ke.numel() else 0
+    for lo in range(0, kb.shape[0], 512):
+        hi = min(lo + 512, kb.shape[0])
+        m = cols[None, :] < occ[lo:hi, None]
+        mism += int(((kb[lo:hi] != pb[lo:hi]) & m).sum())
+        d = (kb[lo:hi].int() - pb[lo:hi].int()).abs()
+        err = max(err, int(torch.where(m, d, 0).max()))
+    return kb, ke, pb, pe, mism, err, plain_ms
+
+
+def w2_fetched_against_plain(torch, dev, payload, off, ln, tab, body_h,
+                             end_h):
+    """What a caller fetched for one W2 launch (``DF.fetch``: the rows'
+    occupied prefix ``body_h`` and the end bits ``end_h``) against the
+    plain version on the same lanes under the same table: (mismatches,
+    max abs error, plain ms), rows compared up to each lane's occupied
+    end."""
+    from disq_tpu_torch.ops import deflate as DF
+
+    lt = tab.luts(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pb, pe = DF.encode_plain(payload, off, ln, *lt, tab.header_bits,
+                             tab.out_bytes)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    pe = pe.cpu().numpy()
+    mism = int((end_h != pe).sum())
+    err = int(np.abs(end_h.astype(np.int64) - pe.astype(np.int64)).max(
+        initial=0))
+    need = body_h.shape[1]
+    occ = np.minimum(DF.occupied_bytes(pe, tab.out_bytes), need)
+    cols = np.arange(need)
+    for lo in range(0, len(pe), 512):
+        hi = min(lo + 512, len(pe))
+        p = pb[lo:hi, :need].cpu().numpy()
+        m = cols[None, :] < occ[lo:hi, None]
+        mism += int(((body_h[lo:hi] != p) & m).sum())
+        d = np.abs(body_h[lo:hi].astype(np.int16) - p.astype(np.int16))
+        err = max(err, int(np.where(m, d, 0).max(initial=0)))
+    return mism, err, plain_ms
+
+
 def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     """The device write path (``.device_deflate()``) on the resident
     dataset: (a) the main path's sorted write (1 shard, BAI), (b) the
@@ -2082,31 +2190,8 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     w2 = lambda: DF.encode(k_pay, pay_off, pay_len, *luts,  # noqa: E731
                            table.header_bits, table.out_bytes)
 
-    def w2_against_plain(payload, off, ln, tab):
-        lt = tab.luts(dev)
-        kb, ke = DF.encode(payload, off, ln, *lt, tab.header_bits,
-                           tab.out_bytes)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pb, pe = DF.encode_plain(payload, off, ln, *lt, tab.header_bits,
-                                 tab.out_bytes)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        occ = torch.from_numpy(DF.occupied_bytes(
-            pe.cpu().numpy(), tab.out_bytes)).to(dev)
-        cols = torch.arange(tab.out_bytes, device=dev)
-        mism = int((ke != pe).sum())
-        err = int((ke.long() - pe.long()).abs().max()) if ke.numel() else 0
-        for lo in range(0, kb.shape[0], 512):
-            hi = min(lo + 512, kb.shape[0])
-            m = cols[None, :] < occ[lo:hi, None]
-            mism += int(((kb[lo:hi] != pb[lo:hi]) & m).sum())
-            d = (kb[lo:hi].int() - pb[lo:hi].int()).abs()
-            err = max(err, int(torch.where(m, d, 0).max()))
-        return kb, ke, pb, pe, mism, err, plain_ms
-
     kb, ke, pb, pe, w2_mism, w2_err, w2_plain_ms = w2_against_plain(
-        k_pay, pay_off, pay_len, table)
+        torch, dev, k_pay, pay_off, pay_len, table)
     check(w2_mism == 0, f"deflate != plain version on the shard ({w2_mism})")
     check(np.array_equal(ke.cpu().numpy(), end_h),
           "deflate end bits differ from the write's")
@@ -2148,7 +2233,7 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     e_len = torch.tensor([len(p) for p in edge], dtype=torch.int32,
                          device=dev)
     ekb, eke, epb, epe, e_mism, e_err, _ = w2_against_plain(
-        e_pay, e_off, e_len, e_tab)
+        torch, dev, e_pay, e_off, e_len, e_tab)
     check(e_mism == 0, f"deflate != plain version on the edge lanes "
           f"({e_mism})")
     ep_body, ep_end = DF.fetch(epb, epe, e_tab)
@@ -2234,6 +2319,464 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     return kernels, e2e
 
 
+# -- device tracing and the device service -----------------------------------
+
+SERVICE_KNOB = "DISQ_TPU_TORCH_DEVICE_SERVICE"
+FLUSH_KNOB = "DISQ_TPU_TORCH_SERVICE_FLUSH_MS"
+# the service CRAM leg's flush window: the head's splits submit their
+# streams within a second of each other, so they share a launch
+SERVICE_CRAM_FLUSH_MS = 5000
+PLAIN_SAMPLE_LANES = 64          # B1 lanes of a coalesced chunk held
+PLAIN_SAMPLE_STREAMS = 8         # against the plain version (B3 streams)
+
+
+def span_sums(tracing) -> dict:
+    """Seconds and calls per span name in the span ring, summed over
+    threads; ``device.kernel`` split by its kernel label."""
+    out = {}
+    for s in tracing.spans():
+        name = s["name"]
+        if name == "device.kernel":
+            name += f"[{s['labels'].get('kernel')}]"
+        t, c = out.get(name, (0.0, 0))
+        out[name] = (t + s["dur"], c + 1)
+    return {k: {"s": round(t, 4), "n": c} for k, (t, c) in sorted(out.items())}
+
+
+class ChunkCapture:
+    """Around the service's engines: keeps, per codec, the launched chunk
+    with the most owners (then the most lanes) as (payload, expected
+    size, owner) per lane, with what the dispatcher's own fetch of that
+    launch returned; counts the inflate lanes submitted."""
+
+    FETCH = {"inflate": ("inflate_simd", "fetch_payloads"),
+             "rans": ("rans_simd", "fetch_streams"),
+             "deflate": ("deflate", "fetch")}
+
+    def __init__(self, DS) -> None:
+        self.DS = DS
+        self.best = {}      # kind -> (key, lanes, launch handle)
+        self.fetched = {}   # kind -> the dispatcher's fetch of that launch
+        self.submitted = 0
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+
+        DS = self.DS
+        for cls in (DS._InflateEngine, DS._RansEngine, DS._DeflateEngine):
+            self._saved.append((cls, "launch", cls.launch))
+
+            def launch(engine, lanes, _orig=cls.launch, _kind=cls.kind):
+                handle = _orig(engine, lanes)
+                key = (len({id(l.sub) for l in lanes}), len(lanes))
+                if key > self.best.get(_kind, ((0, 0), None, None))[0]:
+                    self.best[_kind] = (key, [(l.payload, l.expect,
+                                               id(l.sub)) for l in lanes],
+                                        handle)
+                    self.fetched.pop(_kind, None)
+                return handle
+
+            cls.launch = launch
+        for kind, (mod, name) in self.FETCH.items():
+            m = importlib.import_module(f"disq_tpu_torch.ops.{mod}")
+            self._saved.append((m, name, getattr(m, name)))
+
+            def fetch(handle, *rest, _orig=getattr(m, name), _kind=kind):
+                out = _orig(handle, *rest)
+                best = self.best.get(_kind)
+                # the deflate engine's handle is (bodies, end, table)
+                if best is not None and handle is (
+                        best[2][0] if _kind == "deflate" else best[2]):
+                    self.fetched[_kind] = out
+                return out
+
+            setattr(m, name, fetch)
+        svc = DS.DeviceDecodeService
+        self._saved.append((svc, "submit_inflate", svc.submit_inflate))
+
+        def submit_inflate(service, payloads, usizes,
+                           _orig=svc.submit_inflate):
+            self.submitted += len(payloads)
+            return _orig(service, payloads, usizes)
+
+        svc.submit_inflate = submit_inflate
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+    def chunk(self, kind: str):
+        """(owners, lanes) of the kept chunk, its lanes, its launch handle
+        and the dispatcher's fetch of it."""
+        key, lanes, handle = self.best[kind]
+        check(kind in self.fetched,
+              f"service chunk: the dispatcher's {kind} fetch was not seen")
+        return key, lanes, handle, self.fetched[kind]
+
+
+def _flushes(tracing) -> dict:
+    return dict(tracing.REGISTRY.counter("device.batch.flush")._snapshot())
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def _spread(owners, k: int) -> list:
+    """Up to ``k`` lane indices spread over a chunk, every owner's first
+    lane among them."""
+    pick = set({o: j for j, o in reversed(list(enumerate(owners)))}.values())
+    for j in np.linspace(0, len(owners) - 1, max(1, k)).astype(int):
+        if len(pick) >= k:
+            break
+        pick.add(int(j))
+    return sorted(pick)
+
+
+def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
+                 head):
+    """The device service (``DISQ_TPU_TORCH_DEVICE_SERVICE=1``): the BAM
+    read at 1 and 4 executor workers against the default read, every lane
+    decoded on the card; the CRAM read with 4 workers of the 3-split
+    ``head`` (``cram_policy_legs``) against the generator, its splits
+    sharing B3 launches under a ``SERVICE_CRAM_FLUSH_MS`` flush window;
+    the device write (8 shards, 4 writer workers, BAI + SBI) of the
+    sorted host batch through the service's deflate engine against the
+    zlib-6 write's stream and the generator. Then, on the most-coalesced
+    chunk each engine launched, what the dispatcher fetched for it:
+    B1 and B3 against zlib / the native decoder on every lane and all
+    three against their plain versions. Returns (per-kernel service
+    entries, e2e fields)."""
+    from disq_tpu_torch.api import ReadsDataset
+    from disq_tpu_torch.native import rans_decode_native
+    from disq_tpu_torch.ops import deflate as DF
+    from disq_tpu_torch.ops import inflate_simd as B1
+    from disq_tpu_torch.ops import rans_simd as B3
+    from disq_tpu_torch.runtime import counters, tracing
+    from disq_tpu_torch.runtime import device_service as DS
+
+    split = args.split_size
+    e2e, books = {}, {}
+    os.environ[SERVICE_KNOB] = "1"
+    os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
+    try:
+        with ChunkCapture(DS) as cap:
+            # -- the BAM read ---------------------------------------------
+            for workers in (1, 4):
+                counters.reset()
+                tracing.reset_gauges()
+                f0, s0, sub0 = _flushes(tracing), dict(B1.last_stats), \
+                    cap.submitted
+                t0 = time.perf_counter()
+                got = (port.ReadsStorage.make_default().split_size(split)
+                       .executor_workers(workers).read(src))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                snap = counters.snapshot()
+                lanes = {k: B1.last_stats[k] - s0[k] for k in s0}
+                submitted = cap.submitted - sub0
+                flush = _delta(f0, _flushes(tracing))
+                fill = tracing.REGISTRY.gauge("device.lane_fill").state()
+                check(DS.service_if_running() is not None,
+                      "the service read started no service")
+                check(lanes["device_lanes"] == submitted >= info["blocks"]
+                      and lanes["host_fallback"] == lanes["host_big"] == 0
+                      and not snap["host_fallback_blocks"],
+                      f"service read ({workers}): lanes {lanes}, "
+                      f"submitted {submitted}, host fallback "
+                      f"{snap['host_fallback_blocks']}")
+                b1 = snap["launches"].get("inflate", 0)
+                check(b1 == sum(flush.values()) > 0,
+                      f"service read ({workers}): B1 launches {b1}, "
+                      f"flushes {flush}")
+                same_reads(torch, got, ds, f"service read ({workers})")
+                del got
+                books[f"read_w{workers}"] = {
+                    "inflate_launches": b1, "flush": flush,
+                    "lanes": lanes, "submitted": submitted,
+                    "lane_fill": fill}
+                e2e[f"service_read_w{workers}_s"] = round(secs, 4)
+                log(f"service read ({workers} workers): {secs:.4f}s, equal "
+                    f"to the default read; B1 launches {b1}, flushes "
+                    f"{json.dumps(flush)}, lanes {json.dumps(lanes)} of "
+                    f"{submitted} submitted, lane_fill "
+                    f"{json.dumps(fill)}")
+
+            # -- the CRAM read ----------------------------------------------
+            # a service whose flush window lets the splits meet
+            DS.shutdown_service()
+            os.environ[FLUSH_KNOB] = str(SERVICE_CRAM_FLUSH_MS)
+            sorted_rb = ds.coordinate_sorted().reads
+            m = head["records"]
+            n_splits = len({off // split for off in head["offsets"]})
+            counters.reset()
+            tracing.reset_gauges()
+            f0, r0 = _flushes(tracing), dict(B3.last_stats)
+            t0 = time.perf_counter()
+            cr = (port.ReadsStorage.make_default().split_size(split)
+                  .executor_workers(4).read(head["path"]))
+            secs = time.perf_counter() - t0
+            snap = counters.snapshot()
+            b3 = snap["launches"].get("rans_simd", 0)
+            streams = {k: B3.last_stats[k] - r0[k] for k in r0}
+            flush = _delta(f0, _flushes(tracing))
+            fill = tracing.REGISTRY.gauge("device.lane_fill").state()
+            DS.shutdown_service()
+            os.environ.pop(FLUSH_KNOB)
+            head_equal(cr.reads, sorted_rb, m, "service cram read")
+            check(cr.counters.shards == head["counters"]["shards"],
+                  f"service cram read: {cr.counters.shards} splits")
+            check(0 < b3 < n_splits,
+                  f"service cram read: B3 launches {b3} for {n_splits} "
+                  f"splits with streams (flushes {flush})")
+            check(streams["device_lanes"] > 0
+                  and streams["host_fallback"] == streams["host_big"] == 0
+                  and not snap["host_fallback_blocks"]
+                  and not snap["host_rans_streams"],
+                  f"service cram read: streams {streams}, host fallback "
+                  f"{snap['host_fallback_blocks']}, host rANS "
+                  f"{snap['host_rans_streams']}")
+            del cr
+            # B3's plain version on a sample of the most-coalesced chunk
+            # (~40 s for 1.5 MB streams) runs beside the legs below
+            _, r_lanes, _, _ = cap.chunk("rans")
+            r_pick = _spread([o for _, _, o in r_lanes],
+                             PLAIN_SAMPLE_STREAMS)
+            r_sample = [r_lanes[j][0][0] for j in r_pick]
+            b3_plain = plain_async("rans_simd", r_sample,
+                                   [0] * len(r_sample), 1)
+            books["cram"] = {"rans_launches": b3, "splits": n_splits,
+                             "streams": streams, "flush": flush,
+                             "lane_fill": fill}
+            e2e["service_cram_read_w4_s"] = round(secs, 4)
+            log(f"service cram read (the {m}-record head, {n_splits} "
+                f"splits with streams, 4 workers, flush window "
+                f"{SERVICE_CRAM_FLUSH_MS} ms): {secs:.4f}s, equal to the "
+                f"generator; B3 launches {b3}, streams {json.dumps(streams)}, "
+                f"flushes {json.dumps(flush)}, lane_fill {json.dumps(fill)}")
+
+            # -- the device write ---------------------------------------------
+            out = os.path.join(work, "device_service.bam")
+            sorted_ds = ReadsDataset(
+                header=ds.header.with_sort_order("coordinate"),
+                reads=sorted_rb)
+            counters.reset()
+            tracing.reset_gauges()
+            f0 = _flushes(tracing)
+            t0 = time.perf_counter()
+            (port.ReadsStorage.make_default().split_size(split)
+             .num_shards(WRITE_SHARDS).writer_workers(4).device_deflate()
+             .write(sorted_ds, out, port.BaiWriteOption.ENABLE,
+                    port.SbiWriteOption.ENABLE))
+            write_s = time.perf_counter() - t0
+            del sorted_ds
+            snap = counters.snapshot()
+            w2 = snap["launches"].get("deflate", 0)
+            flush = _delta(f0, _flushes(tracing))
+            fill = tracing.REGISTRY.gauge("device.lane_fill").state()
+            host = {k: v for k, v in snap["host_fallback_blocks"].items()
+                    if k != "expanded"}
+            check(w2 == sum(flush.values()) > 0
+                  and "record_gather" not in snap["launches"] and not host,
+                  f"service write: launches {snap['launches']}, flushes "
+                  f"{flush}, host fallback {snap['host_fallback_blocks']}")
+            with open(out, "rb") as f:
+                got = f.read()
+            with open(os.path.join(work, "sorted_sbi.bam"), "rb") as f:
+                want = f.read()
+            # every block inflates with zlib (CRC and ISIZE checked)
+            check(bgzf_layout(got)[0] == bgzf_layout(want)[0],
+                  "service write: the uncompressed stream differs from the "
+                  "zlib-6 write's")
+            sizes = (len(got), len(want))
+            del got, want
+            back = port.ReadsStorage.make_default().split_size(split).read(out)
+            for col in FIXED:
+                check(np.array_equal(getattr(back.reads, col),
+                                     g[col][perm_want]),
+                      f"service write re-read: column {col}")
+            del back
+            books["write"] = {"deflate_launches": w2, "flush": flush,
+                              "lane_fill": fill,
+                              "expanded": snap["host_fallback_blocks"].get(
+                                  "expanded", 0)}
+            e2e["service_device_write_w4_s"] = round(write_s, 4)
+            e2e["service_device_write_bytes"] = sizes[0]
+            log(f"service device write (8 shards, 4 writer workers, BAI + "
+                f"SBI): {write_s:.4f}s, {sizes[0]} bytes (zlib-6 "
+                f"{sizes[1]}), inflates to the zlib-6 write's stream, "
+                f"re-read equal to the generator; W2 launches {w2}, flushes "
+                f"{json.dumps(flush)}, lane_fill {json.dumps(fill)}")
+    finally:
+        os.environ.pop(SERVICE_KNOB, None)
+        os.environ.pop(FLUSH_KNOB, None)
+        DS.shutdown_service()
+    check(DS.service_if_running() is None, "the service outlived its legs")
+
+    # -- B1 on the most-coalesced inflate chunk -------------------------------
+    (owners, n_lanes), lanes, _, (blob, ln, st, oo) = cap.chunk("inflate")
+    pls = [bytes(p) for p, _, _ in lanes]
+    exp = [e for _, e, _ in lanes]
+    check(not st.any() and np.array_equal(ln, exp),
+          "service chunk: the dispatcher's B1 flagged a lane")
+    for j, p in enumerate(pls):
+        check(blob[oo[j]: oo[j + 1]].tobytes() == zlib.decompress(p, -15),
+              f"service chunk: B1 lane {j} differs from zlib")
+    pick = _spread([o for _, _, o in lanes], PLAIN_SAMPLE_LANES)
+    (p_blob, p_len, p_st), b1_plain_ms, _procs = plain_on_payloads(
+        "inflate", [pls[j] for j in pick], [exp[j] for j in pick])
+    k_blob = np.concatenate([blob[oo[j]: oo[j + 1]] for j in pick])
+    b1_mism = int((k_blob != p_blob).sum() + (ln[pick] != p_len).sum()
+                  + (st[pick] != p_st).sum())
+    check(b1_mism == 0, f"service chunk: B1 != plain version ({b1_mism})")
+    staged = B1.Staged("inflate", [pls, np.concatenate(
+        [[0], np.cumsum([len(p) for p in pls])[:-1]]).astype(np.int64),
+        np.array([len(p) for p in pls], np.int64), oo], dev)
+    total = int(oo[-1])
+    b1_ms = cuda_ms(torch, lambda: B1.inflate(*staged.tensors, total), 1, 5)
+    torch.cuda.synchronize()
+    staged.release()
+    b1_bytes = sum(len(p) for p in pls) + total + 8 * (3 * n_lanes + 1)
+    entries = {"inflate": {
+        "launches": books["read_w4"]["inflate_launches"],
+        "launches_w1": books["read_w1"]["inflate_launches"],
+        "flush_w4": books["read_w4"]["flush"],
+        "lane_fill_w4": books["read_w4"]["lane_fill"],
+        "chunk": {"lanes": n_lanes, "owners": owners, "bytes_out": total},
+        "ms": round(b1_ms, 4),
+        "bound_ms": round(b1_bytes / HBM_BYTES_PER_S * 1e3, 6),
+        "lanes_against_zlib": n_lanes, "plain_sample_lanes": len(pick),
+        "plain_ms_on_sample": round(b1_plain_ms, 4), "mismatches": b1_mism}}
+    del blob, pls, lanes
+
+    # -- B3 on the most-coalesced rANS chunk ---------------------------------
+    streams = [p[0] for p, _, _ in r_lanes]
+    out, used, st, ren_off, out_off = cap.chunk("rans")[3]
+    check(not st.any(), "service chunk: the dispatcher's B3 flagged a stream")
+    for j, s in enumerate(streams):
+        check(out[out_off[j]: out_off[j + 1]].tobytes()
+              == rans_decode_native(s),
+              f"service chunk: B3 stream {j} differs from the native codec")
+    k = [np.concatenate([out[out_off[j]: out_off[j + 1]] for j in r_pick]),
+         used[r_pick], st[r_pick]]
+    p, b3_plain_ms, _procs = b3_plain()
+    b3_err, b3_mism = rans_errors(k, p, 0)
+    check(b3_mism == 0, f"service chunk: B3 != plain version ({b3_mism})")
+    _live, c_args, _ = B3.stage_streams(streams, dev)
+    c_total = int(out_off[-1])
+    b3_ms = cuda_ms(torch, lambda: B3.rans0_decode(*c_args, c_total), 1, 3)
+    b3_bound, b3_by = rans_bound(ren_off, out_off)
+    entries["rans_simd"] = {
+        "launches": books["cram"]["rans_launches"],
+        "flush": books["cram"]["flush"],
+        "lane_fill": books["cram"]["lane_fill"],
+        "chunk": {"streams": len(streams), "owners": len(
+            {o for _, _, o in r_lanes}), "bytes_out": c_total},
+        "ms": round(b3_ms, 4),
+        "bound_ms": round(b3_bound, 6), "bound_by": b3_by,
+        "splits": books["cram"]["splits"],
+        "streams_against_native": len(streams),
+        "plain_sample_streams": len(r_sample),
+        "plain_ms_on_sample": round(b3_plain_ms, 4), "mismatches": b3_mism,
+        "max_abs_err": b3_err}
+    del out, streams, r_lanes, c_args
+
+    # -- W2 on the most-coalesced deflate chunk ------------------------------
+    (owners, n_lanes), lanes, handle, (body_h, end_h) = cap.chunk("deflate")
+    table = handle[2]
+    pls = [bytes(p) for p, _, _ in lanes]
+    lens = np.array([len(p) for p in pls], np.int32)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    payload = torch.frombuffer(bytearray(b"".join(pls)),
+                               dtype=torch.uint8).to(dev)
+    d_off = torch.from_numpy(offs).to(dev)
+    d_len = torch.from_numpy(lens).to(dev)
+    check(np.array_equal(table.lit_lens, DF.DeflateTable(
+        DF.histogram(payload), n_lanes).lit_lens),
+          "service chunk: W2's table is not the chunk's histogram's")
+    w2_mism, w2_err, w2_plain_ms = w2_fetched_against_plain(
+        torch, dev, payload, d_off, d_len, table, body_h, end_h)
+    check(w2_mism == 0, f"service chunk: W2 != plain version ({w2_mism})")
+    body_bytes = int(((end_h.astype(np.int64) + 7) // 8).sum())
+    del body_h, handle
+    luts = table.luts(dev)
+    w2_ms = cuda_ms(torch, lambda: DF.encode(
+        payload, d_off, d_len, *luts, table.header_bits, table.out_bytes),
+        1, 5)
+    w2_bytes = int(lens.sum()) + body_bytes + 12 * n_lanes + 2048
+    entries["deflate"] = {
+        "launches": books["write"]["deflate_launches"],
+        "flush": books["write"]["flush"],
+        "lane_fill": books["write"]["lane_fill"],
+        "expanded_lanes": books["write"]["expanded"],
+        "chunk": {"payloads": n_lanes, "owners": owners,
+                  "bytes_in": int(lens.sum()), "body_bytes": body_bytes},
+        "ms": round(w2_ms, 4), "plain_ms": round(w2_plain_ms, 4),
+        "bound_ms": round(w2_bytes / HBM_BYTES_PER_S * 1e3, 6),
+        "mismatches": w2_mism, "max_abs_err": w2_err}
+    del payload, lanes, pls
+    log(f"service kernels on coalesced chunks: {json.dumps(entries)}")
+    return entries, e2e
+
+
+def trace_leg(torch, port, args, src, work) -> dict:
+    """One BAM read under ``tracing.start_trace``: B1 and B2 kernel events
+    in the exported Chrome trace against their launch counts, and, when
+    they agree, the device's busy share (union of kernel and copy
+    intervals) of the read's ``bam.read.splits`` window."""
+    from disq_tpu_torch.runtime import counters, tracing
+
+    counters.reset()
+    tdir = os.path.join(work, "trace")
+    tracing.start_trace(tdir)
+    t0 = time.perf_counter()
+    got = port.ReadsStorage.make_default().split_size(args.split_size) \
+        .read(src)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    path = tracing.stop_trace()
+    check(got.count() == args.records, "traced read count")
+    del got
+    launches = counters.snapshot()["launches"]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    seen = {"inflate": sum("inflate_kernel" in e["name"]
+                           and "legacy" not in e["name"] for e in kern),
+            "parse": sum("parse_kernel" in e["name"] for e in kern)}
+    booked = {k: launches.get(k, 0) for k in seen}
+    res = {"read_s": round(read_s, 4), "trace_kernels": seen,
+           "launches": booked, "trace_bytes": os.path.getsize(path)}
+    if seen != booked:
+        res["mismatch"] = True
+        log(f"trace: kernel events {seen} != launches {booked}; no busy "
+            f"share ({json.dumps(res)})")
+        return res
+    win = [e for e in events if e.get("name") == "disq_tpu.bam.read.splits"
+           and e.get("ph") == "X"]
+    lo, hi = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    spans = sorted((max(lo, e["ts"]), min(hi, e["ts"] + e["dur"]))
+                   for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e.get("ph") == "X")
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b <= a:
+            continue
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    res["window_ms"] = round((hi - lo) / 1e3, 4)
+    res["busy_ms"] = round(busy / 1e3, 4)
+    res["busy_share"] = round(busy / (hi - lo), 6)
+    log(f"trace: {json.dumps(res)}")
+    return res
+
+
 def run(args) -> dict:
     import torch
 
@@ -2247,7 +2790,7 @@ def run(args) -> dict:
     from disq_tpu_torch.ops import cuda_build, inflate_cases
     from disq_tpu_torch.ops import inflate_simd as B1
     from disq_tpu_torch.ops import parse as B2
-    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.runtime import counters, tracing
 
     from disq_tpu_torch.native import _load as load_host_library
 
@@ -2277,18 +2820,27 @@ def run(args) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
 
     # -- the main path ------------------------------------------------------
+    tracing.reset_telemetry()
     counters.reset()
     B1.last_stats.update(device_lanes=0, host_big=0, host_fallback=0)
     storage = port.ReadsStorage.make_default().split_size(args.split_size)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ds = storage.read(src)
     torch.cuda.synchronize()
     read_s = time.perf_counter() - t0
+    hbm = {"hbm_bytes_peak": (tracing.REGISTRY.gauge(
+               "device.hbm_bytes").state() or {}).get("max", 0),
+           "hbm_bytes_after_read": tracing.hbm_live_bytes(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    spans = {"bam_read": span_sums(tracing)}
     count = ds.count()
     fstat = ds.flagstat()
+    tracing.reset_spans()
     t1 = time.perf_counter()
     storage.write(ds, dst, port.BaiWriteOption.ENABLE, sort=True)
     write_s = time.perf_counter() - t1
+    spans["sort_write"] = span_sums(tracing)
     main = counters.snapshot()
     stats = dict(B1.last_stats)
     n_splits = -(-info["file_bytes"] // args.split_size)
@@ -2544,7 +3096,7 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     resume_e2e, resumed = read_resume_legs(torch, port, args, g, info, ds,
                                            src, work, head)
-    del head
+    head = {k: head[k] for k in ("path", "offsets", "records", "counters")}
     log(f"phase read resume: {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     ops_e2e = device_op_legs(torch, g, perm_want, ds)
@@ -2554,7 +3106,19 @@ def run(args) -> dict:
                                               ds, work, dev)
     kernels += write_kernels
     log(f"phase device write: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    service, svc_e2e = service_legs(torch, port, args, g, perm_want, info,
+                                    ds, src, work, dev, head)
+    log(f"phase device service: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    traced = trace_leg(torch, port, args, src, work)
+    log(f"phase trace: {time.perf_counter() - t0:.3f}s")
+    spans["cram_read"] = cram_e2e.pop("spans")
+    log(f"spans: {json.dumps(spans)}")
+    log(f"hbm: {json.dumps(hbm)}")
     by_name = {k["name"]: k for k in kernels}
+    for name, entry in service.items():
+        by_name[name]["service"] = entry
     by_name["inflate"]["launches_on_resumed_read"] = resumed["inflate"]
     by_name["parse"]["launches_on_resumed_read"] = resumed["parse"]
     by_name["parse"]["spill_rebuilds_on_resumed_read"] = \
@@ -2568,7 +3132,8 @@ def run(args) -> dict:
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
-           **resume_e2e, **ops_e2e, **dw_e2e,
+           **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e,
+           "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
     shutil.rmtree(work, ignore_errors=True)

@@ -29,6 +29,10 @@ Usage::
     storage.device_deflate().write(ds, "sorted.bam", BaiWriteOption.ENABLE,
                                    sort=True)
 
+    # telemetry: per-shard spans to a JSONL file, and the registry
+    ds = storage.span_log("spans.jsonl").read("sample.bam")
+    ds.telemetry_report()["phases"]
+
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
 and without an explicit CPU request, ``read`` and ``write`` raise. On
@@ -51,6 +55,35 @@ import torch
 
 from disq_tpu_torch.runtime.counters import PipelineCounters
 from disq_tpu_torch.runtime.errors import DisqOptions, ErrorPolicy
+
+
+def _telemetry_report(counters) -> dict:
+    """The dataset's reduced shard counters with the process registry
+    (labeled counters, gauges, phase-latency histograms), the phase and
+    gauge views, the ``device.*`` rollup and the span-log location."""
+    from disq_tpu_torch.runtime import tracing
+
+    snapshot = tracing.telemetry_snapshot()
+
+    def family(keep):
+        return {name: series for kind in snapshot.values()
+                for name, series in kind.items() if keep(name)}
+
+    return {
+        "run_id": tracing.RUN_ID,
+        # one process: the port has no multi-process job yet (A8)
+        "process_id": 0,
+        "counters": counters.as_dict() if counters is not None else {},
+        "metrics": snapshot,
+        "device": family(lambda n: n.startswith("device.")),
+        "resilience": family(lambda n: n.split(".", 1)[0] in (
+            "hedge", "breaker", "budget", "deadline")),
+        "phases": tracing.phase_report(),
+        "gauges": tracing.gauge_report(),
+        "span_log": tracing.span_log_path(),
+        # no live introspection endpoint in the port (A13)
+        "introspect": None,
+    }
 
 
 class WriteOption:
@@ -142,6 +175,11 @@ class ReadsDataset:
 
     def count(self) -> int:
         return int(self.reads.count)
+
+    def telemetry_report(self) -> dict:
+        """This dataset's counters and the process telemetry in one dict
+        (``runtime/tracing.py``), with the reference's keys."""
+        return _telemetry_report(self.counters)
 
     def flagstat(self) -> dict:
         """Per-category read counts; a device-backed dataset reduces its
@@ -296,6 +334,15 @@ class ReadsStorage:
         decompresses to the same bytes, but not the canonical zlib-6
         bytes. Env equivalent: ``DISQ_TPU_TORCH_DEVICE_DEFLATE``."""
         self._options = self._options.with_device_deflate(enable)
+        return self
+
+    def span_log(self, path: str) -> "ReadsStorage":
+        """Point the process-wide JSONL span sink at ``path`` when a read
+        through this storage starts (the input of
+        ``scripts/trace_report.py``); see ``DisqOptions.span_log``."""
+        from dataclasses import replace
+
+        self._options = replace(self._options, span_log=path)
         return self
 
     def _resolved_device(self) -> torch.device:

@@ -62,6 +62,7 @@ from disq_tpu_torch.runtime.executor import (
     write_retrier_for_storage,
     writer_for_storage,
 )
+from disq_tpu_torch.runtime.tracing import trace_phase, wrap_span
 from disq_tpu_torch.util import shard_bounds
 
 SBI_GRANULARITY = 4096  # htsjdk SBIIndexWriter default
@@ -267,11 +268,15 @@ class BamSink:
                 return self._encode_shard(batch, bounds, k, resident)
         return WriteShardTask(
             shard_id=k,
-            encode=encode,
-            deflate=lambda p: self._deflate_shard(header, write_bai,
-                                                  write_sbi, p),
-            stage=lambda p: self._stage_shard(fs, temp_dir, k, frag_cache,
-                                              p),
+            encode=wrap_span("bam.write.encode", encode, shard=k),
+            deflate=wrap_span(
+                "bam.write.deflate",
+                lambda p: self._deflate_shard(header, write_bai, write_sbi,
+                                              p), shard=k),
+            stage=wrap_span(
+                "bam.write.stage",
+                lambda p: self._stage_shard(fs, temp_dir, k, frag_cache, p),
+                shard=k),
             retrier=write_retrier_for_storage(self._storage),
             what="bam.part")
 
@@ -282,17 +287,25 @@ class BamSink:
                                manifest=None, resident=None) -> None:
         frag_cache = None if manifest is not None else {}
         try:
-            infos = run_write_stage(
-                writer_for_storage(self._storage), n_shards,
-                lambda k: self._make_write_task(fs, header, batch, temp_dir,
-                                                bounds, write_bai, write_sbi,
-                                                k, frag_cache, resident),
-                manifest=manifest, stage_name="bam.parts")
+            with trace_phase("bam.write.parts"):
+                infos = run_write_stage(
+                    writer_for_storage(self._storage), n_shards,
+                    lambda k: self._make_write_task(
+                        fs, header, batch, temp_dir, bounds, write_bai,
+                        write_sbi, k, frag_cache, resident),
+                    manifest=manifest, stage_name="bam.parts")
         finally:
             if resident is not None:
                 # the uploaded record blob is done with the parts stage
                 resident.release()
+        with trace_phase("bam.write.merge"):
+            self._merge(fs, header, path, temp_dir, n_shards, infos,
+                        frag_cache, write_bai, write_sbi)
 
+    def _merge(self, fs, header, path, temp_dir, n_shards, infos, frag_cache,
+               write_bai, write_sbi) -> None:
+        """The single-file commit: header block, parts and terminator
+        concatenated, the index fragments merged."""
         def frags(key):
             if frag_cache is not None:
                 return [frag_cache[k][key] for k in range(n_shards)]
@@ -345,9 +358,13 @@ class BamSinkMultiple:
                 return part_path
 
             return WriteShardTask(
-                shard_id=k, encode=encode,
-                deflate=lambda data: compress_to_bgzf(data, device=device),
-                stage=stage,
+                shard_id=k,
+                encode=wrap_span("bam.write.encode", encode, shard=k),
+                deflate=wrap_span(
+                    "bam.write.deflate",
+                    lambda data: compress_to_bgzf(data, device=device),
+                    shard=k),
+                stage=wrap_span("bam.write.stage", stage, shard=k),
                 retrier=write_retrier_for_storage(self._storage),
                 what="bam.part")
 

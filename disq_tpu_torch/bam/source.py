@@ -81,6 +81,7 @@ from disq_tpu_torch.runtime.errors import (
     inflate_blocks_salvage,
     salvage_flagged,
 )
+from disq_tpu_torch.runtime.tracing import span, trace_phase
 
 
 def read_header(fs: FileSystemWrapper, path: str) -> Tuple[SamHeader, int]:
@@ -106,10 +107,12 @@ class BamSource:
 
         fs, path = resolve_path(path)
         ctx = context_for_storage(self._storage, path)
-        header, first_voffset = ctx.retrier.call(read_header, fs, path,
-                                                 what="header")
-        batches = self.read_split_batches(fs, path, header, first_voffset,
-                                          ctx)
+        with trace_phase("bam.read.header"):
+            header, first_voffset = ctx.retrier.call(read_header, fs, path,
+                                                     what="header")
+        with trace_phase("bam.read.splits"):
+            batches = self.read_split_batches(fs, path, header,
+                                              first_voffset, ctx)
         totals = reduce_counters(self._last_counters)
         # header and boundary reads retry outside any shard
         totals.retried_reads += ctx.retrier.retried
@@ -284,6 +287,15 @@ class BamSource:
 
     def _fetch_range(self, fs, path: str, lo_voffset: int, hi_voffset: int,
                      ctx) -> Optional[Tuple]:
+        """``_fetch_range_inner`` under a per-split ``bam.split.fetch``
+        span carrying the shard id and virtual-offset range."""
+        with span("bam.split.fetch", shard=ctx.shard_id, lo=lo_voffset,
+                  hi=hi_voffset, path=path):
+            return self._fetch_range_inner(fs, path, lo_voffset, hi_voffset,
+                                           ctx)
+
+    def _fetch_range_inner(self, fs, path: str, lo_voffset: int,
+                           hi_voffset: int, ctx) -> Optional[Tuple]:
         """Stage A: range-read and walk the compressed blocks covering
         [lo, hi) virtual space — from lo's block through hi's block, past
         the split's byte-range end when a record straddles it. A corrupt
@@ -323,7 +335,8 @@ class BamSource:
         quarantined, retried)). The books are final once the decode
         returns (its fetch and every retry came before), and they travel
         with the batch into a read ledger's spill."""
-        batch, stats = self._decode_fetched(header, fetched, ctx)
+        with span("bam.split.decode", shard=ctx.shard_id):
+            batch, stats = self._decode_fetched(header, fetched, ctx)
         return batch, stats, (ctx.skipped_blocks, ctx.quarantined_blocks,
                               ctx.retrier.retried)
 

@@ -15,6 +15,10 @@ Two inflate routes share this module's block framing:
   one 65,536-byte row per block, which comes back to the host, where
   the rows' prefixes are joined into the blob, CRC-checked, and the
   blob is uploaded once more for the parse kernel.
+  ``DISQ_TPU_TORCH_DEVICE_SERVICE=1`` submits the shard's payloads to the
+  cross-shard device service (``runtime/device_service.py``), which
+  coalesces them with other shards' into B1 launches and hands the blob
+  back as host bytes; it is uploaded once for the parse kernel.
 
 **Canonical deflate pin**: raw DEFLATE, zlib level 6, memLevel 8,
 default strategy — every BGZF byte this package writes by default uses
@@ -86,6 +90,13 @@ def inflate_blocks(data: bytes, blocks: Sequence[BgzfBlock], base: int = 0,
     array. ``base`` is the file offset of ``data[0]``."""
     if not blocks:
         return np.empty(0, dtype=np.uint8)
+    from disq_tpu_torch.runtime.tracing import span
+
+    with span("codec.inflate.batch", blocks=len(blocks)):
+        return _inflate_blocks(data, blocks, base, verify_crc)
+
+
+def _inflate_blocks(data, blocks, base, verify_crc) -> np.ndarray:
     try:
         from disq_tpu_torch.native import inflate_blocks_native
 
@@ -109,13 +120,23 @@ def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
     the good blocks."""
     import torch
 
-    from disq_tpu_torch.runtime import counters
-    from disq_tpu_torch.runtime.device_pipeline import upload
-    from disq_tpu_torch.runtime.errors import FlaggedBlocksError
-
     if not blocks:
         empty = np.empty(0, dtype=np.uint8)
         return empty, torch.empty(0, dtype=torch.uint8, device=device)
+    from disq_tpu_torch.runtime.tracing import span
+
+    with span("codec.inflate.batch", blocks=len(blocks)):
+        return _inflate_blocks_device(data, blocks, base, device, verify_crc)
+
+
+def _inflate_blocks_device(data, blocks, base, device, verify_crc):
+    import torch
+
+    from disq_tpu_torch.runtime import counters, device_service
+    from disq_tpu_torch.runtime.device_pipeline import upload
+    from disq_tpu_torch.runtime.errors import FlaggedBlocksError
+    from disq_tpu_torch.runtime.tracing import span
+
     arr, off, hdr, csize, usize = _block_arrays(data, blocks, base)
     pay_off = off + hdr
     pay_len = csize - hdr - BGZF_FOOTER_SIZE
@@ -123,6 +144,9 @@ def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
     if legacy_inflate():
         blob, out_off, flagged = _inflate_legacy(arr, pay_off, pay_len, usize,
                                                  device)
+    elif device_service.enabled():
+        blob, out_off, flagged = _inflate_service(data, pay_off, pay_len,
+                                                  usize, device)
     else:
         from disq_tpu_torch.ops.inflate_simd import inflate_payloads_device
 
@@ -132,9 +156,12 @@ def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
             flagged = None
         except FlaggedBlocksError as e:
             blob_dev, out_off, flagged = e.blob_dev, e.out_off, e
-        blob = blob_dev.cpu().numpy()
         if blob_dev.is_cuda:
+            with span("device.transfer", direction="d2h"):
+                blob = blob_dev.cpu().numpy()
             counters.book_transfer("d2h", blob.nbytes)
+        else:
+            blob = blob_dev.numpy()
     bad = set(flagged.bad) if flagged is not None else set()
     crc_bad = (_crc_failures(data, blocks, base, blob, out_off, bad)
                if verify_crc else [])
@@ -147,6 +174,27 @@ def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
     if blob_dev is None:
         blob_dev = upload(blob, torch.device(device))
     return blob, blob_dev
+
+
+def _inflate_service(data, pay_off, pay_len, usize, device):
+    """A shard's payloads through the device service: (host blob, block
+    output offsets, a ``FlaggedBlocksError`` naming the blocks that both
+    B1 and host zlib rejected, else None)."""
+    from disq_tpu_torch.runtime import device_service
+    from disq_tpu_torch.runtime.errors import FlaggedBlocksError
+
+    mv = memoryview(data)
+    payloads = [mv[int(o): int(o) + int(n)] for o, n in zip(pay_off, pay_len)]
+    sub = device_service.get_service(device).submit_inflate(
+        payloads, [int(u) for u in usize])
+    (blob, out_off), errors = sub.outcome()
+    flagged = None
+    if errors:
+        i = min(errors)
+        flagged = FlaggedBlocksError(
+            f"device inflate failed at block {i}: {errors[i]}",
+            sorted(errors), blob=blob, out_off=out_off)
+    return blob, out_off, flagged
 
 
 def legacy_inflate() -> bool:
@@ -250,10 +298,22 @@ def deflate_blob(blob: bytes, device=None) -> Tuple[bytes, np.ndarray]:
 
     ``device`` None: the canonical zlib-6 blocks, native-threaded when
     built, else zlib on the shared pool (same bytes either way). A
-    device: the literal-Huffman coder on it (``ops/deflate.py``)."""
+    device: the literal-Huffman coder on it (``ops/deflate.py``); with
+    the device service on, the 65,280-byte payload slices go to its
+    deflate queue, where blocks of concurrently written shards share W2
+    launches (and their chunk's table)."""
     if len(blob) == 0:
         return b"", np.zeros(0, dtype=np.int64)
     if device is not None:
+        from disq_tpu_torch.runtime import device_service
+
+        if device_service.enabled():
+            mv = memoryview(blob)
+            parts = device_service.get_service(device).submit_deflate(
+                [mv[o: o + BGZF_MAX_PAYLOAD]
+                 for o in range(0, len(blob), BGZF_MAX_PAYLOAD)]).result()
+            return (b"".join(parts),
+                    np.array([len(p) for p in parts], dtype=np.int64))
         from disq_tpu_torch.ops.deflate import deflate_blob_device
 
         return deflate_blob_device(blob, device)

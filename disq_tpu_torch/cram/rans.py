@@ -17,8 +17,11 @@ have native C fast paths byte-identical to the Python implementations.
 ``rans_decode`` decodes one stream on the host. The device route is
 ``rans0_decode_streams``: every order-0 stream of a CRAM split in one
 launch of kernel B3, or of B5 under ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``;
-on the CPU it runs the kernels' plain versions. Order-1 always decodes
-on the host, as in the reference, which has no device kernel for it.
+on the CPU it runs the kernels' plain versions. With
+``DISQ_TPU_TORCH_DEVICE_SERVICE=1`` a split's streams are one submission
+to the device service, so the splits in flight share B3 launches.
+Order-1 always decodes on the host, as in the reference, which has no
+device kernel for it.
 """
 
 from __future__ import annotations
@@ -257,14 +260,40 @@ def rans0_decode_streams(streams: Sequence[bytes], device,
     ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``. A stream that does not parse
     or that the kernel flags raises ``ValueError`` naming it; given a
     dict ``bad``, every such stream is recorded there instead and the
-    others decode (``ops/rans_simd.decode_streams``)."""
-    if os.environ.get("DISQ_TPU_TORCH_DEVICE_RANS", "").lower() == "legacy":
+    others decode (``ops/rans_simd.decode_streams``). Through the device
+    service a flagged stream is decoded again by ``rans_decode`` and
+    counts as bad only if that fails too."""
+    from disq_tpu_torch.runtime import device_service
+
+    legacy = os.environ.get("DISQ_TPU_TORCH_DEVICE_RANS",
+                            "").lower() == "legacy"
+    if device_service.enabled() and not legacy:
+        return _decode_through_service(streams, device, bad)
+    if legacy:
         from disq_tpu_torch.ops.rans import rans0_decode_device
 
         return rans0_decode_device(streams, device, bad)
     from disq_tpu_torch.ops.rans_simd import rans0_decode_simd
 
     return rans0_decode_simd(streams, device, bad)
+
+
+def _decode_through_service(streams, device, bad):
+    from disq_tpu_torch.ops.rans_simd import stream_error
+    from disq_tpu_torch.runtime import device_service
+
+    if not streams:
+        return []
+    parts, errors = device_service.get_service(device).submit_rans(
+        streams).outcome()
+    if errors:
+        if bad is None:
+            k = min(errors)
+            raise stream_error(errors[k], k)
+        for k, e in errors.items():
+            bad[k] = stream_error(e, k)
+            parts[k] = None
+    return parts
 
 
 def rans_decode(data: bytes) -> bytes:

@@ -42,6 +42,7 @@ from disq_tpu_torch.runtime.executor import (
     write_retrier_for_storage,
     writer_for_storage,
 )
+from disq_tpu_torch.runtime.tracing import wrap_span
 from disq_tpu_torch.util import shard_bounds
 
 MAX_SLICE_RECORDS = 10_000
@@ -72,9 +73,11 @@ def run_cram_write_stage(storage, fs, batch, bounds, n_shards, ref_fetch,
             return {"part": p, "len": len(part_bytes),
                     "crai": CraiIndex(entries)}
 
-        return WriteShardTask(shard_id=k, encode=encode, stage=stage,
-                              retrier=write_retrier_for_storage(storage),
-                              what="cram.part")
+        return WriteShardTask(
+            shard_id=k,
+            encode=wrap_span("cram.write.encode", encode, shard=k),
+            stage=wrap_span("cram.write.stage", stage, shard=k),
+            retrier=write_retrier_for_storage(storage), what="cram.part")
 
     return run_write_stage(writer_for_storage(storage), n_shards, make_task)
 

@@ -67,6 +67,7 @@ from disq_tpu_torch.runtime.errors import (
     context_for_storage,
     is_transient,
 )
+from disq_tpu_torch.runtime.tracing import wrap_span
 
 # errors that are not corrupt input: configuration, and CUDA build or
 # launch failures
@@ -138,13 +139,22 @@ class CramSource:
                      if s.start <= off < s.end]
             shard_ctx = ctx.for_shard(i)
             owned_by_shard.append(owned)
+            # per-split spans carrying the shard id, byte range and
+            # owned-container count
             tasks.append(ShardTask(
                 shard_id=i,
-                fetch=functools.partial(self._fetch_split_containers, fs,
-                                        path, owned, shard_ctx),
-                decode=functools.partial(self._decode_booked,
-                                         ref_fetch=ref_fetch,
-                                         shard_ctx=shard_ctx, device=device),
+                fetch=wrap_span(
+                    "cram.split.fetch",
+                    functools.partial(self._fetch_split_containers, fs,
+                                      path, owned, shard_ctx),
+                    shard=i, start=s.start, end=s.end,
+                    containers=len(owned)),
+                decode=wrap_span(
+                    "cram.split.decode",
+                    functools.partial(self._decode_booked,
+                                      ref_fetch=ref_fetch,
+                                      shard_ctx=shard_ctx, device=device),
+                    shard=i, containers=len(owned)),
                 retrier=shard_ctx.retrier, what=f"cram-shard{i}"))
         ledger = read_ledger_for_storage(self._storage, path, len(tasks),
                                          device is not None)

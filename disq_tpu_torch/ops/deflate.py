@@ -44,6 +44,7 @@ import torch
 from disq_tpu_torch.bgzf.block import BGZF_MAX_PAYLOAD as BLOCK_PAYLOAD
 from disq_tpu_torch.bgzf.block import build_block_header
 from disq_tpu_torch.runtime import counters
+from disq_tpu_torch.runtime.tracing import counter, device_span, span
 
 _EOB = 256  # end-of-block symbol
 _MAX_BITS = 15
@@ -229,6 +230,10 @@ class DeflateTable:
                  "_lock")
 
     def __init__(self, freq: np.ndarray, eob_count: int) -> None:
+        with span("device.deflate.table"):
+            self._build(freq, eob_count)
+
+    def _build(self, freq: np.ndarray, eob_count: int) -> None:
         lit_freq = np.concatenate(
             [np.asarray(freq, np.int64), [max(1, int(eob_count))]])
         self.lit_lens = limited_huffman_lengths(lit_freq, _MAX_BITS)
@@ -419,7 +424,9 @@ def fetch(bodies: torch.Tensor, end: torch.Tensor, table: DeflateTable
           ) -> Tuple[np.ndarray, np.ndarray]:
     """The encoded lanes on the host: the end bits first, then only the
     rows' prefix that the longest lane occupies."""
-    end_h = end.cpu().numpy()
+    with device_span("device.kernel", kernel="deflate_simd",
+                     lanes=end.numel()) as fence:
+        end_h = fence.sync(end).cpu().numpy()
     need = (int(occupied_bytes(end_h.max(), table.out_bytes))
             if len(end_h) else 0)
     body_h = bodies[:, :need].cpu().numpy()
@@ -491,15 +498,22 @@ def finalize_chunk(bodies: np.ndarray, end: np.ndarray, table: DeflateTable,
     indices to ``host_route(flagged)``, booked as host fallbacks
     (reason ``expanded``)."""
     flagged: List[int] = []
-    n_dev = 0
+    n_dev = b_in = b_out = 0
     for j, p in enumerate(payloads):
         stream = finalize_stream(bodies[j], int(end[j]), table)
         if expanded(stream, p):
             flagged.append(j)
             continue
+        block = frame_block(stream, p)
         n_dev += 1
-        deliver(j, frame_block(stream, p))
+        b_in += len(p)
+        b_out += len(block)
+        deliver(j, block)
     counters.add_stats(device_stats, device_blocks=n_dev)
+    if n_dev:
+        counter("device.deflate.blocks").inc(n_dev)
+        counter("device.deflate.bytes_in").inc(b_in)
+        counter("device.deflate.bytes_out").inc(b_out)
     if flagged:
         counters.add_stats(last_stats, host_fallback=len(flagged))
         counters.book_host_fallback("expanded", len(flagged))

@@ -17,6 +17,7 @@ import torch
 
 from disq_tpu_torch.runtime import counters
 from disq_tpu_torch.runtime.device_pipeline import upload
+from disq_tpu_torch.runtime.tracing import device_span
 from disq_tpu_torch.util import resolve_device
 
 
@@ -65,8 +66,10 @@ def window_depth(batch, ref_lengths: Sequence[int], window: int = 1024,
     w_lo = ref_win_off[rid] + np.clip(pos // window, 0, per_ref_nw[rid] - 1)
     w_hi = ref_win_off[rid] + np.clip((ends - 1) // window, 0,
                                       per_ref_nw[rid] - 1)
-    depth = _depth_global(upload(w_lo, device), upload(w_hi, device),
-                          total_windows)
+    lo, hi = upload(w_lo, device), upload(w_hi, device)
+    with device_span("device.kernel", kernel="depth", records=len(w_lo)) \
+            as fence:
+        depth = fence.sync(_depth_global(lo, hi, total_windows))
     flat = depth.cpu().numpy()
     if depth.is_cuda:
         counters.book_transfer("d2h", flat.nbytes)

@@ -51,7 +51,14 @@ def flagstat_counts(flag) -> Dict[str, int]:
     """Flag column (tensor on any device, or host array) → counts."""
     if isinstance(flag, np.ndarray):
         flag = torch.from_numpy(flag.astype(np.int32))
-    row = _counts(flag).cpu().tolist()
+        row = _counts(flag).tolist()
+    else:
+        from disq_tpu_torch.runtime.tracing import device_span
+
+        with device_span("device.kernel", kernel="flagstat",
+                         records=flag.numel()) as fence:
+            row = fence.sync(_counts(flag))
+        row = row.cpu().tolist()
     if flag.is_cuda:
         from disq_tpu_torch.runtime import counters
 

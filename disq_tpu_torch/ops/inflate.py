@@ -373,9 +373,13 @@ def inflate_rows(data, pay_off, pay_len, usizes: Optional[Sequence[int]],
     """The kernel on the payloads at ``pay_off``/``pay_len`` of ``data``:
     host ``(rows, meta)``, the copy back from the card booked. The
     caller checks ``meta`` with ``check_meta``."""
-    out, meta = inflate_stacked(*stage_payloads(data, pay_off, pay_len,
-                                                usizes, device))
-    meta, rows = meta.cpu().numpy(), out.cpu().numpy()
+    from disq_tpu_torch.runtime.tracing import device_span
+
+    with device_span("device.kernel", kernel="inflate", blocks=len(pay_off)):
+        out, meta = inflate_stacked(*stage_payloads(data, pay_off, pay_len,
+                                                    usizes, device))
+        meta = meta.cpu().numpy()
+    rows = out.cpu().numpy()
     if out.is_cuda:
         counters.book_transfer("d2h", rows.nbytes + meta.nbytes)
     return rows, meta

@@ -23,12 +23,27 @@ On a CUDA tensor ``inflate`` launches the CUDA kernel
 (``csrc/inflate.cu``: one warp per payload, table-driven Huffman decode,
 warp-cooperative copies); on a CPU tensor it runs ``inflate_plain``, the
 plain Python decoder below, which computes the same bytes and codes.
+
+Both host sides stage their inputs the same way (``Staged``): packed
+into a pinned arena (``ARENAS``, exclusive checkout, returned only once
+the copy that read it completed) and copied up in one ``non_blocking``
+copy on the caller's current stream.
+
+- ``inflate_payloads_device``, the per-split route: one shard's
+  payloads, one launch, the statuses checked; the blob stays on the
+  device for the parse.
+- ``launch_payloads`` / ``fetch_payloads``, the device service's
+  (``runtime/device_service.py``): any payloads, decoded without a
+  wait, an event recorded; the fetch waits on it and copies the blob,
+  lengths and statuses back.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+import threading
+import zlib
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +55,12 @@ from disq_tpu_torch.ops.inflate import (  # the RFC 1951 tables, shared with B4
     NDIST as _NDIST, NLIT as _NLIT,
 )
 from disq_tpu_torch.runtime import counters
+from disq_tpu_torch.runtime.tracing import (
+    device_span,
+    hbm_resident,
+    observe_gauge,
+    span,
+)
 
 STATUS_NAMES = (
     "ok", "bad BTYPE", "stored LEN mismatch", "bad Huffman code",
@@ -357,23 +378,31 @@ def inflate(comp: torch.Tensor, pay_off: torch.Tensor, pay_len: torch.Tensor,
 
 def inflate_payloads_device(data: np.ndarray, pay_off: np.ndarray,
                             pay_len: np.ndarray, usizes: np.ndarray, device):
-    """Upload a shard's compressed bytes once, decode every payload into
-    one device blob at its ISIZE-prefix-sum offset, and check the
-    statuses; returns ``(device blob, out_off)``. A flagged block raises
-    ``FlaggedBlocksError`` (a ``ValueError``) naming it, which carries
-    the blob and the flagged blocks for the caller's salvage path."""
+    """Stage a shard's compressed bytes once (``Staged``), decode every
+    payload into one device blob at its ISIZE-prefix-sum offset, and
+    check the statuses; returns ``(device blob, out_off)``. A flagged
+    block raises ``FlaggedBlocksError`` (a ``ValueError``) naming it,
+    which carries the blob and the flagged blocks for the caller's
+    salvage path."""
     device = torch.device(device)
     n = len(pay_off)
     out_off = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.asarray(usizes, dtype=np.int64), out=out_off[1:])
-    from disq_tpu_torch.runtime.device_pipeline import upload
-
-    comp, po, pl, oo = (
-        upload(np.asarray(a, dtype=dt), device)
-        for a, dt in ((data, np.uint8), (pay_off, np.int64),
-                      (pay_len, np.int64), (out_off, np.int64)))
-    blob, _out_len, status = inflate(comp, po, pl, oo, int(out_off[-1]))
-    st = status.cpu().numpy()
+    # the call's working set: the staged bytes, the indexes and the blob
+    with hbm_resident(len(data) + 8 * (4 * n + 1) + int(out_off[-1])):
+        staged = Staged("inflate", [
+            np.asarray(data, dtype=np.uint8),
+            np.asarray(pay_off, dtype=np.int64),
+            np.asarray(pay_len, dtype=np.int64), out_off], device)
+        try:
+            with device_span("device.kernel", kernel="inflate_simd",
+                             lanes=n):
+                blob, _out_len, status = inflate(*staged.tensors,
+                                                 int(out_off[-1]))
+                # the status d2h waits for the staged copy and the kernel
+                st = status.cpu().numpy()
+        finally:
+            staged.release()
     if device.type == "cuda":
         counters.book_transfer("d2h", st.nbytes)
     bad = np.nonzero(st)[0]
@@ -389,3 +418,183 @@ def inflate_payloads_device(data: np.ndarray, pay_off: np.ndarray,
             f"({STATUS_NAMES[int(st[i])]})", bad, blob_dev=blob,
             out_off=out_off)
     return blob, out_off
+
+
+def host_inflate(payload, expect: int) -> bytes:
+    """Host zlib of one raw-DEFLATE payload (the service's route for a
+    lane the kernel flagged): a decode failure or a length other than
+    ``expect`` raises ``ValueError``."""
+    try:
+        out = zlib.decompress(payload, wbits=-15, bufsize=max(1, expect))
+    except zlib.error as e:
+        raise ValueError(f"corrupt DEFLATE stream: {e}") from e
+    if len(out) != expect:
+        raise ValueError(f"device inflate failed: ISIZE {expect} != "
+                         f"{len(out)}")
+    return out
+
+
+# -- staging arenas and the launch / fetch split ----------------------------
+
+
+_ARENA_MIN = 1 << 20
+_ALIGN = 16
+
+
+class ArenaPool:
+    """Checkout pool of host staging arenas (uint8 tensors, pinned for a
+    card), keyed by (kind, pinned, capacity); capacities are powers of
+    two of at least 1 MiB. A checkout is exclusive, and a caller returns
+    an arena only after the copy that read it completed, so a
+    ``non_blocking`` upload never reads a repacked arena. At most
+    ``per_key_cap`` free arenas are kept per key; ``device.arena_bytes``
+    is the resident total."""
+
+    def __init__(self, per_key_cap: int = 4) -> None:
+        self._lock = threading.Lock()
+        self._free: Dict[Any, List[torch.Tensor]] = {}
+        self._bytes = 0
+        self._cap = per_key_cap
+
+    def acquire(self, kind: str, nbytes: int, pinned: bool):
+        """``(key, arena)``: a free arena of at least ``nbytes``."""
+        cap = _ARENA_MIN
+        while cap < nbytes:
+            cap *= 2
+        key = (kind, pinned, cap)
+        with self._lock:
+            free = self._free.get(key)
+            if free:
+                return key, free.pop()
+        arena = torch.empty(cap, dtype=torch.uint8, pin_memory=pinned)
+        with self._lock:
+            self._bytes += cap
+            total = self._bytes
+        observe_gauge("device.arena_bytes", total)
+        return key, arena
+
+    def release(self, key, arena: torch.Tensor) -> None:
+        with self._lock:
+            free = self._free.setdefault(key, [])
+            if len(free) < self._cap:
+                free.append(arena)
+                return
+            self._bytes -= arena.numel()
+            total = self._bytes
+        observe_gauge("device.arena_bytes", total)
+
+    def resident_bytes(self) -> int:
+        with self._lock:
+            return self._bytes
+
+
+ARENAS = ArenaPool()
+
+
+class Staged:
+    """Host arrays packed into one arena and copied to ``device`` in one
+    ``non_blocking`` copy on the current stream; ``tensors`` are typed
+    views of the device copy (of the arena itself on the CPU). An entry
+    may be a list of byte buffers, packed back to back as one uint8
+    array. ``release()`` returns the arena: call it only after the copy
+    completed (an event recorded after it, synchronized)."""
+
+    def __init__(self, kind: str, arrays: Sequence, device) -> None:
+        device = torch.device(device)
+        spans, at = [], 0
+        for a in arrays:
+            n = (sum(len(p) for p in a) if isinstance(a, list) else a.nbytes)
+            spans.append((at, n))
+            at += -(-n // _ALIGN) * _ALIGN
+        self.nbytes = at
+        self._key, self._arena = ARENAS.acquire(kind, max(at, 1),
+                                                device.type == "cuda")
+        host = self._arena.numpy()
+        for a, (lo, n) in zip(arrays, spans):
+            if isinstance(a, list):
+                o = lo
+                for piece in a:
+                    host[o: o + len(piece)] = np.frombuffer(piece,
+                                                            dtype=np.uint8)
+                    o += len(piece)
+            elif n:
+                host[lo: lo + n] = np.ascontiguousarray(a).reshape(-1) \
+                    .view(np.uint8)
+        if device.type == "cuda":
+            counters.book_transfer("h2d", at)
+            with span("device.transfer", direction="h2d"):
+                buf = self._arena[:at].to(device, non_blocking=True)
+        else:
+            buf = self._arena[:at]
+        self.tensors = []
+        for a, (lo, n) in zip(arrays, spans):
+            if isinstance(a, list):
+                self.tensors.append(buf[lo: lo + n])
+            else:
+                dt = getattr(torch, np.dtype(a.dtype).name)
+                self.tensors.append(buf[lo: lo + n].view(dt).view(a.shape))
+
+    def release(self) -> None:
+        if self._arena is not None:
+            ARENAS.release(self._key, self._arena)
+            self._arena = None
+
+
+def record_event(device) -> Optional["torch.cuda.Event"]:
+    """An event recorded on ``device``'s current stream (None on the
+    CPU, where the work already ran)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class PayloadLaunch:
+    """One ``launch_payloads`` in flight: its staged inputs, outputs and
+    the event after them."""
+
+    __slots__ = ("staged", "outputs", "event", "out_off", "n")
+
+    def __init__(self, staged, outputs, event, out_off, n) -> None:
+        self.staged, self.outputs, self.event = staged, outputs, event
+        self.out_off, self.n = out_off, n
+
+
+def launch_payloads(payloads: Sequence, expects: Sequence[int],
+                    device) -> PayloadLaunch:
+    """Stage raw-DEFLATE ``payloads`` in a pinned arena and enqueue the
+    copy and B1 on the current stream without waiting; block ``i``
+    decodes to ``expects[i]`` bytes at its prefix-sum offset."""
+    n = len(payloads)
+    pay_len = np.fromiter((len(p) for p in payloads), np.int64, n)
+    pay_off = np.zeros(n, dtype=np.int64)
+    np.cumsum(pay_len[:-1], out=pay_off[1:])
+    out_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.asarray(expects, dtype=np.int64), out=out_off[1:])
+    staged = Staged("inflate", [list(payloads), pay_off, pay_len, out_off],
+                    device)
+    try:
+        outputs = inflate(*staged.tensors, int(out_off[-1]))
+        event = record_event(device)
+    except BaseException:
+        staged.release()
+        raise
+    return PayloadLaunch(staged, outputs, event, out_off, n)
+
+
+def fetch_payloads(handle: PayloadLaunch):
+    """Wait for a ``launch_payloads`` and bring its outputs back:
+    ``(blob, out_len, status, out_off)`` on the host."""
+    out, out_len, status = handle.outputs
+    with device_span("device.kernel", kernel="inflate_simd",
+                     lanes=handle.n):
+        if handle.event is not None:
+            handle.event.synchronize()
+    handle.staged.release()
+    host = [t.cpu().numpy() for t in (out, out_len, status)]
+    if out.is_cuda:
+        counters.book_transfer("d2h", sum(a.nbytes for a in host))
+    handle.outputs = None
+    return (*host, handle.out_off)

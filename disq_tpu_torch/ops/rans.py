@@ -79,4 +79,4 @@ def rans0_decode_device(streams: Sequence[bytes], device,
     ``ValueError`` as the reference's wrapper does, or with ``bad`` is
     recorded there (``ops/rans_simd.decode_streams``)."""
     return decode_streams(streams, device, rans0_decode_legacy, last_stats,
-                          bad)
+                          bad, {"kernel": "rans", "streams": len(streams)})

@@ -22,7 +22,10 @@ tensor it runs ``rans0_decode_plain``, the same function in torch ops,
 vectorised across streams with one loop turn per superstep (slow on
 megabyte streams: it is a check, not a route). ``rans0_decode_simd`` is
 the host side: header and table parse (``_parse_stream``), staging, one
-launch, and the status check.
+launch, and the status check. ``launch_streams`` / ``fetch_streams`` are
+the device service's split of it: parsed streams staged into a pinned
+arena, copied and decoded on the current stream without a wait, and
+fetched once the launch's event has completed.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from disq_tpu_torch.runtime import counters
+from disq_tpu_torch.runtime.tracing import device_span
 
 RANS_LOW = 1 << 23
 TF_SHIFT = 12
@@ -259,21 +263,67 @@ def stage_streams(streams: Sequence[bytes], device,
             bad[k] = stream_error(e, k)
             metas.append(None)
     live = [k for k, m in enumerate(metas) if m is not None]
-    n = len(live)
+    pieces, ren_off, out_off, states, freq = pack_streams(
+        [metas[k] for k in live])
+    ren = np.frombuffer(b"".join(pieces), dtype=np.uint8)
+    args = tuple(upload(a, device) for a in (ren, ren_off, out_off, states,
+                                             freq))
+    return live, args, (ren_off, out_off)
+
+
+def pack_streams(metas: Sequence):
+    """The kernel inputs of parsed streams (``_parse_stream`` results):
+    ``(renorm byte pieces, ren_off, out_off, states, freq)``."""
+    n = len(metas)
     ren_off = np.zeros(n + 1, dtype=np.int64)
     out_off = np.zeros(n + 1, dtype=np.int64)
     states = np.zeros((n, 4), dtype=np.int32)
     freq = np.zeros((n, 256), dtype=np.int32)
-    for i, k in enumerate(live):
-        raw_size, renorm, st, fr, _cum = metas[k]
+    for i, (raw_size, renorm, st, fr, _cum) in enumerate(metas):
         ren_off[i + 1] = ren_off[i] + len(renorm)
         out_off[i + 1] = out_off[i] + raw_size
         states[i] = st.astype(np.int64)
         freq[i] = fr
-    ren = np.frombuffer(b"".join(metas[k][1] for k in live), dtype=np.uint8)
-    args = tuple(upload(a, device) for a in (ren, ren_off, out_off, states,
-                                             freq))
-    return live, args, (ren_off, out_off)
+    return [m[1] for m in metas], ren_off, out_off, states, freq
+
+
+class StreamLaunch:
+    """One ``launch_streams`` in flight."""
+
+    __slots__ = ("staged", "outputs", "event", "ren_off", "out_off")
+
+    def __init__(self, staged, outputs, event, ren_off, out_off) -> None:
+        self.staged, self.outputs, self.event = staged, outputs, event
+        self.ren_off, self.out_off = ren_off, out_off
+
+
+def launch_streams(metas: Sequence, device) -> StreamLaunch:
+    """Stage parsed order-0 streams in a pinned arena and enqueue the
+    copy and B3 on the current stream without waiting."""
+    from disq_tpu_torch.ops.inflate_simd import Staged, record_event
+
+    pieces, ren_off, out_off, states, freq = pack_streams(metas)
+    staged = Staged("rans", [pieces, ren_off, out_off, states, freq], device)
+    try:
+        outputs = rans0_decode(*staged.tensors, int(out_off[-1]))
+        event = record_event(device)
+    except BaseException:
+        staged.release()
+        raise
+    return StreamLaunch(staged, outputs, event, ren_off, out_off)
+
+
+def fetch_streams(handle: StreamLaunch):
+    """Wait for a ``launch_streams`` and bring its outputs back:
+    ``(blob, used, status, ren_off, out_off)`` on the host."""
+    with device_span("device.kernel", kernel="rans_simd",
+                     lanes=len(handle.out_off) - 1):
+        if handle.event is not None:
+            handle.event.synchronize()
+    handle.staged.release()
+    host = fetch(*handle.outputs)
+    handle.outputs = None
+    return (*host, handle.ren_off, handle.out_off)
 
 
 def fetch(out: torch.Tensor, used: torch.Tensor, status: torch.Tensor):
@@ -286,7 +336,8 @@ def fetch(out: torch.Tensor, used: torch.Tensor, status: torch.Tensor):
 
 def decode_streams(streams: Sequence[bytes], device, decode: Callable,
                    stats: dict,
-                   bad: Optional[Dict[int, BaseException]] = None
+                   bad: Optional[Dict[int, BaseException]] = None,
+                   span_labels: Optional[dict] = None
                    ) -> List[Optional[bytes]]:
     """The host side shared by B3 and B5: stage ``streams``, decode them
     in one call of ``decode`` (``rans0_decode`` or ``rans.
@@ -297,7 +348,8 @@ def decode_streams(streams: Sequence[bytes], device, decode: Callable,
     ``stream_error``. Given a dict
     ``bad``, every such stream's error is recorded there under its index
     instead, its output is None, and the other streams keep theirs (one
-    launch all the same; nothing is decoded again)."""
+    launch all the same; nothing is decoded again). The launch and its
+    fetch run under a ``device.kernel`` span labeled ``span_labels``."""
     if not streams:
         return []
     live, args, (ren_off, out_off) = stage_streams(streams, device, bad)
@@ -306,7 +358,8 @@ def decode_streams(streams: Sequence[bytes], device, decode: Callable,
         out[k] = None
     if not live:
         return out
-    blob, used, status = fetch(*decode(*args, int(out_off[-1])))
+    with device_span("device.kernel", **(span_labels or {})):
+        blob, used, status = fetch(*decode(*args, int(out_off[-1])))
     clen = np.diff(ren_off)
     flagged = set()
     for i in np.nonzero(status)[0].tolist():
@@ -334,4 +387,5 @@ def rans0_decode_simd(streams: Sequence[bytes], device,
     input and raises ``ValueError`` naming it, or with ``bad`` is
     recorded there (``decode_streams``); there is no host re-decode and
     no size cap."""
-    return decode_streams(streams, device, rans0_decode, last_stats, bad)
+    return decode_streams(streams, device, rans0_decode, last_stats, bad,
+                          {"kernel": "rans_simd", "lanes": len(streams)})

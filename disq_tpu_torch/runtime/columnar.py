@@ -26,6 +26,14 @@ device:
   pending order and device, and parses the blob again with the parse
   kernel on that device when loaded (raising if it is absent); a host
   batch spills its ``ReadBatch``.
+- **Telemetry** (the reference's names): ``columnar.batch.build`` /
+  ``fetch`` / ``compact`` spans, the ``columnar.batch.materializations``
+  counter (host parses of the records), the
+  ``columnar.batch.resident_bytes`` gauge and ``track_hbm`` of the fixed
+  columns. ``release()`` books the d2h the lazy fetch skipped (fixed
+  columns never fetched, and what a device consumer used in place:
+  flagstat's flag column, the sort keys) into
+  ``device.d2h_avoided_bytes`` and a ``columnar.batch.release`` span.
 """
 
 from __future__ import annotations
@@ -38,6 +46,28 @@ import torch
 
 from disq_tpu_torch.bam.columnar import FIXED_COLUMNS, RAGGED_COLUMNS, ReadBatch
 from disq_tpu_torch.runtime import counters
+from disq_tpu_torch.runtime.tracing import (
+    counter,
+    device_span,
+    observe_gauge,
+    record_span,
+    span,
+    track_hbm,
+)
+
+_stats_lock = threading.Lock()
+_resident_live_bytes = 0
+
+
+def _note_resident(delta: int) -> None:
+    """Adjust the live resident-column bytes (the
+    ``columnar.batch.resident_bytes`` gauge) and ``track_hbm``."""
+    global _resident_live_bytes
+    with _stats_lock:
+        _resident_live_bytes = max(0, _resident_live_bytes + delta)
+        live = _resident_live_bytes
+    track_hbm(delta)
+    observe_gauge("columnar.batch.resident_bytes", live)
 
 _COL_DTYPE = {
     "refid": np.int32, "pos": np.int32, "mapq": np.uint8,
@@ -99,6 +129,11 @@ class ColumnarBatch:
         self._order: Optional[np.ndarray] = None
         # lazy builds and fetches happen once even under threads
         self._lock = threading.RLock()
+        # bytes a device consumer used in place, by column or result;
+        # booked as avoided d2h at release unless fetched after all
+        self._consumed: Dict[str, int] = {}
+        self._resident = 0   # bytes of device columns this batch holds
+        self._released = False
 
     # -- construction -------------------------------------------------------
 
@@ -138,7 +173,9 @@ class ColumnarBatch:
         self._blob = blob
         self._offsets = np.asarray(offsets, dtype=np.int64)
         self._n_ref = n_ref
-        cols = parse_columns_resident(device_blob, self._offsets, origin)
+        with span("columnar.batch.build", records=n,
+                  bytes=int(self._offsets[-1])):
+            cols = parse_columns_resident(device_blob, self._offsets, origin)
         rec_len = upload(np.diff(self._offsets), device_blob.device)
         if record_check(cols, rec_len, n_ref):
             # the host parser is the authority on the error message
@@ -148,8 +185,16 @@ class ColumnarBatch:
             raise DeviceParseFault(
                 "device record check flagged a record that the host "
                 "parser accepts")
-        self._dev = {k: cols[k] for k in FIXED_COLUMNS}
+        self._set_dev({k: cols[k] for k in FIXED_COLUMNS})
         return self
+
+    def _set_dev(self, dev: Dict[str, torch.Tensor]) -> None:
+        """Hold ``dev`` as this batch's device columns, booked as
+        resident."""
+        self._dev = dev
+        self._resident = sum(t.numel() * t.element_size()
+                             for t in dev.values())
+        _note_resident(self._resident)
 
     # -- identity -----------------------------------------------------------
 
@@ -192,12 +237,24 @@ class ColumnarBatch:
                 raise RuntimeError(
                     f"column {name!r} of a released ColumnarBatch")
             col = self._dev[name]
-            raw = col.cpu().numpy()
+            with span("columnar.batch.fetch", column=name,
+                      bytes=col.numel() * col.element_size()):
+                raw = col.cpu().numpy()
             if col.is_cuda:
                 counters.book_transfer("d2h", raw.nbytes)
             arr = raw.astype(_COL_DTYPE[name])
             self._cache[name] = arr
+            # a column that crossed d2h after all is no longer avoided
+            self._consumed.pop(name, None)
             return arr
+
+    def _consume_on_device(self, key: str, nbytes: int) -> None:
+        """Mark a column (or a derived result) used on the device without
+        a host fetch: booked as avoided d2h at release, unless a later
+        fetch brings it to the host after all."""
+        with self._lock:
+            if key not in self._consumed and key not in self._cache:
+                self._consumed[key] = nbytes
 
     refid = property(lambda self: self._fetch_col("refid"))
     pos = property(lambda self: self._fetch_col("pos"))
@@ -228,6 +285,7 @@ class ColumnarBatch:
                     if self._order is not None:
                         rb = rb.take(self._order)
                     self._ragged_rb = rb
+                    counter("columnar.batch.materializations").inc()
         return self._ragged_rb
 
     def __getattr__(self, name: str):
@@ -240,11 +298,19 @@ class ColumnarBatch:
     def to_read_batch(self) -> ReadBatch:
         """One plain ``ReadBatch``. The ragged columns need the host
         parse anyway, and its fixed columns equal the device-parsed ones
-        (the parity contract), so no fixed column is fetched for this."""
+        (the parity contract), so no fixed column is fetched for this:
+        they are cached from the host parse, booked neither as moved nor
+        as avoided."""
         if self._rb is None:
             with self._lock:
                 if self._rb is None:
-                    self._rb = self._ragged_source()
+                    rag = self._ragged_source()
+                    if self._dev is not None:
+                        for name in FIXED_COLUMNS:
+                            if name not in self._cache:
+                                self._cache[name] = getattr(rag, name)
+                                self._consumed.pop(name, None)
+                    self._rb = rag
         return self._rb
 
     def take(self, indices: np.ndarray) -> ReadBatch:
@@ -275,7 +341,7 @@ class ColumnarBatch:
         out = ColumnarBatch()
         out._n = self._n
         out._n_ref = self._n_ref
-        out._dev = self._gathered(order)
+        out._set_dev(self._gathered(order))
         with self._lock:
             out._blob, out._blob_parts = self._blob, self._blob_parts
         out._offsets = self._offsets
@@ -295,13 +361,14 @@ class ColumnarBatch:
             return ColumnarBatch.from_host(ReadBatch.empty())
         from disq_tpu_torch.bam.columnar import segment_gather
 
-        src = self._order[keep] if self._order is not None else keep
-        out = ColumnarBatch()
-        out._n = len(keep)
-        out._n_ref = self._n_ref
-        out._dev = self._gathered(keep)
-        out._blob, out._offsets = segment_gather(self._host_blob(),
-                                                 self._offsets, src)
+        with span("columnar.batch.compact", records=self._n, kept=len(keep)):
+            src = self._order[keep] if self._order is not None else keep
+            out = ColumnarBatch()
+            out._n = len(keep)
+            out._n_ref = self._n_ref
+            out._set_dev(self._gathered(keep))
+            out._blob, out._offsets = segment_gather(self._host_blob(),
+                                                     self._offsets, src)
         return out
 
     def encode_source(self):
@@ -338,7 +405,9 @@ class ColumnarBatch:
 
         if self._dev is None:
             return flagstat_counts(np.asarray(self.flag))
-        return flagstat_counts(self._dev["flag"])
+        out = flagstat_counts(self._dev["flag"])
+        self._consume_on_device("flag", 4 * self._n)
+        return out
 
     def sort_permutation(self) -> np.ndarray:
         """Coordinate-sort permutation: keys and one stable sort on the
@@ -349,10 +418,15 @@ class ColumnarBatch:
 
             return np.argsort(coordinate_keys(self.refid, self.pos),
                               kind="stable")
-        key = coordinate_key(self._dev["refid"], self._dev["pos"])
-        order = torch.sort(key, stable=True).indices.cpu().numpy()
+        with device_span("device.kernel", kernel="coordinate_keys",
+                         records=self._n) as fence:
+            key = coordinate_key(self._dev["refid"], self._dev["pos"])
+            order = fence.sync(torch.sort(key, stable=True).indices)
+        order = order.cpu().numpy()
         if key.is_cuda:
             counters.book_transfer("d2h", order.nbytes)
+        # the 8-byte-per-record keys stayed on the device
+        self._consume_on_device("sort_keys", 8 * self._n)
         return order
 
     # -- concat / release ---------------------------------------------------
@@ -373,8 +447,8 @@ class ColumnarBatch:
             self = cls()
             self._n = sum(b._n for b in batches)
             self._n_ref = batches[0]._n_ref
-            self._dev = {name: torch.cat([b._dev[name] for b in batches])
-                         for name in FIXED_COLUMNS}
+            self._set_dev({name: torch.cat([b._dev[name] for b in batches])
+                           for name in FIXED_COLUMNS})
             parts: List[np.ndarray] = []
             for b in batches:
                 parts.extend(b._blob_parts if b._blob_parts is not None
@@ -395,14 +469,37 @@ class ColumnarBatch:
                     at += b._n
                 self._order = np.concatenate(orders)
             for b in batches:
-                b.release()
+                # the inputs live on inside the concat: no avoidance
+                b._release(book_avoided=False)
             return self
         return ReadBatch.concat([as_read_batch(b) for b in batches])
 
     def release(self) -> None:
-        """Drop the device columns (host caches and blob stay)."""
+        """Drop the device columns (host caches and blob stay). The fixed
+        columns never fetched, and what device consumers used in place,
+        book into ``device.d2h_avoided_bytes``, and a
+        ``columnar.batch.release`` span records the batch's total."""
+        self._release(book_avoided=True)
+
+    def _release(self, book_avoided: bool) -> None:
         with self._lock:
+            if self._released or self._dev is None:
+                self._released = True
+                return
+            self._released = True
+            if book_avoided:
+                avoided = sum(4 * self._n for name in FIXED_COLUMNS
+                              if name not in self._cache
+                              and name not in self._consumed)
+                total = avoided + sum(self._consumed.values())
+                if total:
+                    counter("device.d2h_avoided_bytes").inc(total)
+                record_span("columnar.batch.release", 0.0, records=self._n,
+                            avoided_bytes=total)
             self._dev = None
+            if self._resident:
+                _note_resident(-self._resident)
+                self._resident = 0
 
 
 def _rebuild_from_blob(blob: np.ndarray, offsets: np.ndarray,

@@ -1,20 +1,23 @@
 """The counters this port books.
 
-Process-wide books, one lock for all of them (the shard executor runs
-decodes on several threads, so every ``+=`` goes through the lock):
+Process-wide books, views over the telemetry registry
+(``runtime/tracing.py``), so the port keeps one book:
 
 - ``launches[kernel]``: one per launch of a hand-written CUDA kernel,
   added by the kernel's wrapper right where it launches (the plain
-  versions on CPU tensors book nothing);
-- ``host_fallback_blocks[reason]``: BGZF blocks the device route
-  flagged, which the host then inflated block by block (the salvage
-  path of ``runtime/errors.py``);
-- ``transfer_bytes["h2d" | "d2h"]``: bytes copied between host and card
-  (on the legacy inflate route this includes the upload of the blob
-  assembled on the host);
+  versions on CPU tensors book nothing); the registry's
+  ``device.kernel_launches{kernel=}`` under the reference's kernel names
+  (``REFERENCE_KERNEL``: B1 ``inflate_simd``, B4 ``inflate``, B3
+  ``rans_simd``, B5 ``rans``, B2 ``parse``, W2 ``deflate_simd``, W1
+  ``encode_resident``), read back here under the port's;
+- ``host_fallback_blocks[reason]``: blocks the device route handed to
+  the host (``flagged`` by a kernel, ``expanded`` by the deflate coder);
+  the registry's ``device.host_fallback_blocks{reason=}``;
+- ``transfer_bytes["h2d" | "d2h"]``: bytes copied between host and card;
+  the registry's ``device.bytes_to_device`` / ``device.bytes_to_host``;
 - ``host_rans_streams["rans0" | "rans1"]``: rANS streams the host codec
   decoded, by order (on ``cuda`` every order-0 stream goes to a kernel,
-  so ``rans0`` stays 0 there);
+  so ``rans0`` stays 0 there; a port-only book);
 - the kernels' ``last_stats`` dicts, updated through ``add_stats``.
 
 ``reset()`` zeroes the books, so a caller can read exactly what one run
@@ -32,26 +35,43 @@ from collections import Counter
 from dataclasses import dataclass, fields
 from typing import Dict, Iterable
 
+from disq_tpu_torch.runtime.tracing import REGISTRY, count_transfer
+
+#: the port's kernel name → the reference's ``kernel=`` label
+REFERENCE_KERNEL = {
+    "inflate": "inflate_simd", "inflate_legacy": "inflate",
+    "rans_simd": "rans_simd", "rans": "rans", "parse": "parse",
+    "deflate": "deflate_simd", "record_gather": "encode_resident",
+}
+_PORT_KERNEL = {v: k for k, v in REFERENCE_KERNEL.items()}
+
 _lock = threading.Lock()
-launches: Counter = Counter()
-host_fallback_blocks: Counter = Counter()
-transfer_bytes: Counter = Counter()
 host_rans_streams: Counter = Counter()
 
 
+def _launch_counter():
+    return REGISTRY.counter("device.kernel_launches")
+
+
+def _fallback_counter():
+    return REGISTRY.counter("device.host_fallback_blocks")
+
+
+def _transfer_counters():
+    return {"h2d": REGISTRY.counter("device.bytes_to_device"),
+            "d2h": REGISTRY.counter("device.bytes_to_host")}
+
+
 def book_launch(kernel: str) -> None:
-    with _lock:
-        launches[kernel] += 1
+    _launch_counter().inc(kernel=REFERENCE_KERNEL.get(kernel, kernel))
 
 
 def book_host_fallback(reason: str, blocks: int = 1) -> None:
-    with _lock:
-        host_fallback_blocks[reason] += blocks
+    _fallback_counter().inc(blocks, reason=reason)
 
 
 def book_transfer(direction: str, nbytes: int) -> None:
-    with _lock:
-        transfer_bytes[direction] += int(nbytes)
+    count_transfer(direction, nbytes)
 
 
 def book_host_rans(order: int) -> None:
@@ -66,22 +86,39 @@ def add_stats(stats: Dict[str, int], **increments: int) -> None:
             stats[k] += int(v)
 
 
+def _by_label(counter, label: str) -> Dict[str, int]:
+    with REGISTRY._lock:
+        return {dict(key)[label]: int(v) for key, v in counter._values.items()
+                if v and label in dict(key)}
+
+
+def launches() -> Dict[str, int]:
+    """Launches by the port's kernel names."""
+    return {_PORT_KERNEL.get(k, k): n
+            for k, n in _by_label(_launch_counter(), "kernel").items()}
+
+
 def reset() -> None:
+    with REGISTRY._lock:
+        for c in (_launch_counter(), _fallback_counter(),
+                  *_transfer_counters().values()):
+            c._reset()
     with _lock:
-        launches.clear()
-        host_fallback_blocks.clear()
-        transfer_bytes.clear()
         host_rans_streams.clear()
 
 
 def snapshot() -> Dict[str, Dict[str, int]]:
+    with REGISTRY._lock:
+        transfer = {d: int(c.value()) for d, c in _transfer_counters().items()
+                    if c.value()}
     with _lock:
-        return {
-            "launches": dict(launches),
-            "host_fallback_blocks": dict(host_fallback_blocks),
-            "transfer_bytes": dict(transfer_bytes),
-            "host_rans_streams": dict(host_rans_streams),
-        }
+        rans = dict(host_rans_streams)
+    return {
+        "launches": launches(),
+        "host_fallback_blocks": _by_label(_fallback_counter(), "reason"),
+        "transfer_bytes": transfer,
+        "host_rans_streams": rans,
+    }
 
 
 # -- per-read counters ------------------------------------------------------

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from disq_tpu_torch.runtime import counters
+from disq_tpu_torch.runtime.tracing import device_span, span
 
 N_WORDS = 9
 
@@ -39,17 +40,19 @@ def gather_record_words(blob: torch.Tensor, starts: torch.Tensor) -> torch.Tenso
 
 
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array → tensor on ``device``, booking h2d bytes for a card.
-    A read-only array (a view of staged ``bytes``) is wrapped without a
-    copy: the tensor is only ever read — copied to the card, or read by
-    a plain version on the CPU."""
+    """Host array → tensor on ``device``, booking h2d bytes and a
+    ``device.transfer`` span for a card. A read-only array (a view of
+    staged ``bytes``) is wrapped without a copy: the tensor is only ever
+    read — copied to the card, or read by a plain version on the CPU."""
     array = np.ascontiguousarray(array)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         t = torch.from_numpy(array)
-    if device.type == "cuda":
-        counters.book_transfer("h2d", t.numel() * t.element_size())
-    return t.to(device)
+    if device.type != "cuda":
+        return t.to(device)
+    counters.book_transfer("h2d", t.numel() * t.element_size())
+    with span("device.transfer", direction="h2d"):
+        return t.to(device)
 
 
 def parse_columns_resident(
@@ -65,4 +68,6 @@ def parse_columns_resident(
 
     starts = upload(np.asarray(offsets[:-1], dtype=np.int64) + origin,
                     device_blob.device)
-    return columns(parse_records(device_blob, starts))
+    with device_span("device.kernel", kernel="columnar_parse",
+                     records=len(offsets) - 1) as fence:
+        return columns(fence.sync(parse_records(device_blob, starts)))

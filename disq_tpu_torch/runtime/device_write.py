@@ -34,6 +34,7 @@ import torch
 
 from disq_tpu_torch.bgzf.block import BGZF_MAX_PAYLOAD
 from disq_tpu_torch.ops import deflate as DF
+from disq_tpu_torch.runtime.tracing import device_span, span, track_hbm
 
 
 class EncodedShard:
@@ -84,21 +85,23 @@ class EncodedShard:
         expanded lanes deflate again on the host (zlib-6 or stored)."""
         if self.nbytes == 0:
             return b"", np.zeros(0, dtype=np.int64)
-        table = self.table()
-        bodies, end = self.encode()
-        body_h, end_h = DF.fetch(bodies, end, table)
-        del bodies, end
-        host = self.host_payload()
-        payloads = [host[b * BGZF_MAX_PAYLOAD: (b + 1) * BGZF_MAX_PAYLOAD]
-                    for b in range(self.n_blocks)]
         blocks: List[bytes] = [b""] * self.n_blocks
+        with span("device.deflate.encode", blocks=self.n_blocks):
+            table = self.table()
+            bodies, end = self.encode()
+            body_h, end_h = DF.fetch(bodies, end, table)
+            del bodies, end
+            host = self.host_payload()
+            payloads = [host[b * BGZF_MAX_PAYLOAD:
+                             (b + 1) * BGZF_MAX_PAYLOAD]
+                        for b in range(self.n_blocks)]
 
-        def host_route(flagged: List[int]) -> None:
-            for j in flagged:
-                blocks[j] = DF.host_block(payloads[j])
+            def host_route(flagged: List[int]) -> None:
+                for j in flagged:
+                    blocks[j] = DF.host_block(payloads[j])
 
-        DF.finalize_chunk(body_h, end_h, table, payloads, blocks.__setitem__,
-                          host_route)
+            DF.finalize_chunk(body_h, end_h, table, payloads,
+                              blocks.__setitem__, host_route)
         # only now: a step retried after a failure above finds its payload
         self.release()
         return DF.join_blocks(blocks)
@@ -133,6 +136,8 @@ class ResidentShardEncoder:
         np.cumsum(lens, out=self._perm_off[1:])
         self._device = torch.device(device)
         self._blob = upload(self._blob_u8, self._device)
+        self._hbm = self._blob_u8.nbytes
+        track_hbm(self._hbm)
 
     def encode_shard(self, lo: int, hi: int) -> EncodedShard:
         """Records [lo, hi) of the sorted batch gathered into one payload
@@ -146,14 +151,20 @@ class ResidentShardEncoder:
         if hi <= lo or nbytes == 0:
             return EncodedShard(self, lo, hi, None, 0,
                                 np.zeros(1, dtype=np.int64))
-        payload = gather_records(
-            self._blob, upload(self._src_starts[lo:hi], self._device),
-            upload(local_off, self._device), nbytes)
+        starts = upload(self._src_starts[lo:hi], self._device)
+        dst = upload(local_off, self._device)
+        with device_span("device.kernel", kernel="encode_resident",
+                         records=hi - lo) as fence:
+            payload = fence.sync(gather_records(self._blob, starts, dst,
+                                                nbytes))
         return EncodedShard(self, lo, hi, payload, nbytes, local_off)
 
     def release(self) -> None:
         """Drop the uploaded blob (the write's parts stage is done)."""
         self._blob = None
+        if self._hbm:
+            track_hbm(-self._hbm)
+            self._hbm = 0
 
 
 def resident_encoder_for(storage, batch) -> Optional[ResidentShardEncoder]:

@@ -31,6 +31,8 @@ import time
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Optional, TypeVar
 
+from disq_tpu_torch.runtime.tracing import counter, span, start_span_log
+
 T = TypeVar("T")
 
 
@@ -80,6 +82,12 @@ class DisqOptions:
     sorted device-backed batch gathers its records with kernel W1. Its
     blocks are valid BGZF that decompresses to the same bytes, but not
     the zlib-6 bytes, so it is off by default.
+
+    ``span_log`` points the process-wide JSONL span sink
+    (``runtime/tracing.py``) at a path when a read through the storage
+    starts, as ``DISQ_TPU_TORCH_TRACE_JSONL`` does: one sink per
+    process, the storage that most recently started a read wins, and it
+    keeps collecting until ``stop_span_log()``.
     """
 
     error_policy: ErrorPolicy = ErrorPolicy.STRICT
@@ -92,6 +100,7 @@ class DisqOptions:
     writer_prefetch_shards: Optional[int] = None
     read_ledger: Optional[str] = None
     device_deflate: bool = False
+    span_log: Optional[str] = None
 
     def with_policy(self, policy: "ErrorPolicy | str") -> "DisqOptions":
         return replace(self, error_policy=ErrorPolicy.coerce(policy))
@@ -241,8 +250,10 @@ class ShardRetrier:
                     raise
                 attempt += 1
                 self.retried += 1
+                counter("retry.attempts").inc(what=what)
                 prev_sleep = self._next_backoff(prev_sleep)
-                self._sleep(prev_sleep)
+                with span("retry.backoff", what=what, attempt=attempt):
+                    self._sleep(prev_sleep)
 
 
 @dataclass
@@ -287,8 +298,12 @@ class ShardErrorContext:
                 self.path, block_offset, raw, shard_id=self.shard_id,
                 virtual_offset=virtual_offset, error=str(error), kind=kind)
             self.quarantined_blocks += 1
+            if not getattr(self, "_is_silent", False):
+                counter("quarantine.blocks").inc(kind=kind)
         else:
             self.skipped_blocks += 1
+            if not getattr(self, "_is_silent", False):
+                counter("errors.skipped_blocks").inc(kind=kind)
 
     def silent(self) -> "ShardErrorContext":
         """A non-counting view for blocks this shard reads but does not
@@ -296,8 +311,11 @@ class ShardErrorContext:
         counts and quarantines them. STRICT still raises."""
         if self.policy is ErrorPolicy.STRICT:
             return self
-        return ShardErrorContext(policy=ErrorPolicy.SKIP, path=self.path,
-                                 shard_id=self.shard_id)
+        ctx = ShardErrorContext(policy=ErrorPolicy.SKIP, path=self.path,
+                                shard_id=self.shard_id)
+        # nor does it book the telemetry counters: the owner does
+        ctx._is_silent = True  # type: ignore[attr-defined]
+        return ctx
 
     # two shards meeting their first corrupt block at once share ONE
     # manifest: sink creation is locked
@@ -330,8 +348,11 @@ class ShardErrorContext:
 
 def context_for_storage(storage, path: str) -> ShardErrorContext:
     """The read's error context from the storage's ``DisqOptions``
-    (absent ⇒ STRICT, 3 retries)."""
+    (absent ⇒ STRICT, 3 retries). Every source starts here, so this is
+    also where ``span_log`` starts the JSONL span sink."""
     opts = getattr(storage, "_options", None) or DisqOptions()
+    if opts.span_log:
+        start_span_log(opts.span_log)
     return ShardErrorContext(
         policy=ErrorPolicy.coerce(opts.error_policy), path=path,
         retrier=ShardRetrier(opts.max_retries, opts.retry_backoff_s),

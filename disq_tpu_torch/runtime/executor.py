@@ -33,6 +33,12 @@ Guarantees:
 
 Kernel launches from decode threads go to the calling thread's current
 CUDA stream; the executor adds no streams of its own.
+
+Telemetry (``runtime/tracing.py``, the reference's names): per-shard
+``executor.fetch`` / ``executor.decode`` spans, the ordered-emit stall
+spans ``executor.emit.stall`` / ``writer.emit.stall`` (waits over half a
+millisecond), and the window-depth gauges ``executor.in_flight`` /
+``writer.in_flight``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,10 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 from disq_tpu_torch.runtime.errors import DisqOptions, ShardRetrier, is_transient
 from disq_tpu_torch.runtime.manifest import retry_shard
+from disq_tpu_torch.runtime.tracing import observe_gauge, record_span, span
+
+# an emit wait shorter than this is no stall worth a span
+_STALL_SPAN_S = 0.0005
 
 
 @dataclass
@@ -88,19 +98,22 @@ class _BoundedStagePipeline:
     """N stages, one pool each, ordered streaming emit keyed by task
     index, first-error abort. ``stage_fns[i](task, payload)`` runs stage
     ``i`` (``payload`` is None for stage 0). ``on_admit(depth)`` keeps
-    the in-flight high-water mark and runs with the pipeline's condition
+    the in-flight high-water mark and ``on_stall(seconds, task)`` books
+    each ordered-emit wait; both run with the pipeline's condition
     held."""
 
     def __init__(self, workers: int, window: int,
                  stage_fns: Sequence[Callable[[Any, Any], Any]],
                  thread_prefixes: Sequence[str],
                  on_admit: Callable[[int], None],
+                 on_stall: Callable[[float, Any], None],
                  drain_on_close: bool = False) -> None:
         self.workers = workers
         self.window = window
         self.stage_fns = list(stage_fns)
         self.thread_prefixes = list(thread_prefixes)
         self.on_admit = on_admit
+        self.on_stall = on_stall
         # the write side drains running jobs at close, so an aborting
         # sink never races a part write against its temp-dir cleanup
         self.drain_on_close = drain_on_close
@@ -163,8 +176,10 @@ class _BoundedStagePipeline:
             try:
                 for i in range(len(tasks)):
                     with cond:
+                        t0 = time.perf_counter()
                         while i not in results and i not in errors:
                             cond.wait()
+                        self.on_stall(time.perf_counter() - t0, tasks[i])
                         if i in errors:
                             state["aborted"] = True
                             raise errors[i]
@@ -218,10 +233,12 @@ class ShardPipelineExecutor:
 
         def attempt():
             t0 = time.perf_counter()
-            payload = task.fetch()
+            with span("executor.fetch", shard=task.shard_id):
+                payload = task.fetch()
             t1 = time.perf_counter()
             times[0] += t1 - t0
-            value = task.decode(payload)
+            with span("executor.decode", shard=task.shard_id):
+                value = task.decode(payload)
             times[1] += time.perf_counter() - t1
             return value
 
@@ -233,18 +250,30 @@ class ShardPipelineExecutor:
 
     def _run_pipelined(self, tasks: List[ShardTask]) -> Iterator[ShardResult]:
         def fetch_fn(task: ShardTask, _payload: Any) -> Any:
-            if task.retrier is not None:
-                return task.retrier.call(task.fetch, what=f"{task.what}.fetch")
-            return task.fetch()
+            with span("executor.fetch", shard=task.shard_id):
+                if task.retrier is not None:
+                    return task.retrier.call(task.fetch,
+                                             what=f"{task.what}.fetch")
+                return task.fetch()
+
+        def decode_fn(task: ShardTask, payload: Any) -> Any:
+            with span("executor.decode", shard=task.shard_id):
+                return self._decode_with_refetch(task, payload)
 
         def on_admit(depth: int) -> None:
             self.stats.max_in_flight = max(self.stats.max_in_flight, depth)
+            observe_gauge("executor.in_flight", depth)
+
+        def on_stall(stall: float, task: ShardTask) -> None:
+            if stall > _STALL_SPAN_S:
+                record_span("executor.emit.stall", stall,
+                            shard=task.shard_id)
 
         core = _BoundedStagePipeline(
             workers=self.workers, window=self.stats.window,
-            stage_fns=(fetch_fn, self._decode_with_refetch),
+            stage_fns=(fetch_fn, decode_fn),
             thread_prefixes=("disq-torch-fetch", "disq-torch-decode"),
-            on_admit=on_admit)
+            on_admit=on_admit, on_stall=on_stall)
         inner = core.run(tasks)
         return (ShardResult(tasks[idx].shard_id, value, secs[0], secs[1])
                 for idx, value, secs in inner)
@@ -417,12 +446,17 @@ class ShardWritePipeline:
 
         def on_admit(depth: int) -> None:
             self.stats.max_in_flight = max(self.stats.max_in_flight, depth)
+            observe_gauge("writer.in_flight", depth)
+
+        def on_stall(stall: float, task: WriteShardTask) -> None:
+            if stall > _STALL_SPAN_S:
+                record_span("writer.emit.stall", stall, shard=task.shard_id)
 
         core = _BoundedStagePipeline(
             workers=self.workers, window=self.stats.window,
             stage_fns=[getattr(self, f"_{step}") for step in steps],
             thread_prefixes=[prefix for _s, prefix in used],
-            on_admit=on_admit, drain_on_close=True)
+            on_admit=on_admit, on_stall=on_stall, drain_on_close=True)
         for idx, value, _secs in core.run(tasks):
             yield WriteShardResult(tasks[idx].shard_id, value)
 

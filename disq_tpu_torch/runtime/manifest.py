@@ -30,7 +30,8 @@ Counterparts of ``disq_tpu/runtime/manifest.py``, with its file layouts:
     bytes; ``pathtag`` is a digest of the input path, so several inputs
     can share one directory.
 
-``RUN_ID`` names this process's run (one per process): quarantine lines
+``RUN_ID`` (``runtime/tracing.py``'s, so the span log and the ledgers
+name a run alike) names this process's run: quarantine lines
 and every shard a manifest marks done carry it, so a resumed manifest
 tells which run completed each shard. Every ledger is mutated under a
 lock: the pipelines' worker threads record shards at the same time.
@@ -46,9 +47,10 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from disq_tpu_torch.runtime.tracing import RUN_ID, span
+
 FORMAT_VERSION = 1
 QUARANTINE_FORMAT_VERSION = 1
-RUN_ID = f"{os.getpid():x}-{time.time_ns() & 0xFFFFFFFF:08x}"
 # extra attempts of each step of a checkpointed shard
 STAGE_RETRIES = 1
 
@@ -284,7 +286,14 @@ class QuarantineManifest:
                    error: str = "", kind: str = "block") -> str:
         """Copy one corrupt block aside; returns the sidecar path. The
         sidecar is committed (temp file + rename) before the ledger
-        line that names it."""
+        line that names it. Timed as a ``quarantine.write`` span."""
+        with span("quarantine.write", shard=shard_id,
+                  block_offset=block_offset, kind=kind):
+            return self._quarantine(path, block_offset, raw, shard_id,
+                                    virtual_offset, error, kind)
+
+    def _quarantine(self, path, block_offset, raw, shard_id, virtual_offset,
+                    error, kind) -> str:
         os.makedirs(self.base_dir, exist_ok=True)
         tag = hashlib.sha1(path.encode()).hexdigest()[:8]
         sidecar = os.path.join(self.base_dir, f"block-{tag}-{block_offset}.bin")
