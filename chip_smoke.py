@@ -5,7 +5,7 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py [--seed 0] [--records 2000000]
 
-It builds the seven CUDA kernels from ``disq_tpu_torch/csrc`` (one
+It builds the eight CUDA kernels from ``disq_tpu_torch/csrc`` (one
 ``nvcc`` each, all started together), synthesizes an unsorted paired-end
 BAM from the seed (150 bp reads over 3 references, compressed with
 stdlib zlib into standard BGZF blocks), and drives the port's paths
@@ -42,6 +42,10 @@ through their public entry points on ``cuda``:
     storage.num_shards(8).writer_workers(4).device_deflate().write(
         sorted_host, out, BaiWriteOption.ENABLE, SbiWriteOption.ENABLE)
     tracing.start_trace(dir); storage.read(path); tracing.stop_trace()
+    storage.read_filter("-F 0x904 -q 20 -s 7.5").read(dups)        # F1
+    ds.pipeline(("filter", "-F 0x400"), "sort", "markdup", "rgstats",
+                ("pileup", 0, 1_000_000, 5_194_304))               # resident
+    host_ds.pipeline(...); storage.write(result, out)              # host
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -110,7 +114,18 @@ the ``device.hbm_bytes`` gauge's peak over the read beside
 ``torch.cuda.max_memory_allocated``; the ``trace`` line counts B1 and B2
 kernel events in a ``torch.profiler`` trace of one BAM read against
 their launches and, when they agree, gives the device's busy share of
-the read. Any failed phase exits non-zero.
+the read. The operators phase writes ``dups.bam`` (the same generator,
+a seeded 5 % of pairs copying another pair's refid, pos, CIGAR and
+flags under their own names and qualities) and checks the filtered read
+against a numpy mask of this script's own (FNV-1a names, the subsample
+mix), F1 once per split; F1 against its plain version on every record;
+the chain on the device-backed dataset and on a host ``ReadBatch`` copy:
+equal stats, duplicates equal to a numpy group oracle over the
+generator's columns, per-RG counts and coverage equal to the generator's,
+no host record parse on the resident chain, both results written with
+zlib-6 byte for byte and their 0x400 count equal to the stats; and
+times the markdup scan and the RG reduction (torch ops) alone. Any
+failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -2777,6 +2792,396 @@ def trace_leg(torch, port, args, src, work) -> dict:
     return res
 
 
+# -- operators (A12): the read filter in the decode, and a resident chain ----
+
+DUP_PAIR_FRACTION = 0.05     # pairs that copy another pair's alignment
+OPS_FILTER = "-F 0x904 -q 20 -s 7.5"
+OPS_CHAIN = (("filter", "-F 0x400"), "sort", "markdup", "rgstats",
+             ("pileup", 0, 1_000_000, 5_194_304))
+F1_BYTES_PER_RECORD = 13     # flag, mapq and name hash in; one byte out
+
+
+def synthesize_dups(n: int, seed: int) -> dict:
+    """``synthesize(n, seed)`` in which a seeded 5 % of pairs copy another
+    pair's refid, pos, CIGAR and flags (and what follows from them: bin,
+    mate fields, tlen) under their own names, sequences, qualities and
+    tags. Sources are drawn with replacement from the other pairs, so
+    duplicate groups of 2 and more exist."""
+    g = synthesize(n, seed)
+    rng = np.random.default_rng([seed, 5])
+    pairs = n // 2
+    k = int(pairs * DUP_PAIR_FRACTION)
+    pick = rng.permutation(pairs)
+    dst = pick[:k]
+    src = pick[k:][rng.integers(0, pairs - k, k)]
+    for col in ("refid", "pos", "bin", "flag", "next_refid", "next_pos",
+                "tlen", "ncig", "cig"):
+        for mate in (0, 1):
+            g[col][2 * dst + mate] = g[col][2 * src + mate]
+    return g
+
+
+def fnv1a_rows(names: np.ndarray) -> np.ndarray:
+    """u32 FNV-1a of each row of an (n, L) byte array."""
+    h = np.full(len(names), 0x811C9DC5, np.uint32)
+    for j in range(names.shape[1]):
+        h = (h ^ names[:, j]) * np.uint32(0x01000193)
+    return h
+
+
+def subsample_keep(h: np.ndarray, seed: int, frac: float) -> np.ndarray:
+    """samtools-style ``-s SEED.FRAC`` on u32 name hashes: a splitmix32
+    finalizer of hash ^ seed mix against FRAC * 2**32."""
+    x = h ^ np.uint32((seed * 0x9E3779B9) & 0xFFFFFFFF)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x7FEB352D)
+    x ^= x >> np.uint32(15)
+    x *= np.uint32(0x846CA68B)
+    x ^= x >> np.uint32(16)
+    return x < np.uint32(min(0xFFFFFFFF, round(frac * 2 ** 32)))
+
+
+def cigar_extents(g: dict):
+    """(reference span, leading clip, trailing clip) of every generator
+    record from its op table (clips are soft, at either end)."""
+    code, length = g["cig"] & 0xF, (g["cig"] >> 4).astype(np.int64)
+    used = np.arange(3)[None, :] < g["ncig"][:, None]
+    span = (length * (used & np.isin(code, (0, 2, 3, 7, 8)))).sum(1)
+    clip = used & (code == 4)
+    lead = np.where(clip[:, 0], length[:, 0], 0)
+    last = np.maximum(g["ncig"] - 1, 0)
+    rows = np.arange(len(last))
+    trail = np.where(clip[rows, last] & (g["ncig"] > 1),
+                     length[rows, last], 0)
+    return span, lead, trail
+
+
+def numpy_markdup(g: dict, rows: np.ndarray):
+    """Duplicate flags of the generator's records ``rows`` (coordinate
+    order): key (refid, unclipped 5' position, strand) among records not
+    unmapped, secondary or supplementary; in each key group all but the
+    best sum of qualities >= 15 (the first on ties) are duplicates.
+    Returns the flags and the key columns (refid, upos, strand, score,
+    examined)."""
+    span, lead, trail = (a[rows] for a in cigar_extents(g))
+    flag = g["flag"][rows].astype(np.int64)
+    refid = g["refid"][rows].astype(np.int64)
+    pos = g["pos"][rows].astype(np.int64)
+    rev = (flag & 0x10) != 0
+    upos = np.where(rev, pos + np.maximum(span, 1) - 1 + trail, pos - lead)
+    q = g["qual"][rows].astype(np.int64)
+    score = (q * (q >= 15)).sum(1)
+    valid = ((flag & 0x904) == 0) & (refid >= 0)
+    idx = np.arange(len(rows))
+    hi = np.where(valid, refid, 1 << 40)
+    up = np.where(valid, upos, idx)
+    order = np.lexsort((-score, rev, up, hi))
+    first = np.ones(len(rows), bool)
+    first[1:] = ((hi[order][1:] != hi[order][:-1])
+                 | (up[order][1:] != up[order][:-1])
+                 | (rev[order][1:] != rev[order][:-1]))
+    dup = np.zeros(len(rows), bool)
+    dup[order] = ~first & valid[order]
+    return dup, (refid, upos, rev.astype(np.int64), score, valid)
+
+
+def timed_ops(pipe, seconds: dict, torch) -> None:
+    """Wrap each op's ``apply`` to add its seconds (to the end of its
+    device work) into ``seconds[op name]``."""
+    for op in pipe.ops:
+        def apply(batch, shard, _orig=op.apply, _name=op.name):
+            t0 = time.perf_counter()
+            out = _orig(batch, shard)
+            torch.cuda.synchronize()
+            seconds[_name] = round(seconds.get(_name, 0.0)
+                                   + time.perf_counter() - t0, 4)
+            return out
+
+        op.apply = apply
+
+
+def graph_ms_or_none(torch, fn, what: str):
+    """``graph_ms`` of a chain of torch ops, or None (logged) when the
+    chain cannot be captured in a CUDA graph."""
+    try:
+        return round(graph_ms(torch, fn, 5, 3), 4)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        log(f"{what}: no CUDA graph ({e}); device time not measured")
+        return None
+
+
+def operator_legs(torch, port, args, work, dev):
+    """The operator suite on ``dups.bam``: (a) a read with
+    ``.read_filter(OPS_FILTER)`` equal to the generator's records under a
+    numpy mask of this script's own, F1 once per split; (b) F1 against
+    its plain version on every record; (c) ``OPS_CHAIN`` on the resident
+    dataset and on a host copy, equal to each other and to numpy oracles
+    of the generator (duplicates, per-RG stats, coverage), both written
+    with zlib-6 byte-identical. Returns F1's ``kernels`` entry and the
+    phase's end-to-end numbers."""
+    from disq_tpu_torch.ops import cuda_build
+    from disq_tpu_torch.ops import markdup as MD
+    from disq_tpu_torch.ops import rfilter as RF
+    from disq_tpu_torch.ops import rgstats as RG
+    from disq_tpu_torch.runtime import counters, tracing
+    from disq_tpu_torch.runtime.oppipe import OpPipeline
+
+    n = args.records
+    t0 = time.perf_counter()
+    g = synthesize_dups(n, args.seed)
+    dups = os.path.join(work, "dups.bam")
+    info = write_bam(dups, g, n)
+    synth_s = time.perf_counter() - t0
+    n_splits = -(-info["file_bytes"] // args.split_size)
+    name_hash = fnv1a_rows(g["names"])
+    # OPS_FILTER's terms: -F 0x904, -q 20, -s 7.5 (seed 7, keep 0.5)
+    keep = (((g["flag"] & 0x904) == 0) & (g["mapq"] >= 20)
+            & subsample_keep(name_hash, 7, 0.5))
+    log(f"operators: dups.bam {n} reads ({int(n // 2 * DUP_PAIR_FRACTION)} "
+        f"copied pairs), {info['file_bytes']} bytes, {n_splits} splits, "
+        f"{synth_s:.1f}s")
+
+    # (a) the read filter inside the decode
+    tracing.reset_telemetry()
+    counters.reset()
+    t0 = time.perf_counter()
+    fds = port.ReadsStorage.make_default().split_size(args.split_size) \
+        .read_filter(OPS_FILTER).read(dups)
+    torch.cuda.synchronize()
+    filt_s = time.perf_counter() - t0
+    la = counters.snapshot()["launches"]
+    kept_in = tracing.REGISTRY.counter("ops.filter.records_in").total()
+    kept_out = tracing.REGISTRY.counter("ops.filter.records_kept").total()
+    rows = np.nonzero(keep)[0]
+    equal_to_generator(torch, fds, g, rows, "filtered read")
+    check(la.get("read_filter", 0) == n_splits,
+          f"F1 launches {la.get('read_filter', 0)}, want one per split "
+          f"({n_splits})")
+    check(la.get("inflate", 0) == n_splits and la.get("parse", 0) == n_splits,
+          f"B1/B2 launches on the filtered read: {la}")
+    check((kept_in, kept_out) == (n, len(rows)),
+          f"ops.filter counters {kept_in} -> {kept_out}")
+    log(f"operators (a) filtered read: {filt_s:.3f}s, {len(rows)} of {n} "
+        f"kept, equal to the numpy mask; launches {json.dumps(la)}")
+    del fds
+
+    # (b) F1 against its plain version on every record
+    rf = RF.parse_read_filter(OPS_FILTER)
+    flag_d = torch.from_numpy(g["flag"].astype(np.int32)).to(dev)
+    mapq_d = torch.from_numpy(g["mapq"].astype(np.int32)).to(dev)
+    nh_d = torch.from_numpy(name_hash.view(np.int32)).to(dev)
+    ops_ = (rf.require_flags, rf.exclude_flags, rf.min_mapq, rf.seed_mix,
+            rf.threshold)
+    k_mask = RF.build_mask(flag_d, mapq_d, nh_d, *ops_)
+    p_mask = RF.mask_plain(flag_d, mapq_d, nh_d, *ops_)
+    torch.cuda.synchronize()
+    f1_err = int((k_mask.int() - p_mask.int()).abs().max())
+    f1_mism = int((k_mask != p_mask).sum())
+    check(f1_err == 0 and f1_mism == 0,
+          f"read_filter kernel != plain version on {f1_mism} records")
+    check(np.array_equal(k_mask.cpu().numpy().astype(bool), keep),
+          "read_filter kernel != the numpy mask")
+    per = -(-n // n_splits)
+    sl = (flag_d[:per], mapq_d[:per], nh_d[:per])
+    f1_ms = cuda_ms(torch, lambda: RF.build_mask(*sl, *ops_), 3, 20)
+    f1_dev = graph_ms(torch, lambda: RF.build_mask(*sl, *ops_))
+    f1_plain = cuda_ms(torch, lambda: RF.mask_plain(*sl, *ops_), 2, 10)
+    full = (flag_d, mapq_d, nh_d)
+    f1_all_ms = cuda_ms(torch, lambda: RF.build_mask(*full, *ops_), 3, 20)
+    f1_all_dev = graph_ms(torch, lambda: RF.build_mask(*full, *ops_))
+    f1_all_plain = cuda_ms(torch, lambda: RF.mask_plain(*full, *ops_), 2, 10)
+    f1_geom = cuda_build.geometry("read_filter", per)
+    log(f"read_filter: all {n} records exact against the plain version and "
+        f"the numpy mask; {per} records: kernel {f1_ms:.4f} ms through the "
+        f"wrapper, {f1_dev:.4f} ms on the device alone, plain "
+        f"{f1_plain:.4f} ms; {n} records: {f1_all_ms:.4f} / {f1_all_dev:.4f}"
+        f" / plain {f1_all_plain:.4f} ms; geometry {json.dumps(f1_geom)}")
+    del k_mask, p_mask, flag_d, mapq_d, nh_d, sl, full
+
+    # (c) the chain, resident and on a host copy
+    storage = port.ReadsStorage.make_default().split_size(args.split_size)
+    ds = storage.read(dups)
+    mat = tracing.REGISTRY.counter("columnar.batch.materializations")
+    avoided = tracing.REGISTRY.counter("device.d2h_avoided_bytes")
+    names = ("ops.filter.records_in", "ops.filter.records_kept",
+             "ops.markdup.duplicates", "ops.markdup.boundary_flips",
+             "ops.pileup.records")
+    runs = {}
+    for leg in ("resident", "host"):
+        if leg == "host":
+            t0 = time.perf_counter()
+            ds = port.ReadsDataset(header=ds.header,
+                                   reads=ds.reads.to_read_batch(), device=dev)
+            host_copy_s = time.perf_counter() - t0
+        tracing.reset_spans()
+        counters.reset()
+        c0 = {k: tracing.REGISTRY.counter(k).total() for k in names}
+        m0, a0 = mat.total(), avoided.total()
+        pipe = OpPipeline(*OPS_CHAIN, device=dev)
+        per_op = {}
+        timed_ops(pipe, per_op, torch)
+        t0 = time.perf_counter()
+        out, stats = ds.pipeline(pipe)
+        torch.cuda.synchronize()
+        runs[leg] = {
+            "ds": out, "stats": stats, "s": round(time.perf_counter() - t0, 4),
+            "per_op_s": per_op,
+            "spans": {k: v for k, v in span_sums(tracing).items()
+                      if k.startswith(("ops.", "device.kernel["))},
+            "counters": {k: tracing.REGISTRY.counter(k).total() - c0[k]
+                         for k in names},
+            "launches": counters.snapshot()["launches"],
+            "materializations": mat.total() - m0,
+            "d2h_avoided": avoided.total() - a0}
+    res, host = runs["resident"], runs["host"]
+    check(res["ds"].reads.device_backed, "the resident chain left the card")
+    check(res["materializations"] == 0,
+          f"the resident chain parsed records on the host "
+          f"({res['materializations']})")
+    check(res["d2h_avoided"] > 0, "the resident chain avoided no d2h")
+    check(res["launches"].get("read_filter", 0) == 1,
+          f"F1 launches on the chain: {res['launches']}")
+    rs, hs = res["stats"], host["stats"]
+    check(rs["markdup"] == hs["markdup"] and rs["rgstats"] == hs["rgstats"]
+          and np.array_equal(rs["pileup"]["coverage"],
+                             hs["pileup"]["coverage"]),
+          "resident and host chains disagree")
+    check(res["counters"] == host["counters"],
+          f"ops counters: {res['counters']} vs {host['counters']}")
+
+    # the generator's truth: filter, stable coordinate sort, markdup
+    rows = np.nonzero((g["flag"] & 0x400) == 0)[0]
+    rows = rows[np.argsort(coordinate_keys(g["refid"][rows], g["pos"][rows]),
+                           kind="stable")]
+    t0 = time.perf_counter()
+    dup_want, keys = numpy_markdup(g, rows)
+    oracle_s = time.perf_counter() - t0
+    got_flag = res["ds"].reads.flag
+    check(np.array_equal((got_flag & 0x400) != 0, dup_want),
+          "duplicates differ from the numpy group oracle")
+    check(np.array_equal(host["ds"].reads.flag, got_flag),
+          "host chain flags differ")
+    check(rs["markdup"]["duplicates"] == int(dup_want.sum()) > 0,
+          f"markdup stats {rs['markdup']}, oracle {int(dup_want.sum())}")
+    rg = (rows // 2) % 4
+    for name in rs["rgstats"]:
+        sel = rg == int(name[3:])
+        hist = np.bincount(g["mapq"][rows][sel], minlength=256)
+        want = {"reads": int(sel.sum()), "duplicates": int(dup_want[sel].sum()),
+                "mapq_hist": hist.tolist()}
+        got = {key: rs["rgstats"][name][key] for key in want}
+        check(got == want, f"rgstats {name} differs from the generator")
+    check(sum(v["reads"] for v in rs["rgstats"].values()) == len(rows),
+          "rgstats reads")
+    _refid, start, end = OPS_CHAIN[-1][1:]
+    span = cigar_extents(g)[0][rows]
+    pos = g["pos"][rows].astype(np.int64)
+    ends = pos + np.maximum(span, 1)
+    sel = (((g["flag"][rows] & 4) == 0) & (g["refid"][rows] == _refid)
+           & (pos < end) & (ends > start))
+    diff = np.zeros(end - start + 1, np.int64)
+    np.add.at(diff, np.clip(pos[sel] - start, 0, end - start - 1), 1)
+    np.add.at(diff, np.clip(ends[sel] - 1 - start, 0, end - start - 1) + 1,
+              -1)
+    check(np.array_equal(rs["pileup"]["coverage"], np.cumsum(diff)[:-1]),
+          "pileup differs from the numpy difference array")
+
+    # both results written with zlib-6: byte-identical
+    outs, write_s = {}, {}
+    for leg in ("resident", "host"):
+        outs[leg] = os.path.join(work, f"ops_{leg}.bam")
+        t0 = time.perf_counter()
+        storage.write(runs[leg]["ds"], outs[leg])
+        write_s[leg] = round(time.perf_counter() - t0, 4)
+    with open(outs["resident"], "rb") as a, open(outs["host"], "rb") as b:
+        check(a.read() == b.read(),
+              "resident and host chains wrote different BAMs")
+    back = storage.read(outs["resident"])
+    check(back.count() == len(rows), "written chain: record count")
+    check(int(((back.reads.flag & 0x400) != 0).sum())
+          == rs["markdup"]["duplicates"], "written chain: 0x400 count")
+    del back
+
+    # the scan and the reduction alone, on the chain's inputs
+    refid, upos, orient, score, valid = keys
+    cols = [torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+            for a in (refid, upos, orient, score)]
+    ok = torch.from_numpy(valid).to(dev)
+    scan = MD.group_scan(*cols, ok)
+    check(np.array_equal(scan[0].cpu().numpy(), dup_want),
+          "group scan on the card != the numpy oracle")
+    scan_ms = cuda_ms(torch, lambda: MD.group_scan(*cols, ok), 1, 5)
+    scan_dev = graph_ms_or_none(torch, lambda: MD.group_scan(*cols, ok),
+                                "markdup scan")
+    t0 = time.perf_counter()
+    MD._mark_dups_host(refid, upos, orient, score, valid)
+    scan_plain = (time.perf_counter() - t0) * 1e3
+    m = len(rows)
+    rg_ids, rg_names = RG.read_group_ids(res["ds"].reads)
+    rg_d = torch.from_numpy(rg_ids.astype(np.int64)).to(dev)
+    resident_cols = res["ds"].reads.device_columns()
+    red = lambda: RG.rg_reduce(rg_d, resident_cols["mapq"],  # noqa: E731
+                               resident_cols["flag"], len(rg_names))
+    red_ms = cuda_ms(torch, red, 1, 5)
+    red_dev = graph_ms_or_none(torch, red, "rgstats reduction")
+    mq, fl = g["mapq"][rows].astype(np.int64), got_flag.astype(np.int64)
+    t0 = time.perf_counter()
+    np.bincount(rg_ids * 256 + mq, minlength=len(rg_names) * 256)
+    np.bincount(rg_ids, weights=(fl >> 10) & 1, minlength=len(rg_names))
+    red_plain = (time.perf_counter() - t0) * 1e3
+    torch_ops = {
+        "markdup_scan": {"records": m, "ms": round(scan_ms, 4),
+                         "ms_device": scan_dev,
+                         "bound_ms": round(34 * m / HBM_BYTES_PER_S * 1e3, 6),
+                         "plain_ms_host_numpy": round(scan_plain, 4)},
+        "rgstats_reduction": {"records": m, "ms": round(red_ms, 4),
+                              "ms_device": red_dev,
+                              "bound_ms": round(16 * m / HBM_BYTES_PER_S
+                                                * 1e3, 6),
+                              "plain_ms_host_numpy": round(red_plain, 4)}}
+    log(f"operators (c) chain {json.dumps(OPS_CHAIN)}: "
+        f"resident {res['s']}s (per op {json.dumps(res['per_op_s'])}), host "
+        f"{host['s']}s (per op {json.dumps(host['per_op_s'])}; host copy "
+        f"{host_copy_s:.3f}s); {m} records after the filter, "
+        f"{rs['markdup']['duplicates']} duplicates = the numpy oracle "
+        f"({oracle_s:.3f}s), rgstats and coverage = the generator's; "
+        f"writes {json.dumps(write_s)} byte-identical; resident "
+        f"materializations 0, d2h avoided {res['d2h_avoided']} bytes; "
+        f"ops counters {json.dumps(res['counters'])}")
+    log(f"operators spans: resident {json.dumps(res['spans'])}; host "
+        f"{json.dumps(host['spans'])}")
+    log(f"operators torch ops: {json.dumps(torch_ops)}")
+    entry = {
+        "name": "read_filter", "route": "cuda",
+        "source": "disq_tpu_torch/csrc/read_filter.cu",
+        "replaces": "disq_tpu/ops/rfilter.py:201",
+        "launches": la.get("read_filter", 0), "max_abs_err": f1_err,
+        "ms": round(f1_ms, 4), "plain_ms": round(f1_plain, 4),
+        "ms_device": round(f1_dev, 4),
+        "bound_ms": round(F1_BYTES_PER_RECORD * per / HBM_BYTES_PER_S * 1e3,
+                          6),
+        "bound_by": "bytes", "library_ms": None,
+        "mismatches": f1_mism, "tolerance": 0, "shape": {"records": per},
+        "plain_on": "the same inputs, on the card",
+        "all_records": {
+            "records": n, "ms": round(f1_all_ms, 4),
+            "ms_device": round(f1_all_dev, 4),
+            "plain_ms": round(f1_all_plain, 4),
+            "bound_ms": round(F1_BYTES_PER_RECORD * n / HBM_BYTES_PER_S
+                              * 1e3, 6)},
+        "launches_on_chain": res["launches"].get("read_filter", 0),
+        "geometry": f1_geom}
+    e2e = {"ops_synth_s": round(synth_s, 3), "ops_filtered_read_s":
+           round(filt_s, 4), "ops_chain_resident_s": res["s"],
+           "ops_chain_host_s": host["s"], "ops_host_copy_s":
+           round(host_copy_s, 4), "ops_write_s": write_s,
+           "ops_per_op_s": {"resident": res["per_op_s"],
+                            "host": host["per_op_s"]},
+           "ops_torch_ops": torch_ops}
+    return entry, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -2803,7 +3208,8 @@ def run(args) -> dict:
     log(f"setup: CUDA context and host library {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     build_s = cuda_build.build(["inflate", "parse", "rans_simd", "rans",
-                                "inflate_legacy", "record_gather", "deflate"])
+                                "inflate_legacy", "record_gather", "deflate",
+                                "read_filter"])
     log(f"build: {json.dumps({k: round(v, 3) for k, v in build_s.items()})} "
         f"wall {time.perf_counter() - t0:.3f}s")
 
@@ -3113,6 +3519,10 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     traced = trace_leg(torch, port, args, src, work)
     log(f"phase trace: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    f1_entry, operators_e2e = operator_legs(torch, port, args, work, dev)
+    kernels.append(f1_entry)
+    log(f"phase operators: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
@@ -3132,7 +3542,7 @@ def run(args) -> dict:
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
-           **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e,
+           **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")

@@ -29,6 +29,11 @@ Usage::
     storage.device_deflate().write(ds, "sorted.bam", BaiWriteOption.ENABLE,
                                    sort=True)
 
+    # operators: a read filter inside the decode, then a chain on the card
+    ds = storage.read_filter("-F 0x904 -q 20").read("sample.bam")
+    ds2, stats = ds.pipeline(("filter", "-F 0x400"), "sort", "markdup",
+                             "rgstats", ("pileup", 0, 10_000, 20_000))
+
     # telemetry: per-shard spans to a JSONL file, and the registry
     ds = storage.span_log("spans.jsonl").read("sample.bam")
     ds.telemetry_report()["phases"]
@@ -48,7 +53,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -231,6 +236,34 @@ class ReadsDataset:
                             [s.length for s in self.header.sequences],
                             window, self.device)
 
+    def pipeline(self, *ops) -> "Tuple[ReadsDataset, dict]":
+        """Run an operator chain (``runtime/oppipe.py``) over this
+        dataset's batch and return ``(dataset, stats)``::
+
+            ds2, stats = ds.pipeline(("filter", "-F 0x400 -q 20"),
+                                     "sort", "markdup", "rgstats")
+
+        Each op is an operator instance (``FilterOp`` and the others), a
+        name, or a ``(name, *args)`` tuple. On a device-backed dataset
+        the chain stays on the device: transforms compact, permute and
+        patch the device columns, reductions bring back only result
+        rows, and no host record is parsed; a host dataset runs the same
+        operators' host paths with the same outputs. ``stats`` maps each
+        op's name to its merged result (markdup counts, per-RG stats,
+        pileup coverage). After a ``sort`` the header says
+        ``SO:coordinate``."""
+        from disq_tpu_torch.runtime.oppipe import OpPipeline
+
+        pipe = ops[0] if len(ops) == 1 and isinstance(ops[0], OpPipeline) \
+            else OpPipeline(*ops, device=self.device)
+        res = pipe.run([self.reads])
+        header = self.header
+        if any(op.name == "sort" for op in pipe.ops):
+            header = header.with_sort_order("coordinate")
+        out = ReadsDataset(header=header, reads=res.batches[0],
+                           counters=self.counters, device=self.device)
+        return out, res.stats
+
 
 class ReadsStorage:
     """Entry point for reads (builder-style config, then read/write)."""
@@ -334,6 +367,18 @@ class ReadsStorage:
         decompresses to the same bytes, but not the canonical zlib-6
         bytes. Env equivalent: ``DISQ_TPU_TORCH_DEVICE_DEFLATE``."""
         self._options = self._options.with_device_deflate(enable)
+        return self
+
+    def read_filter(self, spec: str) -> "ReadsStorage":
+        """Push a ``samtools view``-style predicate and subsample into
+        the BAM decode (``ops/rfilter.py``): ``"-f INT"`` require flag
+        bits, ``"-F INT"`` exclude flag bits, ``"-q INT"`` minimum MAPQ,
+        ``"-s SEED.FRAC"`` keep FRAC of read names (hash-seeded: mates
+        travel together). A device-backed split builds its mask on the
+        device (kernel F1) and compacts before any column crosses d2h;
+        a host split applies the same mask in numpy. The spec is
+        validated here. Env equivalent: ``DISQ_TPU_TORCH_READ_FILTER``."""
+        self._options = self._options.with_read_filter(spec)
         return self
 
     def span_log(self, path: str) -> "ReadsStorage":

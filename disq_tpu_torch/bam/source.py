@@ -334,11 +334,37 @@ class BamSource:
         """Stage B with the shard's books: (batch, stats, (skipped,
         quarantined, retried)). The books are final once the decode
         returns (its fetch and every retry came before), and they travel
-        with the batch into a read ledger's spill."""
+        with the batch into a read ledger's spill.
+
+        A configured read filter (``DisqOptions.read_filter`` /
+        ``DISQ_TPU_TORCH_READ_FILTER``) applies here, inside the decode
+        span, to the batch of every route (device, host, salvage): a
+        device-backed batch is masked by kernel F1 and compacted on its
+        device before any column crosses d2h."""
         with span("bam.split.decode", shard=ctx.shard_id):
             batch, stats = self._decode_fetched(header, fetched, ctx)
+            rf = self._read_filter()
+            if rf is not None and batch.count:
+                from disq_tpu_torch.ops.rfilter import apply_read_filter
+
+                batch = apply_read_filter(batch, rf)
         return batch, stats, (ctx.skipped_blocks, ctx.quarantined_blocks,
                               ctx.retrier.retried)
+
+    def _read_filter(self):
+        """The storage's parsed ``ReadFilter``, or None; the filter
+        module is imported only once a spec is set."""
+        import os
+
+        opts = getattr(self._storage, "_options", None)
+        spec = getattr(opts, "read_filter", None) if opts else None
+        if spec is None:
+            spec = os.environ.get("DISQ_TPU_TORCH_READ_FILTER") or None
+        if not spec:
+            return None
+        from disq_tpu_torch.ops.rfilter import parse_read_filter
+
+        return parse_read_filter(spec)
 
     def _decode_fetched(self, header: SamHeader, fetched: Optional[Tuple],
                         ctx) -> Tuple[object, Tuple[int, int, int]]:

@@ -19,8 +19,10 @@ device:
   the fixed columns on the device with one index upload and stay
   device-backed: a permuted batch keeps the host blob and the pending
   order (applied at the host parse), a filtered one compacts the blob.
-  ``encode_source()`` hands the blob, offsets and pending order to the
-  device write path.
+  ``or_flags(mask, bits)`` (duplicate marking's write-back) patches the
+  device flag column and the blob's flag bytes (copy-on-write unless the
+  batch owns its blob) and drops the host caches. ``encode_source()``
+  hands the blob, offsets and pending order to the device write path.
 - **Pickling** (the read ledger's spills) stores host data only: a
   device-backed batch spills its record blob, offsets, reference count,
   pending order and device, and parses the blob again with the parse
@@ -127,6 +129,9 @@ class ColumnarBatch:
         self._rb: Optional[ReadBatch] = None
         # logical record i is blob record _order[i] (a permuted batch)
         self._order: Optional[np.ndarray] = None
+        # the blob is this batch's own (a compaction's), so or_flags may
+        # patch it in place; otherwise it copies first
+        self._blob_owned = False
         # lazy builds and fetches happen once even under threads
         self._lock = threading.RLock()
         # bytes a device consumer used in place, by column or result;
@@ -369,7 +374,49 @@ class ColumnarBatch:
             out._set_dev(self._gathered(keep))
             out._blob, out._offsets = segment_gather(self._host_blob(),
                                                      self._offsets, src)
+            out._blob_owned = True
         return out
+
+    def or_flags(self, mask: np.ndarray, bits: int = 0x400) -> None:
+        """OR ``bits`` into the flag of every record where ``mask`` is
+        true, in place: duplicate marking's write-back. Three views
+        change together: the device flag column (a new tensor, from one
+        index upload), the host record blob's flag bytes at ``off + 18``
+        / ``19`` (copied first unless this batch owns its blob) and the
+        host caches, dropped so the next fetch derives them again. The
+        blob patch is what makes a resident chain's written BAM equal to
+        a host-marked one's."""
+        idx = np.nonzero(np.asarray(mask))[0]
+        if len(idx) == 0:
+            return
+        lo_b, hi_b = bits & 0xFF, (bits >> 8) & 0xFF
+        with self._lock:
+            if self._offsets is not None:
+                blob = self._host_blob()
+                if not self._blob_owned:
+                    blob = blob.copy()
+                    self._blob_owned = True
+                src = self._order[idx] if self._order is not None else idx
+                off = self._offsets[src]
+                if lo_b:
+                    blob[off + 18] |= np.uint8(lo_b)
+                if hi_b:
+                    blob[off + 19] |= np.uint8(hi_b)
+                self._blob = blob
+            if self._dev is not None:
+                from disq_tpu_torch.runtime.device_pipeline import upload
+
+                flag = self._dev["flag"]
+                at = upload(idx.astype(np.int64), flag.device)
+                self._dev["flag"] = flag.index_put(
+                    (at,), flag.index_select(0, at) | bits)
+            elif self._rb is not None:
+                self._rb.flag[idx] |= np.uint16(bits)
+            # the host-side views are stale now
+            self._cache.pop("flag", None)
+            if self._ragged_rb is not None and self._offsets is not None:
+                self._ragged_rb = None
+                self._rb = None
 
     def encode_source(self):
         """``(host record blob, record offsets, pending order or None)``,

@@ -9,7 +9,8 @@ Process-wide books, views over the telemetry registry
   ``device.kernel_launches{kernel=}`` under the reference's kernel names
   (``REFERENCE_KERNEL``: B1 ``inflate_simd``, B4 ``inflate``, B3
   ``rans_simd``, B5 ``rans``, B2 ``parse``, W2 ``deflate_simd``, W1
-  ``encode_resident``), read back here under the port's;
+  ``encode_resident``, F1 ``read_filter``), read back here under the
+  port's;
 - ``host_fallback_blocks[reason]``: blocks the device route handed to
   the host (``flagged`` by a kernel, ``expanded`` by the deflate coder);
   the registry's ``device.host_fallback_blocks{reason=}``;
@@ -42,6 +43,7 @@ REFERENCE_KERNEL = {
     "inflate": "inflate_simd", "inflate_legacy": "inflate",
     "rans_simd": "rans_simd", "rans": "rans", "parse": "parse",
     "deflate": "deflate_simd", "record_gather": "encode_resident",
+    "read_filter": "read_filter",
 }
 _PORT_KERNEL = {v: k for k, v in REFERENCE_KERNEL.items()}
 

@@ -88,6 +88,12 @@ class DisqOptions:
     starts, as ``DISQ_TPU_TORCH_TRACE_JSONL`` does: one sink per
     process, the storage that most recently started a read wins, and it
     keeps collecting until ``stop_span_log()``.
+
+    ``read_filter`` pushes a ``samtools view``-grammar predicate into
+    the BAM decode (``ops/rfilter.py``; env ``DISQ_TPU_TORCH_READ_FILTER``):
+    each split's batch is filtered inside ``bam.split.decode``, on the
+    device with kernel F1 for a device-backed batch. None (the default)
+    builds no mask.
     """
 
     error_policy: ErrorPolicy = ErrorPolicy.STRICT
@@ -101,6 +107,7 @@ class DisqOptions:
     read_ledger: Optional[str] = None
     device_deflate: bool = False
     span_log: Optional[str] = None
+    read_filter: Optional[str] = None
 
     def with_policy(self, policy: "ErrorPolicy | str") -> "DisqOptions":
         return replace(self, error_policy=ErrorPolicy.coerce(policy))
@@ -124,6 +131,14 @@ class DisqOptions:
 
     def with_device_deflate(self, enable: bool = True) -> "DisqOptions":
         return replace(self, device_deflate=bool(enable))
+
+    def with_read_filter(self, spec: str) -> "DisqOptions":
+        """Push a read filter into the decode, validated here so a typo
+        fails when the options are built, not per split."""
+        from disq_tpu_torch.ops.rfilter import parse_read_filter
+
+        parse_read_filter(spec)  # raises ValueError on a malformed spec
+        return replace(self, read_filter=str(spec))
 
 
 class CorruptBlockError(ValueError):
