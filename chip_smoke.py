@@ -46,6 +46,12 @@ through their public entry points on ``cuda``:
     ds.pipeline(("filter", "-F 0x400"), "sort", "markdup", "rgstats",
                 ("pileup", 0, 1_000_000, 5_194_304))               # resident
     host_ds.pipeline(...); storage.write(result, out)              # host
+    tp = TraversalParameters([Interval("chr1", 50_000_001, 200_000_000),
+                              ...], traverse_unplaced_unmapped=True)
+    storage.read(sorted_bam, traversal=tp)                         # BAI
+    storage.read_filter("-F 0x904 -q 20").read(sorted_bam, traversal=tp)
+    storage.read(sorted_cram, traversal=tp_cram)                   # CRAI
+    storage.read("http://127.0.0.1:<port>/sorted.bam"[, traversal=tp])
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -99,9 +105,9 @@ do no device deflate work. Through the device service: the BAM read at
 1 and 4 executor workers equal to the default read, every submitted lane
 decoded on the card (``device_lanes == submitted``, no lane decoded
 again on the host), one B1 launch per flush; the CRAM read (4 workers)
-of the 3-split head equal to the generator, its splits' order-0 streams
-sharing B3 launches (fewer launches than splits, under a 5 s flush
-window) and none decoded on the host; the device write of the sorted
+of the head's first 2 splits equal to the generator, its splits'
+order-0 streams sharing B3 launches (fewer launches than splits, under a
+5 s flush window) and none decoded on the host; the device write of the sorted
 host batch through the service's deflate engine inflating to the zlib-6
 write's stream, no lane but an expanded one on host zlib, and
 re-reading to the generator; and, on the chunk of each engine that
@@ -124,8 +130,18 @@ equal stats, duplicates equal to a numpy group oracle over the
 generator's columns, per-RG counts and coverage equal to the generator's,
 no host record parse on the resident chain, both results written with
 zlib-6 byte for byte and their 0x400 count equal to the stats; and
-times the markdup scan and the RG reduction (torch ops) alone. Any
-failed phase exits non-zero.
+times the markdup scan and the RG reduction (torch ops) alone. The
+traversal phase reads ``sorted.bam`` through its BAI (three intervals
+across chr1-3, chr1's holding more records than one split, each alone
+and together; the unplaced-unmapped tail alone and with them; the same
+under ``-F 0x904 -q 20``) and ``sorted.cram`` through its CRAI (one
+interval), each equal to a numpy oracle over the generator (refid, pos
+and the CIGAR's reference span), with B1 and B2 launched once per BAI
+chunk decoded (F1 too under the filter), no block inflated on the host,
+and B3 once for the CRAM interval; then the whole ``sorted.bam``, the
+interval read and the CRAM interval over ``http://`` from a local
+``ThreadingHTTPServer``, equal to the local reads. Any failed phase
+exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -996,6 +1012,22 @@ RAGGED = (("name_offsets", ("names",)), ("cigar_offsets", ("cigars",)),
 FIXED = ("refid", "pos", "mapq", "bin", "flag", "next_refid", "next_pos",
          "tlen")
 CRAM_EOF = 38   # bytes of the CRAM 3.0 end-of-file container
+
+
+def cram_head_copy(path: str, offsets, split: int, splits: int):
+    """A copy of the CRAM at ``path`` cut to the containers that start in
+    its first ``splits`` splits, then the EOF container: (its path, its
+    records, its container offsets, its split count)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    cut = sum(1 for off in offsets if off < splits * split)
+    records = sum(container_fields(data, off)[1] for off in offsets[:cut])
+    if cut < len(offsets):
+        data = data[: offsets[cut]] + data[-CRAM_EOF:]
+    out = os.path.splitext(path)[0] + f"_{splits}.cram"
+    with open(out, "wb") as f:
+        f.write(data)
+    return out, records, offsets[:cut], -(-len(data) // split)
 
 
 def head_equal(got, want, m: int, what: str) -> None:
@@ -2341,6 +2373,7 @@ FLUSH_KNOB = "DISQ_TPU_TORCH_SERVICE_FLUSH_MS"
 # the service CRAM leg's flush window: the head's splits submit their
 # streams within a second of each other, so they share a launch
 SERVICE_CRAM_FLUSH_MS = 5000
+SERVICE_CRAM_SPLITS = 2          # the service CRAM leg's depth: 2 splits
 PLAIN_SAMPLE_LANES = 64          # B1 lanes of a coalesced chunk held
 PLAIN_SAMPLE_STREAMS = 8         # against the plain version (B3 streams)
 
@@ -2455,8 +2488,9 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
                  head):
     """The device service (``DISQ_TPU_TORCH_DEVICE_SERVICE=1``): the BAM
     read at 1 and 4 executor workers against the default read, every lane
-    decoded on the card; the CRAM read with 4 workers of the 3-split
-    ``head`` (``cram_policy_legs``) against the generator, its splits
+    decoded on the card; the CRAM read with 4 workers of the first
+    ``SERVICE_CRAM_SPLITS`` splits of ``head`` (``cram_policy_legs``'
+    3-split copy) against the generator, its splits
     sharing B3 launches under a ``SERVICE_CRAM_FLUSH_MS`` flush window;
     the device write (8 shards, 4 writer workers, BAI + SBI) of the
     sorted host batch through the service's deflate engine against the
@@ -2521,18 +2555,20 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
                     f"{json.dumps(fill)}")
 
             # -- the CRAM read ----------------------------------------------
-            # a service whose flush window lets the splits meet
+            # a service whose flush window lets the splits meet, on the
+            # head's first SERVICE_CRAM_SPLITS splits (a cut of depth)
             DS.shutdown_service()
             os.environ[FLUSH_KNOB] = str(SERVICE_CRAM_FLUSH_MS)
             sorted_rb = ds.coordinate_sorted().reads
-            m = head["records"]
-            n_splits = len({off // split for off in head["offsets"]})
+            cram, m, offs, shards = cram_head_copy(
+                head["path"], head["offsets"], split, SERVICE_CRAM_SPLITS)
+            n_splits = len({off // split for off in offs})
             counters.reset()
             tracing.reset_gauges()
             f0, r0 = _flushes(tracing), dict(B3.last_stats)
             t0 = time.perf_counter()
             cr = (port.ReadsStorage.make_default().split_size(split)
-                  .executor_workers(4).read(head["path"]))
+                  .executor_workers(4).read(cram))
             secs = time.perf_counter() - t0
             snap = counters.snapshot()
             b3 = snap["launches"].get("rans_simd", 0)
@@ -2542,7 +2578,7 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
             DS.shutdown_service()
             os.environ.pop(FLUSH_KNOB)
             head_equal(cr.reads, sorted_rb, m, "service cram read")
-            check(cr.counters.shards == head["counters"]["shards"],
+            check(cr.counters.shards == shards,
                   f"service cram read: {cr.counters.shards} splits")
             check(0 < b3 < n_splits,
                   f"service cram read: B3 launches {b3} for {n_splits} "
@@ -3182,6 +3218,251 @@ def operator_legs(torch, port, args, work, dev):
     return entry, e2e
 
 
+# -- indexed traversal and remote reads (A11) ----------------------------------
+
+# 1-based closed intervals; chr1's holds more records than one 64 MiB split
+TRAVERSAL_INTERVALS = (("chr1", 50_000_001, 200_000_000),
+                       ("chr2", 100_000_001, 100_500_000),
+                       ("chr3", 150_000_001, 160_000_000))
+CRAM_INTERVAL = ("chr2", 100_000_001, 103_000_000)
+TRAVERSAL_FILTER = "-F 0x904 -q 20"
+
+
+def range_server(root: str):
+    """A ``ThreadingHTTPServer`` on 127.0.0.1 serving the files of
+    ``root`` by name, with HEAD and ``Range`` GETs, on its own thread."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    import threading
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def _path(self):
+            path = os.path.join(root, os.path.basename(self.path))
+            return path if os.path.isfile(path) else None
+
+        def do_HEAD(self):
+            path = self._path()
+            if path is None:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(os.path.getsize(path)))
+            self.send_header("Accept-Ranges", "bytes")
+            self.end_headers()
+
+        def do_GET(self):
+            path = self._path()
+            if path is None:
+                self.send_error(404)
+                return
+            size = os.path.getsize(path)
+            lo, hi, status = 0, size - 1, 200
+            rng = self.headers.get("Range")
+            if rng and rng.startswith("bytes="):
+                a, b = rng[len("bytes="):].split("-")
+                lo, hi, status = int(a), min(int(b), size - 1), 206
+            with open(path, "rb") as f:
+                f.seek(lo)
+                body = f.read(hi - lo + 1)
+            self.send_response(status)
+            if status == 206:
+                self.send_header("Content-Range", f"bytes {lo}-{hi}/{size}")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def traversal_legs(torch, port, args, g, perm_want, work) -> dict:
+    """Indexed reads of the main path's ``sorted.bam`` (BAI) and of the
+    CRAM phase's ``sorted.cram`` (CRAI) on the card: (a) each of
+    ``TRAVERSAL_INTERVALS`` alone and all three together, the
+    unplaced-unmapped traversal alone and with them; (b) the same with
+    ``TRAVERSAL_FILTER``; (c) the full read and (a)'s last read over
+    ``http://`` from a local server, against the local reads; (d)
+    ``CRAM_INTERVAL`` through the CRAI, locally and over ``http://``.
+    Each result against a numpy oracle over the generator (refid,
+    ``pos < end0``, ``pos + max(ref span, 1) > beg0``); every BAI chunk
+    decoded (one ``bam.split.decode`` span each) launches B1 and B2 once
+    (and F1 under the filter), and no block inflates on the host; the
+    CRAM interval launches B3 once. Returns (launches per leg, e2e)."""
+    from disq_tpu_torch.bam.source import read_header
+    from disq_tpu_torch.fsw.filesystem import (
+        PosixFileSystemWrapper,
+        resolve_path,
+    )
+    from disq_tpu_torch.index.bai import BaiIndex
+    from disq_tpu_torch.ops import inflate_simd as B1
+    from disq_tpu_torch.ops import rans_simd as B3
+    from disq_tpu_torch.runtime import counters, tracing
+    from disq_tpu_torch.traversal.bai_query import chunks_for_intervals
+
+    split = args.split_size
+    bam = os.path.join(work, "sorted.bam")
+    cram = os.path.join(work, "sorted.cram")
+    contigs = [name for name, _ in REFS]
+    cols = {c: g[c][perm_want] for c in FIXED}
+    ends = cols["pos"].astype(np.int64) + np.maximum(
+        cigar_extents(g)[0][perm_want], 1)
+    header, _ = read_header(PosixFileSystemWrapper(), bam)
+    with open(bam + ".bai", "rb") as f:
+        bai = BaiIndex.from_bytes(f.read())
+
+    def oracle(ivs, unmapped, spec=False):
+        m = np.zeros(len(ends), bool)
+        for contig, start, end in ivs:
+            m |= ((cols["refid"] == contigs.index(contig))
+                  & (cols["pos"] < end) & (ends > start - 1))
+        if unmapped:
+            m |= cols["refid"] == -1
+        if spec:
+            m &= ((cols["flag"] & 0x904) == 0) & (cols["mapq"] >= 20)
+        return np.nonzero(m)[0]
+
+    def equal_rows(reads, rows, what, skip=()):
+        check(reads.count == len(rows),
+              f"{what}: {reads.count} records, want {len(rows)}")
+        for col in FIXED:
+            if col not in skip:
+                check(np.array_equal(getattr(reads, col), cols[col][rows]),
+                      f"{what}: column {col}")
+        rb = getattr(reads, "to_read_batch", lambda: reads)()
+        src = perm_want[rows]
+        check(np.array_equal(rb.names.reshape(-1, NAME_LEN), g["names"][src]),
+              f"{what}: names")
+        check(np.array_equal(rb.quals.reshape(-1, READ_LEN), g["qual"][src]),
+              f"{what}: quals")
+
+    def params(ivs, unmapped):
+        return port.TraversalParameters(
+            [port.Interval(*iv) for iv in ivs],
+            traverse_unplaced_unmapped=unmapped)
+
+    def timed(st, path, tp):
+        counters.reset()
+        tracing.reset_spans()
+        b1 = dict(B1.last_stats)
+        t0 = time.perf_counter()
+        got = st.read(path, traversal=tp)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        snap = counters.snapshot()
+        host = {k: B1.last_stats[k] - b1[k]
+                for k in ("host_big", "host_fallback")}
+        decoded = sum(1 for sp in tracing.spans()
+                      if sp["name"] == "bam.split.decode")
+        return got, secs, snap, host, decoded
+
+    def storage():
+        return port.ReadsStorage.make_default().split_size(split)
+
+    launches, e2e = {}, {}
+
+    def bam_leg(name, ivs, unmapped, spec=None, path=bam):
+        st = storage().read_filter(spec) if spec else storage()
+        tp = params(ivs, unmapped)
+        got, secs, snap, host, decoded = timed(st, path, tp)
+        chunks = len(chunks_for_intervals(header, bai, tp.intervals)) \
+            + int(unmapped)
+        la = snap["launches"]
+        check(decoded == chunks,
+              f"traversal {name}: {decoded} chunk decodes, {chunks} chunks")
+        check(la.get("inflate", 0) == la.get("parse", 0) == chunks,
+              f"traversal {name}: launches {la} for {chunks} chunks")
+        check(la.get("read_filter", 0) == (chunks if spec else 0),
+              f"traversal {name}: read_filter launches {la}")
+        check(not any(host.values())
+              and not sum(snap["host_fallback_blocks"].values()),
+              f"traversal {name}: host inflate {host}, "
+              f"{snap['host_fallback_blocks']}")
+        check(got.count() > 0 and got.reads.device_backed,
+              f"traversal {name}: not device-backed")
+        equal_rows(got.reads, oracle(ivs, unmapped, bool(spec)),
+                   f"traversal {name}")
+        launches[name] = {k: la.get(k, 0)
+                          for k in ("inflate", "parse", "read_filter")}
+        e2e[f"traversal_{name}_s"] = round(secs, 4)
+        log(f"traversal {name}: {got.count()} records, {chunks} chunks, "
+            f"launches B1 {la.get('inflate', 0)} B2 {la.get('parse', 0)} "
+            f"F1 {la.get('read_filter', 0)}, {secs:.4f}s, equal to the "
+            f"oracle")
+        return got
+
+    # -- (a) BAM interval reads, (b) the filtered one ---------------------------
+    for iv in TRAVERSAL_INTERVALS:
+        bam_leg(iv[0], [iv], False)
+    bam_leg("intervals", TRAVERSAL_INTERVALS, False)
+    bam_leg("unmapped", [], True)
+    local = bam_leg("intervals_unmapped", TRAVERSAL_INTERVALS, True)
+    bam_leg("filtered", TRAVERSAL_INTERVALS, True, spec=TRAVERSAL_FILTER)
+
+    # -- (d) the CRAM interval through the CRAI ---------------------------------
+    tp = params([CRAM_INTERVAL], False)
+    cr, secs, snap, _, _ = timed(storage(), cram, tp)
+    b3 = snap["launches"].get("rans_simd", 0)
+    check(b3 == 1, f"cram traversal: B3 launches {snap['launches']}")
+    check(not snap["host_rans_streams"].get("rans0", 0),
+          "cram traversal: an order-0 stream reached the host decoder")
+    # CRAM stores no bin: the reader derives it from the CIGAR
+    equal_rows(cr.reads, oracle([CRAM_INTERVAL], False), "cram traversal",
+               skip=("bin",))
+    launches["cram"] = {"rans_simd": b3}
+    e2e["traversal_cram_s"] = round(secs, 4)
+    log(f"traversal cram {CRAM_INTERVAL}: {cr.count()} records, B3 launches "
+        f"{b3}, {secs:.4f}s, equal to the oracle")
+
+    # -- (c) over http:// from a local server -----------------------------------
+    srv = range_server(work)
+    try:
+        base = f"http://127.0.0.1:{srv.server_address[1]}/"
+        t0 = time.perf_counter()
+        whole = storage().read(bam)
+        torch.cuda.synchronize()
+        local_s = time.perf_counter() - t0
+        fs = resolve_path(base + "sorted.bam")[0]
+        counters.reset()
+        t0 = time.perf_counter()
+        remote = storage().read(base + "sorted.bam")
+        torch.cuda.synchronize()
+        remote_s = time.perf_counter() - t0
+        la = counters.snapshot()["launches"]
+        full = {k: getattr(fs.stats, k) for k in (
+            "range_requests", "bytes_fetched", "cache_hits", "cache_misses",
+            "prefetch_issued", "prefetch_hits")}
+        same_reads(torch, remote, whole, "remote read")
+        del remote, whole
+        tp = params(TRAVERSAL_INTERVALS, True)
+        got, iv_s, _, _, _ = timed(storage(), base + "sorted.bam", tp)
+        same_reads(torch, got, local, "remote traversal")
+        cr_remote = storage().read(base + "sorted.cram",
+                                   traversal=params([CRAM_INTERVAL], False))
+        for col in FIXED:
+            check(np.array_equal(getattr(cr_remote.reads, col),
+                                 getattr(cr.reads, col)),
+                  f"remote cram traversal: column {col}")
+        stats = {k: getattr(fs.stats, k) for k in full}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    launches["remote_read"] = {k: la.get(k, 0) for k in ("inflate", "parse")}
+    e2e.update(remote_read_s=round(remote_s, 4),
+               remote_local_read_s=round(local_s, 4),
+               remote_traversal_s=round(iv_s, 4), remote_cache_full=full,
+               remote_cache=stats)
+    log(f"remote read (http://, the whole sorted.bam): {remote_s:.4f}s "
+        f"(local {local_s:.4f}s), equal to the local read; launches "
+        f"{json.dumps(launches['remote_read'])}; cache {json.dumps(full)}")
+    log(f"remote traversal (intervals and unmapped): {iv_s:.4f}s, equal to "
+        f"the local one; cram interval over http equal; cache after "
+        f"{json.dumps(stats)}")
+    return launches, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -3523,6 +3804,10 @@ def run(args) -> dict:
     f1_entry, operators_e2e = operator_legs(torch, port, args, work, dev)
     kernels.append(f1_entry)
     log(f"phase operators: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    traversal, traversal_e2e = traversal_legs(torch, port, args, g,
+                                              perm_want, work)
+    log(f"phase traversal: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
@@ -3537,12 +3822,19 @@ def run(args) -> dict:
         resumed["rans_simd"]
     by_name["rans_simd"]["launches_on_cram_part_reads"] = \
         write_launches["multi_cram_reads"].get("rans_simd", 0)
+    for name, key in (("inflate", "inflate"), ("parse", "parse"),
+                      ("read_filter", "read_filter")):
+        by_name[name]["launches_on_traversal"] = {
+            leg: books[key] for leg, books in traversal.items()
+            if key in books}
+    by_name["rans_simd"]["launches_on_traversal"] = traversal["cram"]
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
            **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
+           **traversal_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")

@@ -5,21 +5,42 @@ device kernel written by hand for NVIDIA Hopper (``csrc/``) and the rest
 as torch ops or host code. It never imports ``jax`` or ``disq_tpu``.
 """
 
+__version__ = "0.1.0"
+
 from disq_tpu_torch.api import (  # noqa: F401
     BaiWriteOption,
     CraiWriteOption,
     FileCardinalityWriteOption,
+    Interval,
     ReadsDataset,
     ReadsFormatWriteOption,
     ReadsStorage,
     SbiWriteOption,
     StageManifestWriteOption,
     TempPartsDirectoryWriteOption,
+    TraversalParameters,
     ValidationStringency,
     WriteOption,
 )
-from disq_tpu_torch.runtime.errors import (  # noqa: F401
+from disq_tpu_torch.runtime import (  # noqa: F401
+    ColumnarBatch,
     CorruptBlockError,
     DisqOptions,
     ErrorPolicy,
+    PipelineCounters,
+    QuarantineManifest,
+    ReadLedger,
+    ShardCounters,
+    StageManifest,
+    device_span,
+    metrics_text,
+    phase_report,
+    reduce_counters,
+    span,
+    start_span_log,
+    stop_span_log,
+    synced_timer,
+    telemetry_snapshot,
+    telemetry_summary,
+    trace_phase,
 )

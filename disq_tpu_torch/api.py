@@ -34,6 +34,12 @@ Usage::
     ds2, stats = ds.pipeline(("filter", "-F 0x400"), "sort", "markdup",
                              "rgstats", ("pileup", 0, 10_000, 20_000))
 
+    # an interval read through the BAI (or CRAI), and a remote read
+    tp = TraversalParameters([Interval("chr1", 1, 100_000)],
+                             traverse_unplaced_unmapped=True)
+    ds = storage.read("sorted.bam", traversal=tp)
+    ds = storage.http_cache_blocks(64).read("https://host/sample.bam")
+
     # telemetry: per-shard spans to a JSONL file, and the registry
     ds = storage.span_log("spans.jsonl").read("sample.bam")
     ds.telemetry_report()["phases"]
@@ -142,6 +148,28 @@ class ValidationStringency(enum.Enum):
     STRICT = "strict"
     LENIENT = "lenient"
     SILENT = "silent"
+
+
+@dataclass(frozen=True)
+class Interval:
+    """A 1-based closed genomic interval (htsjdk ``Locatable``)."""
+
+    contig: str
+    start: int  # 1-based inclusive
+    end: int    # inclusive
+
+    def overlaps(self, contig: str, start: int, end: int) -> bool:
+        return self.contig == contig and self.start <= end and start <= self.end
+
+
+@dataclass(frozen=True)
+class TraversalParameters:
+    """Interval and unplaced-unmapped traversal of an indexed read (BAM
+    with its ``.bai``, CRAM with its ``.crai``; htsjdk's
+    ``HtsjdkReadsTraversalParameters``)."""
+
+    intervals: Optional[Sequence[Interval]] = None
+    traverse_unplaced_unmapped: bool = False
 
 
 def option_enabled(options: Sequence[WriteOption], cls) -> bool:
@@ -381,6 +409,16 @@ class ReadsStorage:
         self._options = self._options.with_read_filter(spec)
         return self
 
+    def http_cache_blocks(self, n: int) -> "ReadsStorage":
+        """Size the remote filesystem's block LRU (``fsw/http.py``;
+        default 32 blocks of 4 MiB): applied to every registered HTTP
+        wrapper when a split read through this storage starts, and the
+        default for wrappers built later. Occupancy is the
+        ``fsw.http.cache.blocks`` gauge. Env equivalent:
+        ``DISQ_TPU_TORCH_HTTP_CACHE_BLOCKS``."""
+        self._options = self._options.with_http_cache_blocks(n)
+        return self
+
     def span_log(self, path: str) -> "ReadsStorage":
         """Point the process-wide JSONL span sink at ``path`` when a read
         through this storage starts (the input of
@@ -395,11 +433,17 @@ class ReadsStorage:
 
         return resolve_device(self._device)
 
-    def read(self, path: str) -> ReadsDataset:
+    def read(self, path: str,
+             traversal: Optional[TraversalParameters] = None) -> ReadsDataset:
+        """Read ``path`` (a local path or an ``http(s)://``, ``gs://`` or
+        ``s3://`` URI). With ``traversal``, only the records overlapping
+        its intervals (and the unplaced-unmapped ones, if asked for),
+        through the file's BAI or CRAI."""
         from disq_tpu_torch.formats import sam_format_from_path
 
         self._resolved_device()
-        return sam_format_from_path(path).make_source(self).get_reads(path)
+        return sam_format_from_path(path).make_source(self).get_reads(
+            path, traversal)
 
     def write(self, dataset: ReadsDataset, path: str, *options: WriteOption,
               sort: bool = False) -> None:

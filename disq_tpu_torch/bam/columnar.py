@@ -171,6 +171,15 @@ class ReadBatch:
             return "*"
         return "".join(f"{int(op) >> 4}{CIGAR_OPS[int(op) & 0xF]}" for op in ops)
 
+    def qual_string(self, i: int) -> str:
+        """Phred+33 qualities, or ``"*"`` when absent (a first quality
+        byte of 0xFF)."""
+        s, e = self.seq_offsets[i], self.seq_offsets[i + 1]
+        q = self.quals[s:e]
+        if len(q) == 0 or q[0] == 0xFF:
+            return "*"
+        return (q + 33).astype(np.uint8).tobytes().decode("latin-1")
+
     def reference_lengths(self) -> np.ndarray:
         """Reference-consumed length per record: ops M/D/N/=/X."""
         op = (self.cigars & 0xF).astype(np.int64)

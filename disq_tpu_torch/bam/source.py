@@ -32,6 +32,12 @@ after the batch flagged it makes the read raise the batch's error: a
 kernel fault is never served as a salvaged batch (on the host route,
 the same holds when every block inflates alone).
 
+An indexed read (``read(path, traversal=...)``) decodes only the BAI
+chunks its intervals select (``traversal/bai_query.py``), each through
+the same fetch and decode stages as a split (``_decode_range``), on the
+same route and with the read filter applied; transient faults retry the
+whole traversal, and a corrupt block raises under every policy.
+
 With a read ledger (``ReadsStorage.read_ledger``) each split's batch is
 spilled as it emits, with its counts; a read run again loads the
 finished splits (a device-backed one parses its spilled bytes again on
@@ -72,10 +78,15 @@ from disq_tpu_torch.fsw.filesystem import (
     resolve_path,
 )
 from disq_tpu_torch.index.sbi import SbiIndex
-from disq_tpu_torch.runtime.columnar import ColumnarBatch, DeviceParseFault
+from disq_tpu_torch.runtime.columnar import (
+    ColumnarBatch,
+    DeviceParseFault,
+    resident_decode_enabled,
+)
 from disq_tpu_torch.runtime.errors import (
     ErrorPolicy,
     FlaggedBlocksError,
+    ShardErrorContext,
     TruncatedReadError,
     context_for_storage,
     inflate_blocks_salvage,
@@ -101,24 +112,45 @@ class BamSource:
     def split_size(self) -> int:
         return self._storage._split_size
 
-    def get_reads(self, path: str):
+    def get_reads(self, path: str, traversal=None):
         from disq_tpu_torch.api import ReadsDataset
         from disq_tpu_torch.runtime.counters import reduce_counters
+        from disq_tpu_torch.runtime.debug import (
+            check_read_batch,
+            debug_enabled,
+        )
 
         fs, path = resolve_path(path)
         ctx = context_for_storage(self._storage, path)
+        device = self._storage._resolved_device()
         with trace_phase("bam.read.header"):
             header, first_voffset = ctx.retrier.call(read_header, fs, path,
                                                      what="header")
+        if traversal is not None:
+            from disq_tpu_torch.traversal.bai_query import read_with_traversal
+
+            # an index-driven read retries transient faults whole-phase
+            # (it is bounded by its intervals); a corrupt block inside
+            # the traversal always raises, whatever the policy
+            with trace_phase("bam.read.traversal"):
+                batch = ctx.retrier.call(read_with_traversal, fs, path,
+                                         header, traversal, self,
+                                         what="traversal")
+            totals = reduce_counters([])
+            totals.retried_reads += ctx.retrier.retried
+            return ReadsDataset(header=header, reads=batch, counters=totals,
+                                device=device)
         with trace_phase("bam.read.splits"):
             batches = self.read_split_batches(fs, path, header,
                                               first_voffset, ctx)
+            batch = ColumnarBatch.concat(batches)
+        if debug_enabled():
+            check_read_batch(batch, n_ref=header.n_ref)
         totals = reduce_counters(self._last_counters)
         # header and boundary reads retry outside any shard
         totals.retried_reads += ctx.retrier.retried
-        return ReadsDataset(header=header, reads=ColumnarBatch.concat(batches),
-                            counters=totals,
-                            device=self._storage._resolved_device())
+        return ReadsDataset(header=header, reads=batch, counters=totals,
+                            device=device)
 
     # -- split machinery ----------------------------------------------------
 
@@ -285,6 +317,25 @@ class BamSource:
                     acc += len(payloads[k])
         return None
 
+    def _decode_range(self, fs, path: str, header: SamHeader,
+                      lo_voffset: int, hi_voffset: int):
+        return self._decode_range_with_stats(fs, path, header, lo_voffset,
+                                             hi_voffset)[0]
+
+    def _decode_range_with_stats(self, fs, path: str, header: SamHeader,
+                                 lo_voffset: int, hi_voffset: int, ctx=None
+                                 ) -> Tuple[object, Tuple[int, int, int]]:
+        """Decode the records whose start lies in [lo, hi) virtual space
+        (a BAI chunk): the split's fetch and decode stages in sequence,
+        on the same route (the inflate and parse kernels on ``cuda``),
+        with the read filter applied. Without ``ctx`` the policy is
+        strict: a corrupt block raises."""
+        if ctx is None:
+            ctx = ShardErrorContext(policy=ErrorPolicy.STRICT, path=path)
+        return self._decode_filtered(
+            header, self._fetch_range(fs, path, lo_voffset, hi_voffset, ctx),
+            ctx)
+
     def _fetch_range(self, fs, path: str, lo_voffset: int, hi_voffset: int,
                      ctx) -> Optional[Tuple]:
         """``_fetch_range_inner`` under a per-split ``bam.split.fetch``
@@ -324,9 +375,7 @@ class BamSource:
     def _resident(self) -> bool:
         """The device route: always on ``cuda``; on the CPU only when
         resident decode was asked for."""
-        return self._storage._resolved_device().type == "cuda" or \
-            self._storage._resident_decode
-
+        return resident_decode_enabled(self._storage)
 
     def _decode_booked(self, header: SamHeader, fetched: Optional[Tuple],
                        ctx) -> Tuple[object, Tuple[int, int, int],
@@ -341,6 +390,15 @@ class BamSource:
         span, to the batch of every route (device, host, salvage): a
         device-backed batch is masked by kernel F1 and compacted on its
         device before any column crosses d2h."""
+        batch, stats = self._decode_filtered(header, fetched, ctx)
+        return batch, stats, (ctx.skipped_blocks, ctx.quarantined_blocks,
+                              ctx.retrier.retried)
+
+    def _decode_filtered(self, header: SamHeader, fetched: Optional[Tuple],
+                         ctx) -> Tuple[object, Tuple[int, int, int]]:
+        """Stage B under a ``bam.split.decode`` span, with the read
+        filter applied to the batch of every route: the decode of a
+        split and of a BAI chunk."""
         with span("bam.split.decode", shard=ctx.shard_id):
             batch, stats = self._decode_fetched(header, fetched, ctx)
             rf = self._read_filter()
@@ -348,8 +406,7 @@ class BamSource:
                 from disq_tpu_torch.ops.rfilter import apply_read_filter
 
                 batch = apply_read_filter(batch, rf)
-        return batch, stats, (ctx.skipped_blocks, ctx.quarantined_blocks,
-                              ctx.retrier.retried)
+        return batch, stats
 
     def _read_filter(self):
         """The storage's parsed ``ReadFilter``, or None; the filter

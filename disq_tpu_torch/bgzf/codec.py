@@ -364,6 +364,17 @@ def compress_to_bgzf(data: bytes, with_terminator: bool = True,
     return comp + BGZF_EOF_MARKER if with_terminator else comp
 
 
+def decompress_bgzf(data: bytes) -> bytes:
+    """Whole BGZF buffer → decompressed bytes (walks the BSIZE chain)."""
+    out = []
+    pos = 0
+    while pos < len(data):
+        total = parse_block_header(data, pos)
+        out.append(inflate_block(data, pos))
+        pos += total
+    return b"".join(out)
+
+
 class BgzfWriter:
     """Streaming BGZF writer with virtual-offset tracking: buffers
     payload to 65280 bytes and emits canonical blocks;
@@ -378,6 +389,10 @@ class BgzfWriter:
 
     def tell_virtual(self) -> int:
         return make_virtual_offset(self._block_start, len(self._buf))
+
+    @property
+    def compressed_bytes_written(self) -> int:
+        return self._block_start
 
     def write(self, data: bytes) -> int:
         view = memoryview(data)

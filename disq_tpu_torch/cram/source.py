@@ -32,6 +32,12 @@ and nothing is decoded again on the host. A missing reference raises
 ``MissingReferenceError``, and a CUDA build or launch failure raises,
 under every policy.
 
+An indexed read (``read(path, traversal=...)``) decodes only the
+containers the CRAI lists for its intervals (every data container
+without a CRAI), then those of unplaced-unmapped slices if asked for:
+each group as a split's containers are (its order-0 streams in one
+launch), under the strict policy, retried whole on a transient fault.
+
 With a read ledger (``ReadsStorage.read_ledger``) each split's batches
 are spilled as they emit, with the split's counts; a read run again
 loads the finished splits and fetches and decodes only the others (one
@@ -64,6 +70,7 @@ from disq_tpu_torch.fsw.filesystem import (
 from disq_tpu_torch.runtime.errors import (
     ErrorPolicy,
     MissingReferenceError,
+    ShardErrorContext,
     context_for_storage,
     is_transient,
 )
@@ -105,12 +112,13 @@ class CramSource:
         """The device the order-0 rANS streams decode on: ``cuda``
         always; the CPU (plain versions) only when resident decode was
         asked for; None for the host codec."""
-        device = self._storage._resolved_device()
-        if device.type == "cuda" or self._storage._resident_decode:
-            return device
+        from disq_tpu_torch.runtime.columnar import resident_decode_enabled
+
+        if resident_decode_enabled(self._storage):
+            return self._storage._resolved_device()
         return None
 
-    def get_reads(self, path: str):
+    def get_reads(self, path: str, traversal=None):
         from disq_tpu_torch.api import ReadsDataset
         from disq_tpu_torch.cram.refsource import fetcher_for_storage
         from disq_tpu_torch.runtime.counters import (
@@ -133,6 +141,17 @@ class CramSource:
         data_containers = [(off, hdr) for off, hdr in containers[1:]
                            if not hdr.is_eof]
         device = self._decode_device()
+        if traversal is not None:
+            # an index-driven read retries transient faults whole-phase
+            # (it is bounded by its intervals); a corrupt container
+            # inside the traversal always raises, whatever the policy
+            batch = ctx.retrier.call(
+                self._read_with_traversal, fs, path, header, ref_fetch,
+                data_containers, traversal, device, what="traversal")
+            totals = reduce_counters([])
+            totals.retried_reads += ctx.retrier.retried
+            return ReadsDataset(header=header, reads=batch, counters=totals,
+                                device=self._storage._resolved_device())
         tasks, owned_by_shard = [], []
         for i, s in enumerate(compute_path_splits(fs, path, self.split_size)):
             owned = [(off, hdr) for off, hdr in data_containers
@@ -183,6 +202,59 @@ class CramSource:
                             device=self._storage._resolved_device())
 
     # -- internals ----------------------------------------------------------
+
+    def _read_with_traversal(self, fs, path: str, header: SamHeader,
+                             ref_fetch, data_containers, traversal,
+                             device) -> ReadBatch:
+        """The containers the CRAI lists for the intervals (every data
+        container without a CRAI), decoded and kept where a record
+        overlaps an interval; then, if asked for, the containers of
+        unplaced-unmapped slices (CRAI ``seq_id == -1``, or the
+        container headers without a CRAI), kept where ``refid == -1``."""
+        from disq_tpu_torch.cram.crai import CraiIndex
+        from disq_tpu_torch.traversal.bai_query import overlap_mask
+
+        crai = None
+        if fs.exists(path + ".crai"):
+            crai = CraiIndex.from_bytes(fs.read_all(path + ".crai"))
+        batches = []
+        if traversal.intervals:
+            if crai is not None:
+                chosen = set()
+                for iv in traversal.intervals:
+                    chosen.update(crai.containers_for_interval(
+                        header.ref_index(iv.contig), iv.start, iv.end))
+            else:
+                chosen = [off for off, _ in data_containers]
+            sub = self._decode_at(fs, path, sorted(chosen), ref_fetch, device)
+            batches.append(
+                sub.filter(overlap_mask(sub, header, traversal.intervals)))
+        if traversal.traverse_unplaced_unmapped:
+            unmapped = (
+                [e.container_offset for e in crai.entries if e.seq_id == -1]
+                if crai is not None
+                else [off for off, hdr in data_containers
+                      if hdr.ref_seq_id == -1])
+            sub = self._decode_at(fs, path, sorted(set(unmapped)), ref_fetch,
+                                  device)
+            batches.append(sub.filter(sub.refid == -1))
+        return ReadBatch.concat(batches)
+
+    def _decode_at(self, fs, path: str, offsets, ref_fetch,
+                   device) -> ReadBatch:
+        """The records of the containers at ``offsets``, decoded as a
+        split's are (their order-0 rANS streams in one launch on
+        ``device``) under the strict policy: a corrupt container
+        raises ``CorruptBlockError`` with its offset."""
+        ctx = ShardErrorContext(policy=ErrorPolicy.STRICT, path=path)
+        length = fs.get_file_length(path)
+        items = []
+        for off in offsets:
+            h, hdr_size = read_container_header_at(fs, path, off, length)
+            items.append((off, hdr_size,
+                          fs.read_range(path, off, hdr_size + h.length)))
+        return ReadBatch.concat(
+            self._decode_split_containers(items, ref_fetch, ctx, device))
 
     def _fetch_split_containers(self, fs, path: str, owned, shard_ctx
                                 ) -> List[Tuple[int, int, bytes]]:

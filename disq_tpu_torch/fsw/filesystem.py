@@ -1,8 +1,10 @@
 """Host file layer: posix and in-memory wrappers plus byte-range splits.
 
-Counterpart of ``disq_tpu/fsw/filesystem.py`` restricted to local
-paths; remote schemes (``http(s)://``, ``gs://``, ``s3://``) come in a
-later slice and raise here.
+Counterpart of ``disq_tpu/fsw/filesystem.py``. Remote URIs
+(``http(s)://``, ``gs://``, ``s3://``) dispatch to the HTTP range-read
+wrapper (``fsw/http.py``), gs and s3 through their public endpoints;
+``register_filesystem`` installs another wrapper for a scheme. Any
+other scheme raises.
 """
 
 from __future__ import annotations
@@ -61,6 +63,12 @@ class FileSystemWrapper:
     def list_directory(self, path: str) -> List[str]:
         raise NotImplementedError
 
+    def first_file_in_directory(self, path: str, suffix: str = "") -> str:
+        for p in self.list_directory(path):
+            if p.endswith(suffix):
+                return p
+        raise FileNotFoundError(f"no file with suffix {suffix!r} in {path}")
+
     def concat(self, parts: Sequence[str], target: str) -> None:
         """Concatenate ``parts`` into ``target`` (stream copy)."""
         with self.create(target) as out:
@@ -72,6 +80,9 @@ class FileSystemWrapper:
         raise NotImplementedError
 
     def mkdirs(self, path: str) -> None:
+        raise NotImplementedError
+
+    def is_directory(self, path: str) -> bool:
         raise NotImplementedError
 
 
@@ -98,6 +109,11 @@ class _AtomicWriteFile(io.FileIO):
                     f"short write to {self._tmp_path!r} at byte {done}")
             done += n
         return done
+
+    def abort(self) -> None:
+        """Discard the staged bytes: close without publishing."""
+        self._aborted = True
+        self.close()
 
     def __exit__(self, exc_type, exc, tb) -> None:
         self._aborted = self._aborted or exc_type is not None
@@ -162,6 +178,9 @@ class PosixFileSystemWrapper(FileSystemWrapper):
     def mkdirs(self, path: str) -> None:
         os.makedirs(path, exist_ok=True)
 
+    def is_directory(self, path: str) -> bool:
+        return os.path.isdir(path)
+
 
 class MemoryFileSystemWrapper(FileSystemWrapper):
     """In-memory filesystem for tests."""
@@ -170,9 +189,7 @@ class MemoryFileSystemWrapper(FileSystemWrapper):
         self._files: Dict[str, bytes] = {}
 
     def exists(self, path: str) -> bool:
-        prefix = path.rstrip("/") + "/"
-        return path in self._files or any(
-            p.startswith(prefix) for p in self._files)
+        return path in self._files or self.is_directory(path)
 
     def get_file_length(self, path: str) -> int:
         return len(self._files[path])
@@ -208,27 +225,43 @@ class MemoryFileSystemWrapper(FileSystemWrapper):
     def mkdirs(self, path: str) -> None:
         pass
 
+    def is_directory(self, path: str) -> bool:
+        prefix = path.rstrip("/") + "/"
+        return any(p.startswith(prefix) for p in self._files)
+
 
 _POSIX = PosixFileSystemWrapper()
 _SCHEME_REGISTRY: Dict[str, FileSystemWrapper] = {}
+_REMOTE_SCHEMES = ("http", "https", "gs", "s3")
 
 
 def register_filesystem(scheme: str, fs: FileSystemWrapper) -> None:
-    """Install a wrapper for ``scheme`` (e.g. ``mem`` in tests)."""
+    """Install a wrapper for ``scheme`` (e.g. ``mem`` in tests, or an
+    authenticated blob client); it overrides the built-in dispatch."""
     _SCHEME_REGISTRY[scheme] = fs
 
 
 def resolve_path(path: str) -> Tuple[FileSystemWrapper, str]:
-    """Scheme dispatch: URI → (wrapper, normalized path)."""
+    """Scheme dispatch: URI → (wrapper, normalized path). Each remote
+    scheme gets one ``HttpFileSystemWrapper``, registered at first use."""
     scheme = path.split("://", 1)[0] if "://" in path else ""
     if scheme in _SCHEME_REGISTRY:
         return _SCHEME_REGISTRY[scheme], path
+    if scheme in _REMOTE_SCHEMES:
+        from disq_tpu_torch.fsw.http import HttpFileSystemWrapper
+
+        fs = _SCHEME_REGISTRY.setdefault(scheme, HttpFileSystemWrapper())
+        return fs, path
     if path.startswith("file://"):
         return _POSIX, path[len("file://"):]
     if scheme:
         raise ValueError(
             f"scheme {scheme!r} is not supported by the PyTorch port yet")
     return _POSIX, path
+
+
+def get_filesystem(path: str) -> FileSystemWrapper:
+    return resolve_path(path)[0]
 
 
 def compute_path_splits(

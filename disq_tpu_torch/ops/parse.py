@@ -128,3 +128,23 @@ def parse_records(blob: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
 def columns(parsed: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The ``(12, N)`` result as a name → column dict (views)."""
     return dict(zip(_FIELD_ORDER, parsed.unbind(0)))
+
+
+def parse_fixed_words(words: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The 12 fixed fields of ``(N, 9)`` int32 record-prefix words, as
+    torch ops on the words' device."""
+    return _split_words(words)
+
+
+def parse_fixed_words_pallas(words: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The reference's kernel entry over ``(N, 9)`` int32 prefix words,
+    under its name: the words' bytes are a blob of 36-byte records that
+    ``parse_records`` (kernel B2 on ``cuda``) parses."""
+    if words.dtype != torch.int32 or words.dim() != 2 \
+            or words.shape[1] != N_WORDS:
+        raise ValueError(f"words: want (N, {N_WORDS}) int32, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    blob = words.contiguous().view(torch.uint8).reshape(-1)
+    starts = torch.arange(words.shape[0], dtype=torch.int64,
+                          device=words.device) * (4 * N_WORDS)
+    return columns(parse_records(blob, starts))

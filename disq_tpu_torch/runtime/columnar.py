@@ -441,6 +441,22 @@ class ColumnarBatch:
     def slice(self, start: int, stop: int) -> ReadBatch:
         return self.to_read_batch().slice(start, stop)
 
+    # decoded views, from the host parse of the records
+    def name(self, i: int) -> str:
+        return self._ragged_source().name(i)
+
+    def sequence(self, i: int) -> str:
+        return self._ragged_source().sequence(i)
+
+    def cigar_string(self, i: int) -> str:
+        return self._ragged_source().cigar_string(i)
+
+    def qual_string(self, i: int) -> str:
+        return self._ragged_source().qual_string(i)
+
+    def reference_lengths(self) -> np.ndarray:
+        return self._ragged_source().reference_lengths()
+
     def alignment_ends(self) -> np.ndarray:
         return self._ragged_source().alignment_ends()
 
@@ -576,3 +592,16 @@ def as_read_batch(batch) -> ReadBatch:
     if isinstance(batch, ColumnarBatch):
         return batch.to_read_batch()
     return batch
+
+
+def concat_batches(batches: Sequence) -> "ReadBatch | ColumnarBatch":
+    """Shard concat for the read paths (``ColumnarBatch.concat``):
+    device-backed when every shard is, else one host ``ReadBatch``."""
+    return ColumnarBatch.concat(batches)
+
+
+def resident_decode_enabled(storage) -> bool:
+    """True when reads through ``storage`` take the device route: always
+    on ``cuda``; elsewhere only when ``resident_decode`` was asked for."""
+    return storage._resolved_device().type == "cuda" or \
+        bool(getattr(storage, "_resident_decode", False))

@@ -16,10 +16,10 @@ Counterpart of ``disq_tpu/runtime/errors.py``:
     to a sidecar recorded in a ``QuarantineManifest``
     (``runtime/manifest.py``).
 
-``DisqOptions`` carries the fields this path reads, and ``read_ledger``
-(the crash-resumable read, ``runtime/manifest.py``); the reference's
-resilience, introspection, SLO and flight-recorder fields are not
-ported yet.
+``DisqOptions`` carries the fields this path reads, ``read_ledger``
+(the crash-resumable read, ``runtime/manifest.py``) and
+``http_cache_blocks``; the reference's resilience, introspection, SLO
+and flight-recorder fields are not ported yet.
 """
 
 from __future__ import annotations
@@ -94,6 +94,12 @@ class DisqOptions:
     each split's batch is filtered inside ``bam.split.decode``, on the
     device with kernel F1 for a device-backed batch. None (the default)
     builds no mask.
+
+    ``http_cache_blocks`` sizes the remote filesystem's block LRU
+    (``fsw/http.py``) when a read built from these options starts: every
+    registered HTTP wrapper, and the default for wrappers built later.
+    None keeps the default (32 blocks of 4 MiB, or
+    ``DISQ_TPU_TORCH_HTTP_CACHE_BLOCKS``).
     """
 
     error_policy: ErrorPolicy = ErrorPolicy.STRICT
@@ -108,6 +114,7 @@ class DisqOptions:
     device_deflate: bool = False
     span_log: Optional[str] = None
     read_filter: Optional[str] = None
+    http_cache_blocks: Optional[int] = None
 
     def with_policy(self, policy: "ErrorPolicy | str") -> "DisqOptions":
         return replace(self, error_policy=ErrorPolicy.coerce(policy))
@@ -131,6 +138,11 @@ class DisqOptions:
 
     def with_device_deflate(self, enable: bool = True) -> "DisqOptions":
         return replace(self, device_deflate=bool(enable))
+
+    def with_http_cache_blocks(self, n: int) -> "DisqOptions":
+        if n < 1:
+            raise ValueError(f"http_cache_blocks must be >= 1, got {n}")
+        return replace(self, http_cache_blocks=int(n))
 
     def with_read_filter(self, spec: str) -> "DisqOptions":
         """Push a read filter into the decode, validated here so a typo
@@ -213,6 +225,15 @@ def is_transient(exc: BaseException) -> bool:
             isinstance(exc, _PERMANENT_OS_ERRORS):
         return False
     if isinstance(exc, (TimeoutError, ConnectionError, TruncatedReadError)):
+        return True
+    import http.client
+    import urllib.error
+
+    if isinstance(exc, urllib.error.HTTPError):
+        return exc.code >= 500  # a 4xx is definitive
+    if isinstance(exc, (urllib.error.URLError, http.client.HTTPException)):
+        # network errors, IncompleteRead, RemoteDisconnected: wire-level
+        # symptoms a re-request can fix
         return True
     return isinstance(exc, OSError)
 

@@ -293,8 +293,13 @@ class ShardPipelineExecutor:
 
 
 def executor_for_storage(storage) -> ShardPipelineExecutor:
-    """The read executor sized by the storage's ``DisqOptions``."""
+    """The read executor sized by the storage's ``DisqOptions``; it also
+    applies the options' HTTP cache size (``http_cache_blocks``)."""
     opts = getattr(storage, "_options", None) or DisqOptions()
+    if opts.http_cache_blocks:
+        from disq_tpu_torch.fsw.http import configure_cache_blocks
+
+        configure_cache_blocks(opts.http_cache_blocks)
     return ShardPipelineExecutor(workers=opts.executor_workers,
                                  prefetch_shards=opts.prefetch_shards)
 

@@ -467,10 +467,16 @@ def telemetry_summary() -> Dict[str, Any]:
 # contextvars: every span emitted under it is stamped with its trace id.
 # Across the device service's thread hop, the submitting thread's
 # context rides on each queued lane and the dispatcher re-activates it
-# per owner via ``trace_scope`` when booking that owner's share. The
-# reference's edge helpers (minting under DISQ_TPU_TRACE_REQUESTS, the
-# X-Disq-Trace-* headers) wait for the port's serving edge. With no
+# per owner via ``trace_scope`` when booking that owner's share. An HTTP
+# hop (the remote filesystem's ranged GETs and HEADs) carries the
+# context out in the X-Disq-Trace-* headers (``inject_trace_headers``);
+# the reference's edge helpers (minting under DISQ_TPU_TRACE_REQUESTS,
+# ``trace_from_headers``) wait for the port's serving edge. With no
 # context active, ``current_trace()`` is one ContextVar read.
+
+TRACE_ID_HEADER = "X-Disq-Trace-Id"
+TRACE_PARENT_HEADER = "X-Disq-Trace-Parent"
+TRACE_TENANT_HEADER = "X-Disq-Trace-Tenant"
 
 
 class TraceContext:
@@ -496,6 +502,18 @@ _trace_var: "contextvars.ContextVar[Optional[TraceContext]]" = (
 def current_trace() -> Optional[TraceContext]:
     """The active request context, or None (the common, free case)."""
     return _trace_var.get()
+
+
+def inject_trace_headers(headers: Dict[str, str]) -> Dict[str, str]:
+    """Add ``X-Disq-Trace-*`` to an outbound header dict when a context
+    is active; with none active this is one ContextVar read and the
+    dict is returned untouched."""
+    ctx = _trace_var.get()
+    if ctx is not None:
+        headers[TRACE_ID_HEADER] = ctx.trace_id
+        headers[TRACE_PARENT_HEADER] = ctx.span_id
+        headers[TRACE_TENANT_HEADER] = ctx.tenant
+    return headers
 
 
 @contextlib.contextmanager
