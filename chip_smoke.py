@@ -52,6 +52,16 @@ through their public entry points on ``cuda``:
     storage.read_filter("-F 0x904 -q 20").read(sorted_bam, traversal=tp)
     storage.read(sorted_cram, traversal=tp_cram)                   # CRAI
     storage.read("http://127.0.0.1:<port>/sorted.bam"[, traversal=tp])
+    vst = VariantsStorage.make_default().split_size(8 << 20)
+    vst.write(vds, "v.vcf.bgz", TabixIndexWriteOption.ENABLE)     # VCF
+    vst.read("v.vcf.bgz"); vst.executor_workers(4).read(...)       # B1
+    # DISQ_TPU_TORCH_DEVICE_INFLATE=legacy: the same read through B4
+    vst.error_policy("skip").read(flipped)
+    vst.read("v.vcf.bgz", intervals=[Interval(...), ...])          # TBI
+    vst.device_deflate().write(vds, out, TabixIndexWriteOption.ENABLE)
+    bst.write(head_100k, "v.bcf"); bst.device_deflate().write(...) # BCF
+    bst.read("v.bcf")
+    storage.write(sorted_head_200k, "head.sam"); storage.read(...)  # SAM
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -120,9 +130,10 @@ the ``device.hbm_bytes`` gauge's peak over the read beside
 ``torch.cuda.max_memory_allocated``; the ``trace`` line counts B1 and B2
 kernel events in a ``torch.profiler`` trace of one BAM read against
 their launches and, when they agree, gives the device's busy share of
-the read. The operators phase writes ``dups.bam`` (the same generator,
-a seeded 5 % of pairs copying another pair's refid, pos, CIGAR and
-flags under their own names and qualities) and checks the filtered read
+the read. The operators phase writes ``dups.bam`` (the same generator
+at ``OPS_RECORDS`` reads, a seeded 5 % of pairs copying another pair's
+refid, pos, CIGAR and flags under their own names and qualities) and
+checks the filtered read
 against a numpy mask of this script's own (FNV-1a names, the subsample
 mix), F1 once per split; F1 against its plain version on every record;
 the chain on the device-backed dataset and on a host ``ReadBatch`` copy:
@@ -140,7 +151,23 @@ and the CIGAR's reference span), with B1 and B2 launched once per BAI
 chunk decoded (F1 too under the filter), no block inflated on the host,
 and B3 once for the CRAM interval; then the whole ``sorted.bam``, the
 interval read and the CRAM interval over ``http://`` from a local
-``ThreadingHTTPServer``, equal to the local reads. Any failed phase
+``ThreadingHTTPServer``, equal to the local reads. The variants phase synthesizes a cohort VCF of 1,000,000
+coordinate-sorted sites over chr1-3 (4 samples of GT:DP:GQ, INFO DP,
+AC, AN and AF, 1 % symbolic deletions with END=), writes it as BGZF with
+its TBI and checks every block against zlib and the TBI's chunks against
+the lines of each contig; reads it at 8 MiB splits (B1 once per split
+and once per neighbor block that completes a straddling line), under
+``legacy`` (B4), at 4 executor workers, under ``skip`` on a copy with
+one flipped bit (the lines touching that block lost, one block skipped)
+and through the TBI for three intervals (B1 once per merged chunk), each
+equal to the generator's lines and columns, no block inflated on the
+host; writes it with W2 (inflating to the zlib-6 write's stream, its TBI
+mapping to the same uncompressed offsets); writes the first 100,000
+sites as BCF with zlib-6 and with W2 and reads it back (B1 once per
+split) equal to the VCF lines; and writes the first 200,000 sorted reads
+of the main path's device-backed dataset as SAM text, reads them back
+equal to the generator (names, sequences, qualities, CIGARs, tags with
+NM as an int32) and writes and re-reads them as BAM. Any failed phase
 exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
@@ -2831,6 +2858,7 @@ def trace_leg(torch, port, args, src, work) -> dict:
 # -- operators (A12): the read filter in the decode, and a resident chain ----
 
 DUP_PAIR_FRACTION = 0.05     # pairs that copy another pair's alignment
+OPS_RECORDS = 1_000_000      # dups.bam's reads: a cut of depth (3 splits)
 OPS_FILTER = "-F 0x904 -q 20 -s 7.5"
 OPS_CHAIN = (("filter", "-F 0x400"), "sort", "markdup", "rgstats",
              ("pileup", 0, 1_000_000, 5_194_304))
@@ -2963,7 +2991,7 @@ def operator_legs(torch, port, args, work, dev):
     from disq_tpu_torch.runtime import counters, tracing
     from disq_tpu_torch.runtime.oppipe import OpPipeline
 
-    n = args.records
+    n = min(args.records, OPS_RECORDS)
     t0 = time.perf_counter()
     g = synthesize_dups(n, args.seed)
     dups = os.path.join(work, "dups.bam")
@@ -3463,6 +3491,431 @@ def traversal_legs(torch, port, args, g, perm_want, work) -> dict:
     return launches, e2e
 
 
+# -- variants and SAM text ----------------------------------------------------
+
+VCF_SITES = 1_000_000        # a cohort VCF slice over chr1-3
+VCF_SPLIT = 8 << 20          # the VCF reads' split size
+VCF_SAMPLES = 4
+SV_FRACTION = 0.01           # symbolic <DEL> alleles with END=
+VCF_INTERVALS = (("chr1", 20_000_001, 20_400_000),
+                 ("chr2", 100_000_001, 100_300_000),
+                 ("chr3", 150_000_001, 150_200_000))
+BCF_SITES = 100_000          # the BCF legs' cut: the first sites
+BCF_SPLIT = 1 << 20          # small enough for several BCF splits
+SAM_RECORDS = 200_000        # the SAM legs' cut: the first sorted reads
+AF_TEXT = ("0", "0.125", "0.25", "0.375", "0.5", "0.625", "0.75", "0.875",
+           "1")                   # AC/8, as the BCF codec prints a float
+GT_TEXT = ("0/0", "0/1", "1/1", "0|1")
+
+
+def vcf_header_text() -> str:
+    return ("##fileformat=VCFv4.3\n"
+            + "".join(f"##contig=<ID={c},length={n}>\n" for c, n in REFS)
+            + '##ALT=<ID=DEL,Description="Deletion">\n'
+            '##INFO=<ID=SVTYPE,Number=1,Type=String,Description="SV type">\n'
+            '##INFO=<ID=END,Number=1,Type=Integer,Description="End">\n'
+            '##INFO=<ID=DP,Number=1,Type=Integer,Description="Depth">\n'
+            '##INFO=<ID=AC,Number=A,Type=Integer,Description="Allele count">\n'
+            '##INFO=<ID=AN,Number=1,Type=Integer,Description="Allele number">\n'
+            '##INFO=<ID=AF,Number=A,Type=Float,Description="Allele freq">\n'
+            '##FORMAT=<ID=GT,Number=1,Type=String,Description="Genotype">\n'
+            '##FORMAT=<ID=DP,Number=1,Type=Integer,Description="Depth">\n'
+            '##FORMAT=<ID=GQ,Number=1,Type=Integer,Description="GQ">\n'
+            "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+            + "\t".join(f"S{k + 1}" for k in range(VCF_SAMPLES)) + "\n")
+
+
+def synthesize_vcf(n: int, seed: int) -> dict:
+    """``n`` coordinate-sorted sites over ``REFS`` in proportion to their
+    lengths: SNVs with INFO DP, AC, AN and AF, ``SV_FRACTION`` symbolic
+    deletions with SVTYPE and END, and ``VCF_SAMPLES`` samples of
+    GT:DP:GQ. Returns the header, the body lines' bytes (no newlines)
+    with their offsets, and the chrom / pos / end columns (1-based,
+    END-aware)."""
+    rng = np.random.default_rng(seed)
+    ref_len = np.array([ln for _, ln in REFS], np.int64)
+    per = (n * ref_len // ref_len.sum()).astype(np.int64)
+    per[-1] = n - per[:-1].sum()
+    chrom = np.repeat(np.arange(len(REFS)), per).astype(np.int32)
+    pos = np.concatenate([np.sort(rng.integers(1, ln - 20_000, c))
+                          for c, ln in zip(per, ref_len)])
+    sv = rng.random(n) < SV_FRACTION
+    end = np.where(sv, pos + rng.integers(50, 10_000, n), pos)
+    ref_i = rng.integers(0, 4, n)
+    alt_i = (ref_i + rng.integers(1, 4, n)) % 4
+    qual = rng.integers(10, 100, n)
+    dp = rng.integers(5, 200, n)
+    ac = rng.integers(0, 9, n)
+    # the fields' text by lookup: sample columns (GT:DP:GQ) and the
+    # SNV / deletion ALT and INFO prefix
+    table = [f"{GT_TEXT[k // 9801]}:{(k // 99) % 99}:{k % 99}"
+             for k in range(4 * 99 * 99)]
+    samples = ["\t".join(table[x] for x in row) for row in
+               rng.integers(0, len(table), (n, VCF_SAMPLES)).tolist()]
+    alt = np.where(sv, "<DEL>", np.array(list("ACGT"))[alt_i]).tolist()
+    sv_info = [f"SVTYPE=DEL;END={e};" if s else ""
+               for s, e in zip(sv.tolist(), end.tolist())]
+    names = [c for c, _ in REFS]
+    lines = [
+        f"{names[c]}\t{p}\trs{i}\t{'ACGT'[r]}\t{a}\t{q}\tPASS\t{si}DP={d};"
+        f"AC={k};AN=8;AF={AF_TEXT[k]}\tGT:DP:GQ\t{smp}"
+        for i, c, p, r, a, q, si, d, k, smp in zip(
+            range(1, n + 1), chrom.tolist(), pos.tolist(), ref_i.tolist(),
+            alt, qual.tolist(), sv_info, dp.tolist(), ac.tolist(), samples)]
+    lens = np.fromiter((len(ln) for ln in lines), np.int64, n)
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return {"header": vcf_header_text(), "chrom": chrom,
+            "pos": pos.astype(np.int32), "end": end.astype(np.int32),
+            "line_offsets": offsets,
+            "lines": np.frombuffer("".join(lines).encode(), np.uint8),
+            "contig_names": tuple(names)}
+
+
+def vcf_body(v: dict) -> bytes:
+    """The body text: every line and its newline."""
+    return np.insert(v["lines"], v["line_offsets"][1:], ord("\n")).tobytes()
+
+
+def variants_equal(got, v: dict, rows, what: str) -> None:
+    """A ``VariantBatch`` equals the generator's sites ``rows`` (sorted
+    indices): chrom, pos, END-aware end and every line's bytes."""
+    check(got.count == len(rows), f"{what}: {got.count} sites, want "
+          f"{len(rows)}")
+    check(got.contig_names == v["contig_names"], f"{what}: contigs")
+    for col in ("chrom", "pos", "end"):
+        check(np.array_equal(getattr(got, col), v[col][rows]),
+              f"{what}: column {col}")
+    lens = np.diff(v["line_offsets"])
+    check(np.array_equal(np.diff(got.line_offsets), lens[rows]),
+          f"{what}: line lengths")
+    keep = np.zeros(len(lens), bool)
+    keep[rows] = True
+    check(np.array_equal(got.lines, v["lines"][np.repeat(keep, lens)]),
+          f"{what}: line bytes")
+
+
+def tbi_parts(raw: bytes):
+    """An independent parse of a tabix index: (the VCF preset's header
+    fields, contig names, per contig (chunks as an (m, 2) uint64 array,
+    the metadata pseudo-bin's four values), the BAI-shaped body)."""
+    check(raw[:4] == b"TBI\x01", "TBI magic")
+    n_ref, *preset, l_nm = struct.unpack_from("<8i", raw, 4)
+    names = tuple(n.decode() for n in raw[36:36 + l_nm].split(b"\0")[:-1])
+    p = 36 + l_nm
+    body = raw[p:]
+    refs = []
+    for _ in range(n_ref):
+        n_bin = struct.unpack_from("<i", raw, p)[0]
+        p += 4
+        chunks, meta = [], None
+        for _ in range(n_bin):
+            b, n_chunk = struct.unpack_from("<Ii", raw, p)
+            pairs = np.frombuffer(raw, "<u8", 2 * n_chunk, p + 8)
+            p += 8 + 16 * n_chunk
+            if b == 37450:
+                meta = pairs.astype(np.int64)
+            else:
+                chunks.append(pairs.reshape(-1, 2))
+        n_intv = struct.unpack_from("<i", raw, p)[0]
+        p += 4 + 8 * n_intv
+        refs.append((np.concatenate(chunks) if chunks
+                     else np.zeros((0, 2), np.uint64), meta))
+    return preset, names, refs, b"BAI\x01" + struct.pack("<i", n_ref) + body
+
+
+def tbi_check(raw: bytes, v: dict, hdr_len: int, cstart, ustart,
+              what: str) -> None:
+    """The TBI of a VCF.bgz with one line per generator site: the VCF
+    preset, the contig names, and per contig the chunks (every bin's,
+    mapped to uncompressed offsets) holding exactly that contig's lines,
+    the metadata pseudo-bin spanning its first line's start to its last
+    line's end with its line count."""
+    preset, names, refs, _ = tbi_parts(raw)
+    check(preset == [2, 1, 2, 0, ord("#"), 0], f"{what}: preset {preset}")
+    check(names == v["contig_names"], f"{what}: names {names}")
+    n = len(v["chrom"])
+    starts = hdr_len + v["line_offsets"][:-1] + np.arange(n)
+    ends = hdr_len + v["line_offsets"][1:] + np.arange(1, n + 1)
+    for r, (chunks, meta) in enumerate(refs):
+        beg = uncompressed_offsets(chunks[:, 0], cstart, ustart)
+        fin = uncompressed_offsets(chunks[:, 1], cstart, ustart)
+        cover = np.zeros(n + 1, np.int64)
+        np.add.at(cover, np.searchsorted(starts, beg), 1)
+        np.add.at(cover, np.searchsorted(starts, fin), -1)
+        covered = np.cumsum(cover)[:-1] > 0
+        mine = v["chrom"] == r
+        check(np.array_equal(covered, mine),
+              f"{what}: contig {r}'s chunks hold {int(covered.sum())} "
+              f"lines, {int((covered & ~mine).sum())} of other contigs; "
+              f"want {int(mine.sum())}")
+        rows = np.nonzero(mine)[0]
+        span = uncompressed_offsets(meta[:2], cstart, ustart)
+        check(span[0] == starts[rows[0]] and span[1] == ends[rows[-1]]
+              and meta[2] == len(rows) and meta[3] == 0,
+              f"{what}: contig {r}'s metadata bin {meta.tolist()}")
+
+
+def b1_split_launches(data: bytes, split: int) -> int:
+    """B1 launches of a VCF.bgz split read of ``data``: one for each
+    split's own blocks, one more for the neighbor block that completes
+    its straddling line (every data block holds a newline; the last
+    split's neighbor is the EOF block)."""
+    blocks = walk_blocks(data)
+    n = 0
+    for s in range(0, len(data), split):
+        owned = [(p, t) for p, t, _ in blocks if s <= p < s + split]
+        if owned:
+            n += 1 + (owned[-1][0] + owned[-1][1] < len(data))
+    return n
+
+
+def split_block_launches(data: bytes, split: int) -> int:
+    """B1 launches of a BCF split read: one per split owning a block."""
+    return len({p // split for p, _, _ in walk_blocks(data)})
+
+
+def variants_legs(torch, port, args, g, perm_want, ds, work):
+    """The variants and SAM text paths on the card. VCF: the generator's
+    ``VCF_SITES`` sites written as ``v.vcf.bgz`` with its TBI (zlib-6),
+    read at ``VCF_SPLIT`` (B1 once per split and once per neighbor
+    extension), under ``legacy`` (B4), at 4 executor workers, under
+    ``skip`` on a copy with one flipped bit in a block of split 1, through
+    the TBI for ``VCF_INTERVALS`` (B1 once per merged chunk), and written
+    again with ``device_deflate`` (W2 once per shard and once for the
+    header block). BCF: the first ``BCF_SITES`` sites written with zlib-6
+    and with W2, and read at ``BCF_SPLIT`` (B1 once per split). SAM: the
+    first ``SAM_RECORDS`` sorted reads of the main path's device-backed
+    dataset written as text, read back (a host ``ReadBatch``) and
+    written as BAM, re-read on the device. Every result against the
+    generators. Returns (launches per leg, e2e)."""
+    from disq_tpu_torch import interop
+    from disq_tpu_torch.index.tbi import TbiIndex
+    from disq_tpu_torch.ops import inflate_simd as B1
+    from disq_tpu_torch.runtime import counters
+    from disq_tpu_torch.util import resolve_num_shards
+
+    t0 = time.perf_counter()
+    v = synthesize_vcf(VCF_SITES, args.seed + 12)
+    header = v["header"].encode()
+    stream_want = header + vcf_body(v)
+    vds = interop.variants_dataset_from_state(v["header"], v)
+    synth_s = time.perf_counter() - t0
+    names = v["contig_names"]
+    launches, e2e, legs = {}, {"vcf_synth_s": round(synth_s, 4)}, {}
+
+    def leg(name, fn, rows=None):
+        """Run one leg with the counts set to 0 just before it and read
+        just after; book its seconds, launches and records."""
+        counters.reset()
+        b1 = dict(B1.last_stats)
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        snap = counters.snapshot()
+        la = {k: c for k, c in snap["launches"].items() if c}
+        host = sum(snap["host_fallback_blocks"].values())
+        b1_host = {k: B1.last_stats[k] - b1[k]
+                   for k in ("host_big", "host_fallback")}
+        launches[name] = la
+        e2e[f"{name}_s"] = round(secs, 4)
+        legs[name] = {"s": round(secs, 4), "launches": la,
+                      "records": rows, "host_fallback_blocks": host}
+        log(f"variants {name}: {rows} records, {secs:.4f}s, launches "
+            f"{json.dumps(la)}, host-inflated blocks {host}")
+        return out, la, host, b1_host
+
+    # -- the zlib-6 write with the TBI ----------------------------------------
+    vbgz = os.path.join(work, "v.vcf.bgz")
+    st = port.VariantsStorage.make_default().split_size(VCF_SPLIT)
+    _, la, _, _ = leg("vcf_write", lambda: st.write(
+        vds, vbgz, port.TabixIndexWriteOption.ENABLE), VCF_SITES)
+    check(not la, f"vcf write: a zlib-6 write launched {la}")
+    data = open(vbgz, "rb").read()
+    stream, cstart, ustart = bgzf_layout(data)
+    check(stream == stream_want,
+          "vcf write: the blocks do not inflate to the header and lines")
+    tbi_raw = open(vbgz + ".tbi", "rb").read()
+    tbi_check(tbi_raw, v, len(header), cstart, ustart, "vcf write")
+    splits = -(-len(data) // VCF_SPLIT)
+    check(splits >= 4, f"vcf: {splits} splits")
+    want_b1 = b1_split_launches(data, VCF_SPLIT)
+    all_rows = np.arange(VCF_SITES)
+
+    # -- the reads ----------------------------------------------------------------
+    def read_leg(name, storage, path, rows, b1_want, **kw):
+        got, la, host, b1_host = leg(
+            name, lambda: storage.read(path, **kw), len(rows))
+        variants_equal(got.variants, v, rows, name)
+        check(got.header.text == v["header"], f"{name}: header")
+        key = "inflate_legacy" if name == "vcf_legacy_read" else "inflate"
+        check(la.get(key, 0) == b1_want and set(la) == {key},
+              f"{name}: launches {la}, want {key} {b1_want}")
+        return got, host, b1_host
+
+    got, host, b1_host = read_leg("vcf_read", st, vbgz, all_rows, want_b1)
+    check(host == 0 and not any(b1_host.values()),
+          f"vcf read: blocks inflated on the host {host} {b1_host}")
+    check(got.counters.shards == splits and got.counters.records == VCF_SITES,
+          f"vcf read: counters {got.counters}")
+    os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"] = "legacy"
+    try:
+        _, host, _ = read_leg("vcf_legacy_read", st, vbgz, all_rows,
+                              want_b1)
+    finally:
+        os.environ.pop("DISQ_TPU_TORCH_DEVICE_INFLATE")
+    check(host == 0, f"vcf legacy read: {host} blocks on the host")
+    _, host, b1_host = read_leg(
+        "vcf_executor4_read", port.VariantsStorage.make_default()
+        .split_size(VCF_SPLIT).executor_workers(4), vbgz, all_rows, want_b1)
+    check(host == 0 and not any(b1_host.values()),
+          f"vcf 4-worker read: blocks on the host {host} {b1_host}")
+
+    # skip: one flipped bit in a block in the middle of split 1
+    k = int(np.searchsorted(cstart, VCF_SPLIT + VCF_SPLIT // 2))
+    p, total, _ = walk_blocks(data)[k]
+    flipped = bytearray(data)
+    flipped[p + total // 2] ^= 0x10
+    vflip = os.path.join(work, "vflip.vcf.bgz")
+    with open(vflip, "wb") as f:
+        f.write(bytes(flipped))
+    del flipped
+    ulo, uhi = int(ustart[k]), int(ustart[k + 1])
+    n = VCF_SITES
+    starts = len(header) + v["line_offsets"][:-1] + np.arange(n)
+    ends = len(header) + v["line_offsets"][1:] + np.arange(1, n + 1)
+    kept = np.nonzero((ends <= ulo) | (starts >= uhi))[0]
+    got, host, _ = read_leg(
+        "vcf_skip_read", port.VariantsStorage.make_default()
+        .split_size(VCF_SPLIT).error_policy("skip"), vflip, kept, want_b1)
+    check(got.counters.skipped_blocks == 1,
+          f"vcf skip read: {got.counters.skipped_blocks} blocks skipped")
+    check(host <= 1, f"vcf skip read: {host} blocks on the host")
+    legs["vcf_skip_read"]["lost_sites"] = n - len(kept)
+
+    # tabix: three intervals, B1 once per merged chunk
+    tbi = TbiIndex.from_bytes(tbi_raw)
+    chunks = sorted(c for contig, s, e in VCF_INTERVALS
+                    for c in tbi.chunks_for_interval(contig, s - 1, e))
+    merged = []
+    for cb, ce in chunks:
+        if merged and cb <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], ce))
+        else:
+            merged.append((cb, ce))
+    mask = np.zeros(n, bool)
+    for contig, s, e in VCF_INTERVALS:
+        mask |= ((v["chrom"] == names.index(contig)) & (v["pos"] <= e)
+                 & (v["end"] >= s))
+    read_leg("vcf_tabix_read", st, vbgz, np.nonzero(mask)[0], len(merged),
+             intervals=[port.Interval(*iv) for iv in VCF_INTERVALS])
+
+    # -- the device-deflate write ---------------------------------------------------
+    vdev = os.path.join(work, "vdev.vcf.bgz")
+    shards = resolve_num_shards(st)
+    _, la, _, _ = leg("vcf_device_write", lambda: st.device_deflate().write(
+        vds, vdev, port.TabixIndexWriteOption.ENABLE), VCF_SITES)
+    check(la == {"deflate": shards + 1},
+          f"vcf device write: launches {la}, want deflate {shards + 1}")
+    dev_data = open(vdev, "rb").read()
+    d_stream, d_cstart, d_ustart = bgzf_layout(dev_data)
+    check(d_stream == stream and dev_data != data,
+          "vcf device write: does not inflate to the zlib-6 write's stream")
+    d_tbi = open(vdev + ".tbi", "rb").read()
+    check(bai_mapped(tbi_parts(d_tbi)[3], d_cstart, d_ustart).tolist()
+          == bai_mapped(tbi_parts(tbi_raw)[3], cstart, ustart).tolist(),
+          "vcf device write: its TBI maps to other uncompressed offsets")
+    e2e["vcf_bytes"] = {"file": len(data), "decoded": len(stream),
+                        "device_file": len(dev_data), "splits": splits}
+    del data, stream, dev_data, d_stream
+
+    # -- BCF on the first BCF_SITES sites ----------------------------------------
+    bds = port.VariantsDataset(header=vds.header,
+                               variants=vds.variants.slice(0, BCF_SITES))
+    bst = port.VariantsStorage.make_default().split_size(BCF_SPLIT)
+    bcf, bdev = os.path.join(work, "v.bcf"), os.path.join(work, "vdev.bcf")
+    _, la, _, _ = leg("bcf_write", lambda: bst.write(bds, bcf), BCF_SITES)
+    check(not la, f"bcf write: a zlib-6 write launched {la}")
+    _, la, _, _ = leg("bcf_device_write",
+                      lambda: bst.device_deflate().write(bds, bdev),
+                      BCF_SITES)
+    check(la == {"deflate": shards + 1}, f"bcf device write: launches {la}")
+    b_data, b_dev = open(bcf, "rb").read(), open(bdev, "rb").read()
+    b_stream = bgzf_layout(b_data)[0]
+    check(b_stream[:5] == b"BCF\x02\x02", "bcf write: magic")
+    check(bgzf_layout(b_dev)[0] == b_stream and b_dev != b_data,
+          "bcf device write: does not inflate to the zlib-6 write's stream")
+    got, la, host, b1_host = leg("bcf_read", lambda: bst.read(bcf),
+                                 BCF_SITES)
+    want = split_block_launches(b_data, BCF_SPLIT)
+    check(la == {"inflate": want} and want >= 2,
+          f"bcf read: launches {la}, want inflate {want}")
+    check(host == 0 and not any(b1_host.values()),
+          f"bcf read: blocks on the host {host} {b1_host}")
+    variants_equal(got.variants, v, np.arange(BCF_SITES), "bcf read")
+    e2e["bcf_bytes"] = {"file": len(b_data), "decoded": len(b_stream),
+                        "device_file": len(b_dev)}
+    del b_data, b_dev, b_stream, got
+
+    # -- SAM text on the first SAM_RECORDS sorted reads ----------------------------
+    rows = perm_want[:SAM_RECORDS]
+    nreads = len(perm_want)
+    sub = ds.reads.permuted(perm_want).filter(np.arange(nreads) < SAM_RECORDS)
+    check(sub.device_backed, "sam: the sorted head is not device-backed")
+    sam_ds = port.ReadsDataset(header=ds.header.with_sort_order("coordinate"),
+                               reads=sub)
+    rst = port.ReadsStorage.make_default()
+    sam = os.path.join(work, "head.sam")
+    _, la, _, _ = leg("sam_write", lambda: rst.write(sam_ds, sam),
+                      SAM_RECORDS)
+    check(not la, f"sam write: launches {la}")
+    back, la, _, _ = leg("sam_read", lambda: rst.read(sam), SAM_RECORDS)
+    check(not la, f"sam read: launches {la}")
+    rb = back.reads
+    check(type(rb).__name__ == "ReadBatch" and back.count() == SAM_RECORDS,
+          f"sam read: {type(rb).__name__} of {back.count()} records")
+    check(back.flagstat() == numpy_flagstat(g["flag"][rows]),
+          "sam read: flagstat")
+    # SAM carries no bin: the parse derives it from POS and the CIGAR,
+    # which gives an unplaced read 4681 (the reference's), not 4680
+    placed = g["refid"][rows] >= 0
+    for col in FIXED:
+        got_col, want_col = getattr(rb, col), g[col][rows]
+        if col == "bin":
+            got_col, want_col = got_col[placed], want_col[placed]
+        check(np.array_equal(got_col, want_col), f"sam read: column {col}")
+    check(np.array_equal(rb.names.reshape(-1, NAME_LEN), g["names"][rows]),
+          "sam read: names")
+    check(np.array_equal(rb.seqs.reshape(-1, READ_LEN), g["seq"][rows]),
+          "sam read: sequences")
+    check(np.array_equal(rb.quals.reshape(-1, READ_LEN), g["qual"][rows]),
+          "sam read: qualities")
+    ncig = g["ncig"][rows]
+    check(np.array_equal(rb.cigars, g["cig"][rows][
+        np.arange(3)[None, :] < ncig[:, None]]), "sam read: cigars")
+    # SAM text prints NM:C:n as NM:i:n, which reads back as an int32
+    t = g["tags"][rows]
+    tags_want = np.concatenate([
+        t[:, :8], np.frombuffer(b"NMi", np.uint8)[None].repeat(len(rows), 0),
+        t[:, 11:12].astype("<i4").view(np.uint8)], 1)
+    check(np.array_equal(rb.tags.reshape(len(rows), -1), tags_want),
+          "sam read: tags")
+    sam_bam = os.path.join(work, "head.bam")
+    _, la, _, _ = leg("sam_bam_write", lambda: rst.write(back, sam_bam),
+                      SAM_RECORDS)
+    again = rst.read(sam_bam)
+    check(again.reads.device_backed, "sam → bam: the re-read is on the host")
+    for col in FIXED:
+        check(np.array_equal(getattr(again.reads, col), getattr(rb, col)),
+              f"sam → bam re-read: column {col}")
+    check(np.array_equal(again.reads.to_read_batch().tags, rb.tags),
+          "sam → bam re-read: tags")
+    e2e["sam_bytes"] = os.path.getsize(sam)
+    log(f"variants: {json.dumps(legs)}")
+    return launches, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -3808,6 +4261,10 @@ def run(args) -> dict:
     traversal, traversal_e2e = traversal_legs(torch, port, args, g,
                                               perm_want, work)
     log(f"phase traversal: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    variants, variants_e2e = variants_legs(torch, port, args, g, perm_want,
+                                           ds, work)
+    log(f"phase variants: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
@@ -3828,13 +4285,17 @@ def run(args) -> dict:
             leg: books[key] for leg, books in traversal.items()
             if key in books}
     by_name["rans_simd"]["launches_on_traversal"] = traversal["cram"]
+    for name in ("inflate", "inflate_legacy", "deflate"):
+        by_name[name]["launches_on_variants"] = {
+            leg: books[name] for leg, books in variants.items()
+            if name in books}
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
            **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
-           **traversal_e2e,
+           **traversal_e2e, **variants_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")

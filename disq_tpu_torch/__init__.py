@@ -17,9 +17,13 @@ from disq_tpu_torch.api import (  # noqa: F401
     ReadsStorage,
     SbiWriteOption,
     StageManifestWriteOption,
+    TabixIndexWriteOption,
     TempPartsDirectoryWriteOption,
     TraversalParameters,
     ValidationStringency,
+    VariantsDataset,
+    VariantsFormatWriteOption,
+    VariantsStorage,
     WriteOption,
 )
 from disq_tpu_torch.runtime import (  # noqa: F401

@@ -1,4 +1,5 @@
-"""Public API — ``ReadsStorage`` and ``ReadsDataset``, as in ``disq_tpu``.
+"""Public API — ``ReadsStorage`` / ``ReadsDataset`` and ``VariantsStorage``
+/ ``VariantsDataset``, as in ``disq_tpu``.
 
 Usage::
 
@@ -39,6 +40,9 @@ Usage::
                              traverse_unplaced_unmapped=True)
     ds = storage.read("sorted.bam", traversal=tp)
     ds = storage.http_cache_blocks(64).read("https://host/sample.bam")
+
+    # text SAM, read and written through the same storage
+    storage.write(ds, "out.sam"); storage.read("out.sam").flagstat()
 
     # telemetry: per-shard spans to a JSONL file, and the registry
     ds = storage.span_log("spans.jsonl").read("sample.bam")
@@ -107,6 +111,13 @@ class ReadsFormatWriteOption(WriteOption, enum.Enum):
     SAM = "sam"
 
 
+class VariantsFormatWriteOption(WriteOption, enum.Enum):
+    VCF = "vcf"
+    VCF_GZ = "vcf.gz"
+    VCF_BGZ = "vcf.bgz"
+    BCF = "bcf"
+
+
 class FileCardinalityWriteOption(WriteOption, enum.Enum):
     SINGLE = "single"
     MULTIPLE = "multiple"
@@ -140,6 +151,11 @@ class SbiWriteOption(WriteOption, enum.Enum):
 
 
 class CraiWriteOption(WriteOption, enum.Enum):
+    ENABLE = True
+    DISABLE = False
+
+
+class TabixIndexWriteOption(WriteOption, enum.Enum):
     ENABLE = True
     DISABLE = False
 
@@ -189,7 +205,8 @@ def _opt(options, cls, default):
 def _infer_cardinality(path: str) -> FileCardinalityWriteOption:
     """A file extension ⇒ one merged file; otherwise a directory of
     per-shard files."""
-    if path.lower().endswith((".bam", ".cram", ".sam")):
+    if path.lower().endswith((".bam", ".cram", ".sam", ".vcf", ".vcf.gz",
+                              ".vcf.bgz", ".bcf")):
         return FileCardinalityWriteOption.SINGLE
     return FileCardinalityWriteOption.MULTIPLE
 
@@ -460,3 +477,158 @@ class ReadsStorage:
         cardinality = _opt(options, FileCardinalityWriteOption,
                            _infer_cardinality(path))
         fmt.make_sink(self, cardinality).save(dataset, path, options)
+
+
+@dataclass
+class VariantsDataset:
+    """Header + columnar variants (a host ``VariantBatch``), and the
+    read's counters (records, blocks, skipped and quarantined blocks,
+    retried reads)."""
+
+    header: "VcfHeader"
+    variants: "VariantBatch"
+    counters: object = None
+
+    def count(self) -> int:
+        return int(self.variants.count)
+
+    def telemetry_report(self) -> dict:
+        """See ``ReadsDataset.telemetry_report``."""
+        return _telemetry_report(self.counters)
+
+
+class VariantsStorage:
+    """Entry point for variants: VCF (plain, gzip, BGZF) and BCF, with
+    the tabix index (chained configuration, then read/write)::
+
+        storage = VariantsStorage.make_default().split_size(64 << 20)
+        ds = storage.read("cohort.vcf.bgz")          # B1 on cuda
+        storage.write(ds, "out.vcf.bgz", TabixIndexWriteOption.ENABLE)
+        ds = storage.read("out.vcf.bgz", intervals=[Interval("chr1", 1, 10_000)])
+        storage.write(ds, "out.bcf"); storage.read("out.bcf")
+
+    It takes the device rule of ``ReadsStorage``: ``cuda`` unless asked
+    for another device, and without CUDA ``read`` and ``write`` raise.
+    On ``cuda`` every BGZF inflate of a VCF.bgz or BCF read runs the
+    device inflate kernel, and the text comes back to the host for the
+    line parse; on the CPU the host codec inflates, unless
+    ``.resident_decode()`` asks for the device route's plain versions.
+    """
+
+    def __init__(self, device=None) -> None:
+        self._split_size: int = 128 * 1024 * 1024
+        self._num_shards: Optional[int] = None
+        self._device = device
+        self._resident_decode = False
+        self._options = DisqOptions()
+
+    @classmethod
+    def make_default(cls, device=None) -> "VariantsStorage":
+        return cls(device)
+
+    def split_size(self, n: int) -> "VariantsStorage":
+        self._split_size = n
+        return self
+
+    def num_shards(self, n: int) -> "VariantsStorage":
+        """Write-shard count override (default: visible CUDA devices)."""
+        self._num_shards = n
+        return self
+
+    def device(self, device) -> "VariantsStorage":
+        self._device = device
+        return self
+
+    def error_policy(self, policy: "ErrorPolicy | str") -> "VariantsStorage":
+        """Corrupt-block policy of VCF.bgz reads (see
+        ``ReadsStorage.error_policy``): a skipped block's lines drop."""
+        self._options = self._options.with_policy(policy)
+        return self
+
+    def options(self, opts: DisqOptions) -> "VariantsStorage":
+        self._options = opts
+        return self
+
+    def executor_workers(self, n: int,
+                         prefetch_shards: Optional[int] = None
+                         ) -> "VariantsStorage":
+        """Shard executor sizing for variant reads (VCF text, BGZF-split
+        VCF, BCF block inflate); see ``ReadsStorage.executor_workers``."""
+        self._options = self._options.with_executor(n, prefetch_shards)
+        return self
+
+    def writer_workers(self, n: int,
+                       prefetch_shards: Optional[int] = None
+                       ) -> "VariantsStorage":
+        """Write pipeline sizing for variant writes (VCF plain, gzip,
+        BGZF, BCF); see ``ReadsStorage.writer_workers``."""
+        self._options = self._options.with_writer(n, prefetch_shards)
+        return self
+
+    def span_log(self, path: str) -> "VariantsStorage":
+        """See ``ReadsStorage.span_log``."""
+        from dataclasses import replace
+
+        self._options = replace(self._options, span_log=path)
+        return self
+
+    def read_ledger(self, path: str) -> "VariantsStorage":
+        """See ``ReadsStorage.read_ledger``."""
+        self._options = self._options.with_read_ledger(path)
+        return self
+
+    def http_cache_blocks(self, n: int) -> "VariantsStorage":
+        """See ``ReadsStorage.http_cache_blocks``."""
+        self._options = self._options.with_http_cache_blocks(n)
+        return self
+
+    def resident_decode(self, enable: bool = True) -> "VariantsStorage":
+        """Take the device inflate route on the CPU too (its kernels'
+        plain versions); on ``cuda`` it is always taken."""
+        self._resident_decode = enable
+        return self
+
+    def device_deflate(self, enable: bool = True) -> "VariantsStorage":
+        """See ``ReadsStorage.device_deflate``: every BGZF deflate of
+        this storage's sinks (VCF_BGZ parts and header, BCF blocks) runs
+        the literal-Huffman coder (kernel W2) on the storage's device."""
+        self._options = self._options.with_device_deflate(enable)
+        return self
+
+    def _resolved_device(self) -> torch.device:
+        from disq_tpu_torch.util import resolve_device
+
+        return resolve_device(self._device)
+
+    def read(self, path: str,
+             intervals: Optional[Sequence[Interval]] = None
+             ) -> VariantsDataset:
+        """Read a VCF (plain, gzip or BGZF) or a BCF; with ``intervals``,
+        only the variants overlapping them (through the ``.tbi`` when a
+        BGZF VCF has one)."""
+        self._resolved_device()
+        if path.lower().endswith(".bcf"):
+            from disq_tpu_torch.vcf.bcf import BcfSource
+
+            return BcfSource(self).get_variants(path, intervals)
+        from disq_tpu_torch.vcf.source import VcfSource
+
+        return VcfSource(self).get_variants(path, intervals)
+
+    def write(self, dataset: VariantsDataset, path: str,
+              *options: WriteOption) -> None:
+        self._resolved_device()
+        fmt_opt = _opt(options, VariantsFormatWriteOption, None)
+        single = _opt(options, FileCardinalityWriteOption,
+                      _infer_cardinality(path)) \
+            is FileCardinalityWriteOption.SINGLE
+        if fmt_opt is VariantsFormatWriteOption.BCF or (
+                fmt_opt is None and path.lower().endswith(".bcf")):
+            from disq_tpu_torch.vcf.bcf import BcfSink, BcfSinkMultiple
+
+            sink = BcfSink(self) if single else BcfSinkMultiple(self)
+        else:
+            from disq_tpu_torch.vcf.sink import VcfSink, VcfSinkMultiple
+
+            sink = VcfSink(self) if single else VcfSinkMultiple(self)
+        sink.save(dataset, path, options)

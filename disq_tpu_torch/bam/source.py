@@ -459,7 +459,8 @@ class BamSource:
         try:
             if device is not None:
                 blob, dev_blob = inflate_blocks_device(
-                    data, blocks, base=lo_block, device=device)
+                    data, blocks, base=lo_block, device=device,
+                    keep_device=True)
             else:
                 blob, dev_blob = inflate_blocks(data, blocks,
                                                 base=lo_block), None

@@ -111,25 +111,32 @@ def _inflate_blocks(data, blocks, base, verify_crc) -> np.ndarray:
 
 
 def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
-                          base: int, device, verify_crc: bool = True):
+                          base: int, device, verify_crc: bool = True,
+                          keep_device: bool = False):
     """Device route: returns ``(host blob, device blob)``, the same
-    decoded bytes on both sides. When the kernel flags blocks (nonzero
-    status) or their CRCs do not match, raises ``FlaggedBlocksError``
-    (a ``ValueError``) with the first one's message, every bad block,
-    and the batch's output, which the caller's salvage path keeps for
-    the good blocks."""
+    decoded bytes on both sides, or ``(host blob, None)`` unless
+    ``keep_device``: a caller that reads only the host bytes (the text
+    formats) keeps no device copy, and the legacy and service routes
+    upload nothing. When the kernel flags blocks (nonzero status) or
+    their CRCs do not match, raises ``FlaggedBlocksError`` (a
+    ``ValueError``) with the first one's message, every bad block, and
+    the batch's output, which the caller's salvage path keeps for the
+    good blocks."""
     import torch
 
     if not blocks:
         empty = np.empty(0, dtype=np.uint8)
-        return empty, torch.empty(0, dtype=torch.uint8, device=device)
+        return empty, (torch.empty(0, dtype=torch.uint8, device=device)
+                       if keep_device else None)
     from disq_tpu_torch.runtime.tracing import span
 
     with span("codec.inflate.batch", blocks=len(blocks)):
-        return _inflate_blocks_device(data, blocks, base, device, verify_crc)
+        return _inflate_blocks_device(data, blocks, base, device, verify_crc,
+                                      keep_device)
 
 
-def _inflate_blocks_device(data, blocks, base, device, verify_crc):
+def _inflate_blocks_device(data, blocks, base, device, verify_crc,
+                           keep_device):
     import torch
 
     from disq_tpu_torch.runtime import counters, device_service
@@ -171,6 +178,8 @@ def _inflate_blocks_device(data, blocks, base, device, verify_crc):
             else f"BGZF CRC mismatch at block {crc_bad[0]}",
             sorted(bad.union(crc_bad)), blob=blob, blob_dev=blob_dev,
             out_off=out_off)
+    if not keep_device:
+        return blob, None
     if blob_dev is None:
         blob_dev = upload(blob, torch.device(device))
     return blob, blob_dev

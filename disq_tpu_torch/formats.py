@@ -1,8 +1,8 @@
 """Format dispatch — path extension / write option → source or sink.
 
-BAM and CRAM are ported, each with single-file output and with a
+BAM, CRAM and text SAM, each with single-file output and with a
 directory of complete per-shard files
-(``FileCardinalityWriteOption.MULTIPLE``); SAM raises.
+(``FileCardinalityWriteOption.MULTIPLE``).
 """
 
 from __future__ import annotations
@@ -22,31 +22,32 @@ class SamFormat(enum.Enum):
         self.key = key
         self.extension = extension
 
-    def _check_ported(self) -> None:
-        if self is SamFormat.SAM:
-            raise NotImplementedError(
-                f"{self.key.upper()} is not ported to the PyTorch package yet")
-
     def make_source(self, storage):
-        self._check_ported()
+        if self is SamFormat.BAM:
+            from disq_tpu_torch.bam.source import BamSource
+
+            return BamSource(storage)
         if self is SamFormat.CRAM:
             from disq_tpu_torch.cram.source import CramSource
 
             return CramSource(storage)
-        from disq_tpu_torch.bam.source import BamSource
+        from disq_tpu_torch.sam.source import SamSource
 
-        return BamSource(storage)
+        return SamSource(storage)
 
     def make_sink(self, storage, cardinality: FileCardinalityWriteOption):
-        self._check_ported()
         single = cardinality is FileCardinalityWriteOption.SINGLE
+        if self is SamFormat.BAM:
+            from disq_tpu_torch.bam.sink import BamSink, BamSinkMultiple
+
+            return BamSink(storage) if single else BamSinkMultiple(storage)
         if self is SamFormat.CRAM:
             from disq_tpu_torch.cram.sink import CramSink, CramSinkMultiple
 
             return CramSink(storage) if single else CramSinkMultiple(storage)
-        from disq_tpu_torch.bam.sink import BamSink, BamSinkMultiple
+        from disq_tpu_torch.sam.sink import SamSink, SamSinkMultiple
 
-        return BamSink(storage) if single else BamSinkMultiple(storage)
+        return SamSink(storage) if single else SamSinkMultiple(storage)
 
 
 def sam_format_from_path(path: str) -> SamFormat:

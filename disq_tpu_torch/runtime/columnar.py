@@ -605,3 +605,11 @@ def resident_decode_enabled(storage) -> bool:
     on ``cuda``; elsewhere only when ``resident_decode`` was asked for."""
     return storage._resolved_device().type == "cuda" or \
         bool(getattr(storage, "_resident_decode", False))
+
+
+def device_route(storage) -> Optional[torch.device]:
+    """The device a read through ``storage`` inflates on, or None for
+    the host route (and for no storage)."""
+    if storage is None or not resident_decode_enabled(storage):
+        return None
+    return storage._resolved_device()

@@ -109,8 +109,6 @@ def test_cp3_absent_quality_is_a_star(fixture_bam):
 DEFERRED = {
     "FleetHandle": "A13d", "ServeHandle": "A13d", "serve": "A13d",
     "serve_fleet": "A13d",
-    "VariantsStorage": "A10", "VariantsDataset": "A10",
-    "VariantsFormatWriteOption": "A10", "TabixIndexWriteOption": "A10",
     "BreakerOpenError": "A13a", "DeadlineExceededError": "A13a",
     "WatchdogStallError": "A13b", "ClusterAggregator": "A13b",
     "introspect_address": "A13b", "start_introspect_server": "A13b",
@@ -119,7 +117,7 @@ DEFERRED = {
     "CoordinatorLostError": "A13c",
 }
 PACKAGES = ("", "bgzf", "bam", "index", "fsw", "runtime", "sort", "ops",
-            "traversal", "cram")
+            "traversal", "cram", "vcf", "sam")
 
 
 def _port_has(module: str) -> bool:
