@@ -62,6 +62,16 @@ through their public entry points on ``cuda``:
     bst.write(head_100k, "v.bcf"); bst.device_deflate().write(...) # BCF
     bst.read("v.bcf")
     storage.write(sorted_head_200k, "head.sam"); storage.read(...)  # SAM
+    storage.executor_workers(4).hedged_fetches(0.9, 0.75)          # planes
+        .read("fault://" + path)               # a seeded slow split 3
+    storage.error_policy("skip").shard_deadline(3.5).read(...)     # stall 4
+    storage.circuit_breaker(3, 30).retry_budget(8).postmortem_dir(d)
+        .read("fault://" + path)               # every range read fails
+    storage.executor_workers(4).introspect_port(0).watchdog(30)
+        .progress_log(p).profile_hz(99).read(path)   # /healthz, /progress
+    vst.introspect_port(0).read("v.vcf.bgz")
+    storage.num_shards(8).writer_workers(4).circuit_breaker(3, 30)
+        .write(ds, out, BaiWriteOption.ENABLE, sort=True)
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
@@ -75,9 +85,9 @@ and the 4-worker reads against the default read, the skip and quarantine
 reads of a copy with one flipped bit against the generator's records
 outside that block (and the quarantine sidecar against the corrupt
 bytes), the 4-worker write against the 1-worker write byte for byte,
-the same for CRAM on the file's first 3 splits (the 4-worker read against
+the same for CRAM on the file's first 2 splits (the 4-worker read against
 the default one; the strict, skip and quarantine reads of a copy with one
-byte flipped in a container of split 2, the sidecar against that
+byte flipped in a container of split 1, the sidecar against that
 container's bytes), every
 CRAM read's ``ds.counters`` against the file's containers; then the
 rest of the configured read and write: the 8-shard BAM + BAI with the
@@ -88,7 +98,7 @@ sorted records: a cut of depth), each part re-read equal to its slice;
 a manifest-resumed write (shard 3 fails in a wrapper of the sink's
 per-shard step; the resume runs shards 3-7 and writes the uninterrupted
 write's BAM, BAI and SBI byte for byte); ledger-resumed BAM and CRAM
-reads (split 4 of the BAM and split 2 of the CRAM head copy fail their
+reads (split 4 of the BAM and split 1 of the CRAM head copy fail their
 fetch through the fault-injecting filesystem; the resume launches B1 for
 the unfinished splits only, B2 once more for each spilled split, B3
 once, and its records and counters equal the uninterrupted read's);
@@ -167,8 +177,29 @@ sites as BCF with zlib-6 and with W2 and reads it back (B1 once per
 split) equal to the VCF lines; and writes the first 200,000 sorted reads
 of the main path's device-backed dataset as SAM text, reads them back
 equal to the generator (names, sequences, qualities, CIGARs, tags with
-NM as an int32) and writes and re-reads them as BAM. Any failed phase
-exits non-zero.
+NM as an int32) and writes and re-reads them as BAM. The planes phase
+drives the resilience and observability planes on the main path's BAM:
+a 4-worker hedged read whose split 3 fetch draws a seeded slow fault
+(at least one hedge launched, every launch booked won, B1 and B2 once
+per split, the records equal to the default read); a read whose split 4
+stalls past its shard deadline, under ``skip`` (``deadline.exceeded`` 1,
+one skipped unit, B1 on the other splits only, the records equal to the
+generator's outside split 4) and under ``strict`` (it raises
+``DeadlineExceededError`` for split 4); two reads under the breaker, the
+retry budget and the flight recorder from a store whose every range read
+fails (the first opens the breaker after its window of calls and raises
+``BreakerOpenError`` with one postmortem bundle holding the breaker's
+transition and the abort, the second fails fast with no store call; no
+kernel launches); a 4-worker read with the endpoint, the watchdog, the
+progress log and the profiler on (``/healthz`` ok, ``/progress`` with
+every split and record, ``/metrics``' kernel-launch delta of B1 and B2
+under the reference's series names, ``/debug/profile`` taken during the
+read with ``fetch`` and ``decode`` samples and no pipeline frame under
+``other``, the log's last line with every record, the records equal to
+the default read) and the variants phase's VCF.bgz under the endpoint
+(its ``/progress`` holding every line); and the 8-shard sorted write at
+4 writer workers with the breaker armed, byte-identical to the unarmed
+write. Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -1013,13 +1044,15 @@ def cram_counters_ok(ds, records: int, fields, args, file_bytes: int,
 def flip_cram_container(cram: str, data: bytes, offsets, fields,
                         split: int):
     """A copy of the CRAM ``data`` with one byte flipped mid-payload in
-    the middle container of split 2 (one with a successor, so its bytes
-    end where the next container starts). Returns (container index, its
-    offset, its end, the flipped bytes, the copy's path, the mask of the
-    sorted records outside that container)."""
+    the middle container of the head's last split (``HEAD_SPLITS - 1``;
+    one with a successor, so its bytes end where the next container
+    starts). Returns (container index, its offset, its end, the flipped
+    bytes, the copy's path, the mask of the sorted records outside that
+    container)."""
+    last = HEAD_SPLITS - 1
     in_split = [k for k, off in enumerate(offsets[:-1])
-                if 2 * split <= off < 3 * split]
-    check(len(in_split) > 0, "no container of split 2 has a successor")
+                if last * split <= off < (last + 1) * split]
+    check(len(in_split) > 0, f"no container of split {last} has a successor")
     c = in_split[len(in_split) // 2]
     off, end = offsets[c], offsets[c + 1]
     bad = bytearray(data)
@@ -1039,6 +1072,7 @@ RAGGED = (("name_offsets", ("names",)), ("cigar_offsets", ("cigars",)),
 FIXED = ("refid", "pos", "mapq", "bin", "flag", "next_refid", "next_pos",
          "tlen")
 CRAM_EOF = 38   # bytes of the CRAM 3.0 end-of-file container
+HEAD_SPLITS = 2  # the CRAM head's depth: a cut of the file's 7 splits
 
 
 def cram_head_copy(path: str, offsets, split: int, splits: int):
@@ -1076,18 +1110,19 @@ def head_equal(got, want, m: int, what: str) -> None:
 
 def cram_policy_legs(torch, port, args, g, perm_want, cram, data, offsets,
                      fields, default) -> dict:
-    """The CRAM read with the knobs users set, on the file's first 3
-    splits (the containers that start there, then the EOF container: a
-    cut of depth): the shard executor at 4 workers against the default
-    read ``default`` of the whole file, and strict, skip and quarantine
-    on a copy with one byte flipped mid-payload in a container of split
-    2. Returns the e2e fields and the head copy (path, container offsets,
-    records, the 4-worker read's batch and counters)."""
+    """The CRAM read with the knobs users set, on the file's first
+    ``HEAD_SPLITS`` splits (the containers that start there, then the EOF
+    container: a cut of depth): the shard executor at 4 workers against
+    the default read ``default`` of the whole file, and strict, skip and
+    quarantine on a copy with one byte flipped mid-payload in a container
+    of the head's last split. Returns the e2e fields and the head copy
+    (path, container offsets, records, the 4-worker read's batch and
+    counters)."""
     from disq_tpu_torch.runtime import counters
     from disq_tpu_torch.runtime.errors import CorruptBlockError
 
     split = args.split_size
-    cut = sum(1 for off in offsets if off < 3 * split)
+    cut = sum(1 for off in offsets if off < HEAD_SPLITS * split)
     check(data[-CRAM_EOF:][:4] == struct.pack("<i", 15),
           "no CRAM 3.0 EOF container at the end of the file")
     if cut < len(offsets):
@@ -1777,9 +1812,10 @@ def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
 
 
 def read_resume_legs(torch, port, args, g, info, ds, src, work, head):
-    """The BAM read of the file and the CRAM read of its 3-split head
-    copy with a read ledger, each crashed at one split's fetch by the
-    fault-injecting filesystem and run again. Returns the e2e fields and
+    """The BAM read of the file and the CRAM read of its head copy
+    (``HEAD_SPLITS`` splits) with a read ledger, each crashed at one
+    split's fetch (the head's last split) by the fault-injecting
+    filesystem and run again. Returns the e2e fields and
     the resumed reads' launches."""
     from disq_tpu_torch.fsw.faultfs import (
         FaultInjectingFileSystemWrapper,
@@ -1855,9 +1891,10 @@ def read_resume_legs(torch, port, args, g, info, ds, src, work, head):
         f"{rebuilds} rebuilding spills), counters and every column equal "
         f"the uninterrupted read, device-backed")
 
-    # -- CRAM: split 2 of the head copy fails -------------------------------
-    offs = [o for o in head["offsets"] if 2 * split <= o < 3 * split]
-    check(len(offs) > 1, "no container of split 2 to fail")
+    # -- CRAM: the head copy's last split fails -----------------------------
+    last = HEAD_SPLITS - 1
+    offs = [o for o in head["offsets"] if last * split <= o < (last + 1) * split]
+    check(len(offs) > 1, f"no container of split {last} to fail")
     c = len(offs) // 2
     os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
     try:
@@ -1866,7 +1903,8 @@ def read_resume_legs(torch, port, args, g, info, ds, src, work, head):
             os.path.join(work, "ledger_cram"))
     finally:
         os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
-    check(c_done == [0, 1], f"cram read resume: ledger holds {c_done}")
+    check(c_done == list(range(last)),
+          f"cram read resume: ledger holds {c_done}")
     check(c_snap["launches"].get("rans_simd", 0) == 1,
           f"cram resumed read launches {c_snap['launches']}")
     got_c = {k: getattr(cr.counters, k) for k in keys}
@@ -1874,7 +1912,8 @@ def read_resume_legs(torch, port, args, g, info, ds, src, work, head):
           f"cram resumed read counters {got_c} != {head['counters']}")
     head_equal(cr.reads, head["reads"], head["records"], "cram resumed read")
     del cr
-    log(f"read resume: CRAM head crashed at split 2 after {c_crash_s:.3f}s, "
+    log(f"read resume: CRAM head crashed at split {last} after "
+        f"{c_crash_s:.3f}s, "
         f"ledger held splits {c_done}; the resume took {c_resume_s:.3f}s, "
         f"{c_snap['launches'].get('rans_simd', 0)} rans_simd launch(es), "
         f"counters and records equal the uninterrupted read")
@@ -3915,6 +3954,331 @@ def variants_legs(torch, port, args, g, perm_want, ds, work):
     log(f"variants: {json.dumps(legs)}")
     return launches, e2e
 
+PLANES_HEDGE_MIN_S = 0.75    # the hedge delay floor of the hedged read
+PLANES_SLOW_S = 4.0          # the seeded slow fault's upper bound
+PLANES_DEADLINE_S = 3.5      # the shard deadline of the deadline reads:
+                             # ~2.5x a whole 4-worker read on an H100
+PLANES_STALL_S = 5.0         # the stall on split 4, past the deadline
+PLANES_BREAKER = (3, 30.0)   # the breaker's window and cooldown
+
+
+def _fault_store(specs, seed: int = 0):
+    """A seeded ``FaultInjectingFileSystemWrapper`` over the posix
+    filesystem, registered under ``fault://``."""
+    from disq_tpu_torch.fsw.faultfs import (
+        FaultInjectingFileSystemWrapper,
+        FaultSpec,
+    )
+    from disq_tpu_torch.fsw.filesystem import (
+        PosixFileSystemWrapper,
+        register_filesystem,
+    )
+
+    fsw = FaultInjectingFileSystemWrapper(
+        PosixFileSystemWrapper(), [FaultSpec(**s) for s in specs], seed=seed)
+    register_filesystem("fault", fsw)
+    return fsw
+
+
+def _drain(prefix, timeout: float = 30.0) -> None:
+    """Wait for the threads whose names start with ``prefix`` (a string
+    or a tuple of them) to end: a lost hedge's fetch, or an aborted
+    run's last stage jobs, run on to their end."""
+    import threading
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if not [t for t in threading.enumerate()
+                if t.name.startswith(prefix)]:
+            return
+        time.sleep(0.05)
+    raise PhaseError(f"threads {prefix}* still alive after {timeout}s")
+
+
+def _get(addr: str, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=60) as r:
+        return r.read()
+
+
+def plane_legs(torch, port, args, g, info, ds, src, work) -> tuple:
+    """The resilience and observability planes on the main path's BAM:
+    (a) a hedged 4-worker read with a seeded slow fault on split 3's
+    fetch, (b) a read whose split 4 stalls past its shard deadline, under
+    ``skip`` and under ``strict``, (c) a read under the circuit breaker,
+    the retry budget and the flight recorder from a store whose every
+    range read fails, (d) a 4-worker read with the endpoint, the
+    watchdog, the progress log and the profiler on (and the variants
+    phase's VCF.bgz under the endpoint), (e) the 8-shard sorted write at
+    4 writer workers with the breaker armed on its output. Returns the
+    launches of each read and the e2e fields."""
+    import random
+
+    from disq_tpu_torch.runtime import (
+        counters,
+        flightrec,
+        introspect,
+        profiler,
+        resilience,
+        tracing,
+    )
+    from disq_tpu_torch.runtime.cluster import parse_metrics_text
+    from disq_tpu_torch.runtime.errors import (
+        BreakerOpenError,
+        DeadlineExceededError,
+    )
+
+    n, split = args.records, args.split_size
+    n_splits = -(-info["file_bytes"] // split)
+    name = os.path.basename(src)
+    launches, e2e = {}, {}
+
+    def storage():
+        return port.ReadsStorage.make_default().split_size(split)
+
+    def count(what: str) -> float:
+        return tracing.counter(what).total()
+
+    # -- (a) hedged fetches -----------------------------------------------
+    seed = args.seed
+    while random.Random(seed).uniform(0.0, PLANES_SLOW_S) < \
+            PLANES_SLOW_S * 0.6:
+        seed += 1  # the first seed whose slow draw outlives the hedge
+    slow_at = 3 * split + split * 3 // 4  # no header or boundary read
+    fsw = _fault_store([dict(kind="slow", path_substr=name, offset=slow_at,
+                             slow_s=PLANES_SLOW_S, times=1)], seed)
+    launched0, won0 = count("hedge.launched"), count("hedge.won")
+    counters.reset()
+    t0 = time.perf_counter()
+    hedged = storage().executor_workers(4) \
+        .hedged_fetches(0.9, PLANES_HEDGE_MIN_S).read("fault://" + src)
+    torch.cuda.synchronize()
+    hedge_s = time.perf_counter() - t0
+    snap = counters.snapshot()["launches"]
+    launched = count("hedge.launched") - launched0
+    won = count("hedge.won") - won0
+    check([i.kind for i in fsw.injected] == ["slow"],
+          f"planes hedge: injected {fsw.injected}")
+    check(launched >= 1 and won == launched,
+          f"planes hedge: {launched} launched, {won} won")
+    check(snap.get("inflate", 0) == n_splits and
+          snap.get("parse", 0) == n_splits,
+          f"planes hedge: launches {snap} for {n_splits} splits")
+    same_reads(torch, hedged, ds, "planes hedged read")
+    del hedged
+    _drain("disq-hedge")
+    launches["hedge"] = snap
+    e2e["planes_hedge_read_s"] = round(hedge_s, 4)
+    winners = {w: tracing.counter("hedge.won").value(winner=w)
+               for w in ("primary", "hedge", "neither")}
+    log(f"planes hedge: {hedge_s:.3f}s, slow fault seed {seed} on split 3, "
+        f"{launched:.0f} launched, {won:.0f} won "
+        f"({winners}), launches "
+        f"{snap}, records equal the default read")
+
+    # -- (b) shard deadlines ----------------------------------------------
+    stall_at = 4 * split + split * 3 // 4
+    stall = [dict(kind="stall", path_substr=name, offset=stall_at,
+                  stall_s=PLANES_STALL_S, times=1)]
+    # a record belongs to the split its block starts in: its start in the
+    # decoded stream, from the generator's record sizes, to its block
+    size = (36 + NAME_LEN + 1 + 4 * g["ncig"].astype(np.int64)
+            + (READ_LEN + 1) // 2 + READ_LEN + TAG_BYTES)
+    ustart = len(bam_header()) + np.concatenate([[0], np.cumsum(size[:-1])])
+    with open(src, "rb") as f:
+        cpos = np.array([b[0] for b in walk_blocks(f.read())], np.int64)
+    rows = np.flatnonzero(cpos[ustart // MAX_PAYLOAD] // split != 4)
+    del size, ustart, cpos
+    check(len(rows) < n, "planes deadline: split 4 holds no record")
+    _fault_store(stall)
+    exceeded0 = count("deadline.exceeded")
+    counters.reset()
+    t0 = time.perf_counter()
+    skipped = storage().executor_workers(4).error_policy("skip") \
+        .shard_deadline(PLANES_DEADLINE_S).read("fault://" + src)
+    torch.cuda.synchronize()
+    deadline_s = time.perf_counter() - t0
+    snap = counters.snapshot()["launches"]
+    check(count("deadline.exceeded") - exceeded0 == 1,
+          "planes deadline: deadline.exceeded != 1")
+    check(skipped.counters.skipped_blocks == 1,
+          f"planes deadline: counters {skipped.counters.as_dict()}")
+    check(snap.get("inflate", 0) == n_splits - 1,
+          f"planes deadline: launches {snap}")
+    equal_to_generator(torch, skipped, g, rows, "planes deadline read")
+    del skipped
+    _fault_store(stall)
+    t0 = time.perf_counter()
+    try:
+        storage().executor_workers(4).shard_deadline(PLANES_DEADLINE_S) \
+            .read("fault://" + src)
+    except DeadlineExceededError as e:
+        check(e.shard_id == 4, f"planes deadline strict: {e}")
+        strict_err = str(e)
+    else:
+        raise PhaseError("planes deadline: the strict read did not raise")
+    strict_s = time.perf_counter() - t0
+    # the aborted run's last fetches and decodes end
+    _drain(("disq-torch-fetch", "disq-torch-decode"))
+    launches["deadline"] = snap
+    e2e.update(planes_deadline_skip_read_s=round(deadline_s, 4),
+               planes_deadline_strict_read_s=round(strict_s, 4))
+    log(f"planes deadline: skip {deadline_s:.3f}s ({n - len(rows)} records "
+        f"of split 4 set aside, the rest equal the generator, launches "
+        f"{snap}); strict {strict_s:.3f}s raises {strict_err}")
+
+    # -- (c) breaker, budget and flight recorder --------------------------
+    pm = os.path.join(work, "postmortem")
+    shutil.rmtree(pm, ignore_errors=True)
+    resilience.reset_resilience()
+    fsw = _fault_store([dict(kind="transient", path_substr=name,
+                             probability=1.0)])
+    window, cooldown = PLANES_BREAKER
+    broken = storage().circuit_breaker(window, cooldown).retry_budget(8) \
+        .postmortem_dir(pm)
+    counters.reset()
+    t0 = time.perf_counter()
+    for attempt in range(2):
+        try:
+            broken.read("fault://" + src)
+        except BreakerOpenError as e:
+            err = str(e)
+        else:
+            raise PhaseError("planes breaker: the read did not raise")
+        if attempt == 0:
+            # the read that opened the breaker: one bundle
+            calls = len(fsw.injected)
+            bundles = sorted(d for d in os.listdir(pm)
+                             if d.startswith("bundle-"))
+    breaker_s = time.perf_counter() - t0
+    snap = counters.snapshot()["launches"]
+    check(calls == window and len(fsw.injected) == window,
+          f"planes breaker: {len(fsw.injected)} store calls, want {window}")
+    check(sum(snap.values()) == 0, f"planes breaker: launches {snap}")
+    check(resilience.breakers_snapshot()["fault"]["state"] == "open",
+          "planes breaker: not open")
+    check(len(bundles) == 1, f"planes breaker: bundles {bundles}")
+    with open(os.path.join(pm, bundles[0], "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    kinds = [e["kind"] for e in events]
+    check("breaker_transition" in kinds and kinds[-1] == "abort"
+          and events[-1]["reason"] == "breaker_open",
+          f"planes breaker: events {kinds}")
+    with open(os.path.join(pm, bundles[0], "MANIFEST.json")) as f:
+        manifest = json.load(f)
+    check(manifest["reason"] == "breaker_open",
+          f"planes breaker: bundle {manifest}")
+    flightrec.reset_flightrec()
+    resilience.reset_resilience()
+    launches["breaker"] = snap
+    e2e["planes_breaker_reads_s"] = round(breaker_s, 4)
+    log(f"planes breaker: two reads {breaker_s:.3f}s, {window} store calls "
+        f"then none (the second fails fast), no launch, raises {err}; "
+        f"bundle {bundles[0]} ({len(events)} events: {kinds})")
+
+    # -- (d) live introspection -------------------------------------------
+    import threading
+
+    introspect.reset_introspection()
+    plog = os.path.join(work, "progress.jsonl")
+    live = storage().executor_workers(4).introspect_port(0) \
+        .watchdog(30.0).progress_log(plog).profile_hz(99)
+    counters.reset()
+    got = {}
+
+    def profile_it():
+        # the profile window opens as the main thread starts the read
+        got["profile"] = _get(addr, "/debug/profile?seconds=1&hz=200")
+
+    introspect.start_introspect_server(0)
+    addr = introspect.introspect_address()
+    _kinds, before = parse_metrics_text(_get(addr, "/metrics").decode())
+    t0 = time.perf_counter()
+    client = threading.Thread(target=profile_it, name="planes-profile")
+    client.start()
+    got["ds"] = live.read(src)
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t0
+    client.join()
+    prof = got["profile"].decode()
+    snap = counters.snapshot()["launches"]
+    health = json.loads(_get(addr, "/healthz"))
+    prog = json.loads(_get(addr, "/progress"))["directions"]["read"]
+    _kinds, after = parse_metrics_text(_get(addr, "/metrics").decode())
+
+    def kernel_series(samples):
+        return {dict(labels)["kernel"]: v for name_, labels, v in samples
+                if name_ == "disq_tpu_device_kernel_launches"}
+
+    delta = {k: v - kernel_series(before).get(k, 0.0)
+             for k, v in kernel_series(after).items()}
+    roles = {}
+    for line in prof.splitlines():
+        stack, _, k = line.rpartition(" ")
+        roles[stack.split(";", 1)[0]] = roles.get(
+            stack.split(";", 1)[0], 0) + int(k)
+    pipeline_other = [ln for ln in prof.splitlines()
+                      if ln.startswith("other;") and "executor.py" in ln]
+    with open(plog) as f:
+        last = [json.loads(line) for line in f if '"direction"' in line][-1]
+    profiler.stop_profiler()
+    check(health["status"] == "ok", f"planes live: healthz {health}")
+    check(prog["shards_total"] == prog["shards_done"] == n_splits
+          and prog["records"] == n, f"planes live: progress {prog}")
+    check(delta.get("inflate_simd") == n_splits
+          and delta.get("parse") == n_splits,
+          f"planes live: /metrics launches delta {delta}")
+    check(roles.get("fetch", 0) > 0 and roles.get("decode", 0) > 0
+          and not pipeline_other, f"planes live: profile roles {roles}")
+    check(last["records"] == n, f"planes live: progress log {last}")
+    same_reads(torch, got["ds"], ds, "planes live read")
+    del got
+    launches["live"] = snap
+    introspect.reset_introspection()
+    vcf = os.path.join(work, "v.vcf.bgz")
+    vst = port.VariantsStorage.make_default().split_size(VCF_SPLIT) \
+        .introspect_port(0)
+    t0 = time.perf_counter()
+    vds = vst.read(vcf)
+    vcf_s = time.perf_counter() - t0
+    vprog = json.loads(_get(vds.introspect_address(),
+                            "/progress"))["directions"]["read"]
+    check(vprog["records"] == vds.count() == VCF_SITES,
+          f"planes live: VCF progress {vprog}")
+    del vds
+    introspect.reset_introspection()
+    e2e.update(planes_live_read_s=round(live_s, 4),
+               planes_live_vcf_read_s=round(vcf_s, 4))
+    log(f"planes live: {live_s:.3f}s at 4 workers, healthz ok, progress "
+        f"{prog['shards_done']} shards {prog['records']} records, /metrics "
+        f"launch delta {delta}, profile roles {roles}, progress log "
+        f"{last['records']} records; VCF.bgz {vcf_s:.3f}s, progress "
+        f"{vprog['records']} lines")
+
+    # -- (e) the armed write ----------------------------------------------
+    out = os.path.join(work, "sorted_w4_breaker.bam")
+    resilience.reset_resilience()
+    t0 = time.perf_counter()
+    (storage().num_shards(WRITE_SHARDS).writer_workers(4)
+     .circuit_breaker(*PLANES_BREAKER)
+     .write(ds, out, port.BaiWriteOption.ENABLE, sort=True))
+    armed_s = time.perf_counter() - t0
+    for ext in ("", ".bai"):
+        with open(out + ext, "rb") as a, \
+                open(os.path.join(work, "sorted_w4.bam") + ext, "rb") as b:
+            check(a.read() == b.read(),
+                  f"planes write: {ext or '.bam'} differs from the unarmed "
+                  f"write")
+    state = resilience.breakers_snapshot()["local"]["state"]
+    check(state == "closed", f"planes write: breaker {state}")
+    resilience.reset_resilience()
+    e2e["planes_armed_write_s"] = round(armed_s, 4)
+    log(f"planes write: {WRITE_SHARDS} shards at 4 writer workers with the "
+        f"breaker armed {armed_s:.3f}s, BAM and BAI byte-identical to the "
+        f"unarmed write, breaker {state}")
+    return launches, e2e
+
 
 def run(args) -> dict:
     import torch
@@ -4265,6 +4629,9 @@ def run(args) -> dict:
     variants, variants_e2e = variants_legs(torch, port, args, g, perm_want,
                                            ds, work)
     log(f"phase variants: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    planes, planes_e2e = plane_legs(torch, port, args, g, info, ds, src, work)
+    log(f"phase planes: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
@@ -4289,13 +4656,16 @@ def run(args) -> dict:
         by_name[name]["launches_on_variants"] = {
             leg: books[name] for leg, books in variants.items()
             if name in books}
+    for name in ("inflate", "parse"):
+        by_name[name]["launches_on_planes"] = {
+            leg: books.get(name, 0) for leg, books in planes.items()}
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
            **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
-           **traversal_e2e, **variants_e2e,
+           **traversal_e2e, **variants_e2e, **planes_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")

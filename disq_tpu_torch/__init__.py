@@ -27,8 +27,11 @@ from disq_tpu_torch.api import (  # noqa: F401
     WriteOption,
 )
 from disq_tpu_torch.runtime import (  # noqa: F401
+    BreakerOpenError,
+    ClusterAggregator,
     ColumnarBatch,
     CorruptBlockError,
+    DeadlineExceededError,
     DisqOptions,
     ErrorPolicy,
     PipelineCounters,
@@ -36,12 +39,18 @@ from disq_tpu_torch.runtime import (  # noqa: F401
     ReadLedger,
     ShardCounters,
     StageManifest,
+    WatchdogStallError,
     device_span,
+    introspect_address,
     metrics_text,
     phase_report,
+    process_count,
+    process_id,
     reduce_counters,
     span,
+    start_introspect_server,
     start_span_log,
+    stop_introspect_server,
     stop_span_log,
     synced_timer,
     telemetry_snapshot,

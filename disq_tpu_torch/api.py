@@ -48,6 +48,13 @@ Usage::
     ds = storage.span_log("spans.jsonl").read("sample.bam")
     ds.telemetry_report()["phases"]
 
+    # resilience and live observability, each off until set
+    storage.hedged_fetches(0.95).shard_deadline(30.0).retry_budget(20)
+    storage.circuit_breaker(5, 1.0).postmortem_dir("postmortem/")
+    storage.introspect_port(0).watchdog(10.0).progress_log("p.jsonl")
+    ds = storage.profile_hz(99).read("sample.bam")
+    ds.introspect_address()   # "127.0.0.1:<port>": /metrics, /healthz, ...
+
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
 and without an explicit CPU request, ``read`` and ``write`` raise. On
@@ -77,6 +84,8 @@ def _telemetry_report(counters) -> dict:
     (labeled counters, gauges, phase-latency histograms), the phase and
     gauge views, the ``device.*`` rollup and the span-log location."""
     from disq_tpu_torch.runtime import tracing
+    from disq_tpu_torch.runtime.introspect import introspect_address
+    from disq_tpu_torch.runtime.multihost import process_id
 
     snapshot = tracing.telemetry_snapshot()
 
@@ -86,8 +95,7 @@ def _telemetry_report(counters) -> dict:
 
     return {
         "run_id": tracing.RUN_ID,
-        # one process: the port has no multi-process job yet (A8)
-        "process_id": 0,
+        "process_id": process_id(),
         "counters": counters.as_dict() if counters is not None else {},
         "metrics": snapshot,
         "device": family(lambda n: n.startswith("device.")),
@@ -96,9 +104,99 @@ def _telemetry_report(counters) -> dict:
         "phases": tracing.phase_report(),
         "gauges": tracing.gauge_report(),
         "span_log": tracing.span_log_path(),
-        # no live introspection endpoint in the port (A13)
-        "introspect": None,
+        "introspect": introspect_address(),
     }
+
+
+def _introspect_address() -> "str | None":
+    from disq_tpu_torch.runtime.introspect import introspect_address
+
+    return introspect_address()
+
+
+class _PlaneKnobs:
+    """The resilience and observability builders both storages share
+    (``DisqOptions``' knobs of ``runtime/resilience.py``,
+    ``introspect.py``, ``flightrec.py`` and ``profiler.py``)."""
+
+    def introspect_port(self, port: int):
+        """Serve the process-wide introspection endpoint (``/metrics``,
+        ``/healthz``, ``/progress``, ``/spans``, ``/slo``, ``/debug/*``)
+        on 127.0.0.1:``port`` when a pipeline built from this storage
+        runs; 0 binds an ephemeral port (read it back with
+        ``dataset.introspect_address()``). Env equivalent:
+        ``DISQ_TPU_TORCH_INTROSPECT_PORT``."""
+        from dataclasses import replace
+
+        self._options = replace(self._options, introspect_port=int(port))
+        return self
+
+    def watchdog(self, stall_s: float, policy: str = "warn"):
+        """Flag any shard whose active pipeline stage has been silent
+        ``stall_s`` seconds (``watchdog.stalled_shards``, a
+        ``watchdog.stall`` span, ``/healthz`` degraded);
+        ``policy="abort"`` also cancels the run with a
+        ``WatchdogStallError``."""
+        self._options = self._options.with_watchdog(stall_s, policy)
+        return self
+
+    def progress_log(self, path: str):
+        """Append periodic JSONL progress lines (shards done / in flight
+        / total, records, rolling records/s, ETA) to ``path`` while
+        pipelines run."""
+        from dataclasses import replace
+
+        self._options = replace(self._options, progress_log=path)
+        return self
+
+    def hedged_fetches(self, quantile: float = 0.95, min_s: float = 0.05):
+        """Hedge split fetches: a fetch outliving the rolling
+        ``quantile`` of this run's fetch latencies (never less than
+        ``min_s``) races a duplicate, and the first result wins
+        (``hedge.launched``, ``hedge.won``, ``hedge.wasted_bytes``). The
+        result is the same either way; the decode kernels run once per
+        split."""
+        self._options = self._options.with_hedging(quantile, min_s)
+        return self
+
+    def shard_deadline(self, deadline_s: float):
+        """Give every split a wall-clock budget: retry while young, a
+        forced hedge past half of it, then ``DeadlineExceededError``,
+        which skip and quarantine turn into one set-aside empty split."""
+        self._options = self._options.with_shard_deadline(deadline_s)
+        return self
+
+    def retry_budget(self, tokens: int, refill_per_success: float = 0.1):
+        """Install the process-wide retry token bucket: a retry spends a
+        token, a success refills ``refill_per_success``, a dry bucket
+        denies the retry (``budget.*``, the fill on ``/healthz``)."""
+        self._options = self._options.with_retry_budget(
+            tokens, refill_per_success)
+        return self
+
+    def circuit_breaker(self, window: int, cooldown_s: float = 1.0):
+        """Arm the per-filesystem circuit breaker: ``window`` consecutive
+        transient failures open it, calls then fail fast with
+        ``BreakerOpenError`` until a probe after ``cooldown_s`` succeeds
+        (``breaker.*``, the state on ``/healthz``)."""
+        self._options = self._options.with_breaker(window, cooldown_s)
+        return self
+
+    def postmortem_dir(self, path: str):
+        """Arm the flight recorder: recent decisions in a bounded ring,
+        and a postmortem bundle under ``path`` on every abort (see
+        ``runtime/flightrec.py``). Env equivalent:
+        ``DISQ_TPU_TORCH_POSTMORTEM_DIR``."""
+        self._options = self._options.with_postmortem(path)
+        return self
+
+    def profile_hz(self, hz: float):
+        """Start the sampling profiler at ``hz``: stacks folded by
+        thread role (``fetch``, ``decode``, ...), served on
+        ``/debug/profile`` and kept in a postmortem bundle. Env
+        equivalent: ``DISQ_TPU_TORCH_PROFILE_HZ``."""
+        self._options = self._options.with_profile(hz)
+        return self
 
 
 class WriteOption:
@@ -231,6 +329,11 @@ class ReadsDataset:
         (``runtime/tracing.py``), with the reference's keys."""
         return _telemetry_report(self.counters)
 
+    def introspect_address(self) -> "str | None":
+        """``host:port`` of the process's introspection endpoint, or None
+        when it is off (``runtime/introspect.py``)."""
+        return _introspect_address()
+
     def flagstat(self) -> dict:
         """Per-category read counts; a device-backed dataset reduces its
         device flag column."""
@@ -310,7 +413,7 @@ class ReadsDataset:
         return out, res.stats
 
 
-class ReadsStorage:
+class ReadsStorage(_PlaneKnobs):
     """Entry point for reads (builder-style config, then read/write)."""
 
     def __init__(self, device=None) -> None:
@@ -457,10 +560,18 @@ class ReadsStorage:
         its intervals (and the unplaced-unmapped ones, if asked for),
         through the file's BAI or CRAI."""
         from disq_tpu_torch.formats import sam_format_from_path
+        from disq_tpu_torch.runtime import flightrec
 
         self._resolved_device()
-        return sam_format_from_path(path).make_source(self).get_reads(
-            path, traversal)
+        try:
+            return sam_format_from_path(path).make_source(self).get_reads(
+                path, traversal)
+        except Exception as e:
+            # the backstop for aborts outside the executor (split
+            # planning, the header); an abort already bundled is not
+            # bundled again
+            flightrec.note_abort(e, where="read")
+            raise
 
     def write(self, dataset: ReadsDataset, path: str, *options: WriteOption,
               sort: bool = False) -> None:
@@ -472,11 +583,17 @@ class ReadsStorage:
 
             dataset = dataset.coordinate_sorted(
                 keep_resident=device_deflate_enabled(self))
+        from disq_tpu_torch.runtime import flightrec
+
         fmt = sam_format_from_write_options(
             path, _opt(options, ReadsFormatWriteOption, None))
         cardinality = _opt(options, FileCardinalityWriteOption,
                            _infer_cardinality(path))
-        fmt.make_sink(self, cardinality).save(dataset, path, options)
+        try:
+            fmt.make_sink(self, cardinality).save(dataset, path, options)
+        except Exception as e:
+            flightrec.note_abort(e, where="write")
+            raise
 
 
 @dataclass
@@ -496,8 +613,12 @@ class VariantsDataset:
         """See ``ReadsDataset.telemetry_report``."""
         return _telemetry_report(self.counters)
 
+    def introspect_address(self) -> "str | None":
+        """See ``ReadsDataset.introspect_address``."""
+        return _introspect_address()
 
-class VariantsStorage:
+
+class VariantsStorage(_PlaneKnobs):
     """Entry point for variants: VCF (plain, gzip, BGZF) and BCF, with
     the tabix index (chained configuration, then read/write)::
 
@@ -606,14 +727,20 @@ class VariantsStorage:
         """Read a VCF (plain, gzip or BGZF) or a BCF; with ``intervals``,
         only the variants overlapping them (through the ``.tbi`` when a
         BGZF VCF has one)."""
+        from disq_tpu_torch.runtime import flightrec
+
         self._resolved_device()
-        if path.lower().endswith(".bcf"):
-            from disq_tpu_torch.vcf.bcf import BcfSource
+        try:
+            if path.lower().endswith(".bcf"):
+                from disq_tpu_torch.vcf.bcf import BcfSource
 
-            return BcfSource(self).get_variants(path, intervals)
-        from disq_tpu_torch.vcf.source import VcfSource
+                return BcfSource(self).get_variants(path, intervals)
+            from disq_tpu_torch.vcf.source import VcfSource
 
-        return VcfSource(self).get_variants(path, intervals)
+            return VcfSource(self).get_variants(path, intervals)
+        except Exception as e:
+            flightrec.note_abort(e, where="read")
+            raise
 
     def write(self, dataset: VariantsDataset, path: str,
               *options: WriteOption) -> None:
@@ -631,4 +758,10 @@ class VariantsStorage:
             from disq_tpu_torch.vcf.sink import VcfSink, VcfSinkMultiple
 
             sink = VcfSink(self) if single else VcfSinkMultiple(self)
-        sink.save(dataset, path, options)
+        from disq_tpu_torch.runtime import flightrec
+
+        try:
+            sink.save(dataset, path, options)
+        except Exception as e:
+            flightrec.note_abort(e, where="write")
+            raise

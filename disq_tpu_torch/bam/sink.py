@@ -277,7 +277,7 @@ class BamSink:
                 "bam.write.stage",
                 lambda p: self._stage_shard(fs, temp_dir, k, frag_cache, p),
                 shard=k),
-            retrier=write_retrier_for_storage(self._storage),
+            retrier=write_retrier_for_storage(self._storage, temp_dir),
             what="bam.part")
 
     # -- the parts and the merge --------------------------------------------
@@ -365,7 +365,7 @@ class BamSinkMultiple:
                     lambda data: compress_to_bgzf(data, device=device),
                     shard=k),
                 stage=wrap_span("bam.write.stage", stage, shard=k),
-                retrier=write_retrier_for_storage(self._storage),
+                retrier=write_retrier_for_storage(self._storage, path),
                 what="bam.part")
 
         run_write_stage(writer_for_storage(self._storage), n_shards,

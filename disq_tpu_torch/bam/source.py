@@ -85,9 +85,11 @@ from disq_tpu_torch.runtime.columnar import (
 )
 from disq_tpu_torch.runtime.errors import (
     ErrorPolicy,
+    FetchAttempt,
     FlaggedBlocksError,
     ShardErrorContext,
     TruncatedReadError,
+    committed,
     context_for_storage,
     inflate_blocks_salvage,
     salvage_flagged,
@@ -162,13 +164,23 @@ class BamSource:
         shard gets its own retrier and corrupt-block books
         (``ctx.for_shard``)."""
         from disq_tpu_torch.runtime.counters import ShardCounters
+        from disq_tpu_torch.runtime.errors import (
+            DisqOptions,
+            deadline_fallback_for,
+        )
         from disq_tpu_torch.runtime.executor import (
             ShardTask,
             executor_for_storage,
             map_ordered_resumable,
             read_ledger_for_storage,
         )
+        from disq_tpu_torch.runtime.introspect import note_shard_counters
 
+        opts = getattr(self._storage, "_options", None) or DisqOptions()
+        # a hedged fetch may run twice at once on one shard: each attempt
+        # notes its corrupt blocks, and the decode books the winner's
+        fetch = self._fetch_attempt if opts.hedge_quantile is not None \
+            else self._fetch_range
         splits = compute_path_splits(fs, path, self.split_size)
         sbi = ctx.retrier.call(self._try_load_sbi, fs, path, what="sbi")
         bounds = self._split_boundaries(fs, path, header, first_voffset,
@@ -178,11 +190,16 @@ class BamSource:
             shard_ctx = ctx.for_shard(i)
             tasks.append(ShardTask(
                 shard_id=i,
-                fetch=functools.partial(self._fetch_range, fs, path,
-                                        bounds[i], bounds[i + 1], shard_ctx),
+                fetch=functools.partial(fetch, fs, path, bounds[i],
+                                        bounds[i + 1], shard_ctx),
                 decode=functools.partial(self._decode_booked, header,
                                          ctx=shard_ctx),
-                retrier=shard_ctx.retrier, what=f"shard{i}"))
+                retrier=shard_ctx.retrier, what=f"shard{i}",
+                # an over-budget split under skip/quarantine is set
+                # aside as the empty batch an empty range decodes to
+                deadline_fallback=deadline_fallback_for(
+                    opts, shard_ctx, functools.partial(
+                        _books_of_empty, shard_ctx))))
         ledger = read_ledger_for_storage(self._storage, path, len(tasks),
                                          self._resident())
         out = []
@@ -190,11 +207,13 @@ class BamSource:
         for res in map_ordered_resumable(executor_for_storage(self._storage),
                                          tasks, ledger):
             batch, stats, (skipped, quarantined, retried) = res.value
-            self._last_counters.append(ShardCounters(
+            c = ShardCounters(
                 shard_id=res.shard_id, records=batch.count, blocks=stats[0],
                 bytes_compressed=stats[1], bytes_uncompressed=stats[2],
                 wall_seconds=res.wall_seconds, skipped_blocks=skipped,
-                quarantined_blocks=quarantined, retried_reads=retried))
+                quarantined_blocks=quarantined, retried_reads=retried)
+            self._last_counters.append(c)
+            note_shard_counters("read", c)  # the live /progress feed
             out.append(batch)
         return out
 
@@ -345,6 +364,16 @@ class BamSource:
             return self._fetch_range_inner(fs, path, lo_voffset, hi_voffset,
                                            ctx)
 
+    def _fetch_attempt(self, fs, path: str, lo_voffset: int,
+                       hi_voffset: int, ctx) -> FetchAttempt:
+        """``_fetch_range`` of a hedged read: the salvage walk books into
+        ``ctx.attempt()``, and ``_decode_booked`` commits the books of the
+        attempt whose payload it decodes."""
+        actx = ctx.attempt()
+        fetched = self._fetch_range(fs, path, lo_voffset, hi_voffset, actx)
+        return FetchAttempt(fetched, actx,
+                            0 if fetched is None else len(fetched[1]))
+
     def _fetch_range_inner(self, fs, path: str, lo_voffset: int,
                            hi_voffset: int, ctx) -> Optional[Tuple]:
         """Stage A: range-read and walk the compressed blocks covering
@@ -389,8 +418,12 @@ class BamSource:
         ``DISQ_TPU_TORCH_READ_FILTER``) applies here, inside the decode
         span, to the batch of every route (device, host, salvage): a
         device-backed batch is masked by kernel F1 and compacted on its
-        device before any column crosses d2h."""
-        batch, stats = self._decode_filtered(header, fetched, ctx)
+        device before any column crosses d2h.
+
+        A hedged fetch's payload comes with the books its attempt noted;
+        they are booked here, once, for the attempt that won."""
+        batch, stats = self._decode_filtered(header, committed(fetched, ctx),
+                                             ctx)
         return batch, stats, (ctx.skipped_blocks, ctx.quarantined_blocks,
                               ctx.retrier.retried)
 
@@ -573,6 +606,13 @@ class BamSource:
                 except ValueError:
                     pass  # keep the other runs
         return ColumnarBatch.concat(batches)
+
+
+def _books_of_empty(ctx):
+    """A set-aside split's value: the empty batch an empty range decodes
+    to on every route, and the books the deadline left on ``ctx``."""
+    return ReadBatch.empty(), (0, 0, 0), (
+        ctx.skipped_blocks, ctx.quarantined_blocks, ctx.retrier.retried)
 
 
 def _good_runs(lost):

@@ -77,7 +77,8 @@ def run_cram_write_stage(storage, fs, batch, bounds, n_shards, ref_fetch,
             shard_id=k,
             encode=wrap_span("cram.write.encode", encode, shard=k),
             stage=wrap_span("cram.write.stage", stage, shard=k),
-            retrier=write_retrier_for_storage(storage), what="cram.part")
+            retrier=write_retrier_for_storage(storage, part_path_for(k)),
+            what="cram.part")
 
     return run_write_stage(writer_for_storage(storage), n_shards, make_task)
 

@@ -69,8 +69,10 @@ from disq_tpu_torch.fsw.filesystem import (
 )
 from disq_tpu_torch.runtime.errors import (
     ErrorPolicy,
+    FetchAttempt,
     MissingReferenceError,
     ShardErrorContext,
+    committed,
     context_for_storage,
     is_transient,
 )
@@ -125,15 +127,25 @@ class CramSource:
             ShardCounters,
             reduce_counters,
         )
+        from disq_tpu_torch.runtime.errors import (
+            DisqOptions,
+            deadline_fallback_for,
+        )
         from disq_tpu_torch.runtime.executor import (
             ShardTask,
             executor_for_storage,
             map_ordered_resumable,
             read_ledger_for_storage,
         )
+        from disq_tpu_torch.runtime.introspect import note_shard_counters
 
         fs, path = resolve_path(path)
         ctx = context_for_storage(self._storage, path)
+        opts = getattr(self._storage, "_options", None) or DisqOptions()
+        # a hedged fetch may run twice at once on one split: each attempt
+        # notes its corrupt containers, and the decode books the winner's
+        fetch = self._fetch_attempt if opts.hedge_quantile is not None \
+            else self._fetch_split_containers
         header = ctx.retrier.call(read_cram_header, fs, path, what="header")
         ref_fetch = fetcher_for_storage(self._storage, header)
         containers = walk_container_offsets(fs, path, retrier=ctx.retrier,
@@ -164,8 +176,7 @@ class CramSource:
                 shard_id=i,
                 fetch=wrap_span(
                     "cram.split.fetch",
-                    functools.partial(self._fetch_split_containers, fs,
-                                      path, owned, shard_ctx),
+                    functools.partial(fetch, fs, path, owned, shard_ctx),
                     shard=i, start=s.start, end=s.end,
                     containers=len(owned)),
                 decode=wrap_span(
@@ -174,7 +185,12 @@ class CramSource:
                                       ref_fetch=ref_fetch,
                                       shard_ctx=shard_ctx, device=device),
                     shard=i, containers=len(owned)),
-                retrier=shard_ctx.retrier, what=f"cram-shard{i}"))
+                retrier=shard_ctx.retrier, what=f"cram-shard{i}",
+                # an over-budget split under skip/quarantine is set
+                # aside as zero containers
+                deadline_fallback=deadline_fallback_for(
+                    opts, shard_ctx, functools.partial(
+                        _books_of_nothing, shard_ctx))))
         ledger = read_ledger_for_storage(self._storage, path, len(tasks),
                                          device is not None)
         batches: List[ReadBatch] = []
@@ -184,13 +200,15 @@ class CramSource:
             shard_batches, (skipped, quarantined, retried) = res.value
             owned = owned_by_shard[res.shard_id]
             batches.extend(shard_batches)
-            shard_counters.append(ShardCounters(
+            c = ShardCounters(
                 shard_id=res.shard_id,
                 records=sum(b.count for b in shard_batches),
                 blocks=len(owned),
                 bytes_compressed=sum(h.length for _, h in owned),
                 wall_seconds=res.wall_seconds, skipped_blocks=skipped,
-                quarantined_blocks=quarantined, retried_reads=retried))
+                quarantined_blocks=quarantined, retried_reads=retried)
+            shard_counters.append(c)
+            note_shard_counters("read", c)  # the live /progress feed
         counters = reduce_counters(shard_counters)
         # the header read and the walk book on the read's own context,
         # outside every shard
@@ -282,13 +300,21 @@ class CramSource:
             items.append((off, hdr_size, raw))
         return items
 
+    def _fetch_attempt(self, fs, path: str, owned, shard_ctx
+                       ) -> FetchAttempt:
+        """``_fetch_split_containers`` of a hedged read, booking into
+        ``shard_ctx.attempt()``; the decode commits the winner's books."""
+        actx = shard_ctx.attempt()
+        items = self._fetch_split_containers(fs, path, owned, actx)
+        return FetchAttempt(items, actx, sum(len(r) for _, _, r in items))
+
     def _decode_booked(self, items, ref_fetch, shard_ctx, device
                        ) -> Tuple[List[ReadBatch], Tuple[int, int, int]]:
         """Stage B with the split's books: (batches, (skipped,
         quarantined, retried)), final once the decode returns, and
         spilled with the batches under a read ledger."""
-        batches = self._decode_split_containers(items, ref_fetch, shard_ctx,
-                                                device)
+        batches = self._decode_split_containers(
+            committed(items, shard_ctx), ref_fetch, shard_ctx, device)
         return batches, (shard_ctx.skipped_blocks,
                          shard_ctx.quarantined_blocks,
                          shard_ctx.retrier.retried)
@@ -365,6 +391,13 @@ class CramSource:
                 raw = b""
         shard_ctx.handle_corrupt_block(error, block_offset=offset, raw=raw,
                                        kind="CRAM container")
+
+
+def _books_of_nothing(shard_ctx):
+    """A set-aside split's value: no batch, and the books the deadline
+    left on ``shard_ctx``."""
+    return [], (shard_ctx.skipped_blocks, shard_ctx.quarantined_blocks,
+                shard_ctx.retrier.retried)
 
 
 def _corruption(error: BaseException) -> BaseException:

@@ -230,12 +230,18 @@ class HttpFileSystemWrapper(FileSystemWrapper):
         "transient", shared by ranged GETs and HEADs. Client errors
         (4xx) raise at once; 5xx, network errors and stalls back off and
         retry; the last transient error surfaces once the budget is
-        spent."""
-        from disq_tpu_torch.runtime.errors import ShardRetrier
+        spent.
 
-        # no breaker gate and no retry budget: the resilience layer
-        # (circuit breakers, the shared budget, hedged fetches) is A13a
-        retrier = ShardRetrier(self._RETRIES, self._BACKOFF_S)
+        With breakers armed (``DisqOptions.breaker_window``), every
+        request is gated by the ``http`` filesystem's circuit breaker: a
+        fault storm opens it, and later requests fail fast with
+        ``BreakerOpenError``. Each retry draws from the shared retry
+        budget when one is installed."""
+        from disq_tpu_torch.runtime.errors import ShardRetrier
+        from disq_tpu_torch.runtime.resilience import breaker_for
+
+        retrier = ShardRetrier(self._RETRIES, self._BACKOFF_S,
+                               breaker=breaker_for("http://"))
         try:
             return retrier.call(op, what="http")
         finally:

@@ -1,9 +1,13 @@
 """Runtime subsystems: error policy and retries (``errors``), the shard
 executors (``executor``), counters, manifests and the read ledger
 (``manifest``), device-resident batches (``columnar``), telemetry
-(``tracing``), the debug invariant mode (``debug``), and the device
-service and write path (imported by name: ``device_service``,
-``device_write``)."""
+(``tracing``), the debug invariant mode (``debug``), the resilience
+layer (``resilience``: hedged fetches, shard deadlines, the retry
+budget, circuit breakers), live introspection (``introspect``), the
+flight recorder (``flightrec``), the sampling profiler (``profiler``),
+per-tenant SLOs (``slo``), the cluster rollup (``cluster``), process
+identity (``multihost``), and the device service and write path
+(imported by name: ``device_service``, ``device_write``)."""
 
 from disq_tpu_torch.runtime.columnar import (  # noqa: F401
     ColumnarBatch,
@@ -22,13 +26,16 @@ from disq_tpu_torch.runtime.debug import (  # noqa: F401
     debug_enabled,
 )
 from disq_tpu_torch.runtime.errors import (  # noqa: F401
+    BreakerOpenError,
     CorruptBlockError,
+    DeadlineExceededError,
     DisqOptions,
     ErrorPolicy,
     ShardErrorContext,
     ShardRetrier,
     TransientIOError,
     TruncatedReadError,
+    WatchdogStallError,
     context_for_storage,
     is_transient,
 )
@@ -47,6 +54,47 @@ from disq_tpu_torch.runtime.executor import (  # noqa: F401
     run_write_stage,
     write_retrier_for_storage,
     writer_for_storage,
+)
+from disq_tpu_torch.runtime.resilience import (  # noqa: F401
+    CircuitBreaker,
+    HedgeController,
+    ResilienceManager,
+    RetryBudget,
+    ShardDeadline,
+    resilience_for_options,
+    reset_resilience,
+)
+from disq_tpu_torch.runtime.cluster import (  # noqa: F401
+    ClusterAggregator,
+    parse_metrics_text,
+)
+from disq_tpu_torch.runtime.multihost import (  # noqa: F401
+    process_count,
+    process_id,
+)
+from disq_tpu_torch.runtime.introspect import (  # noqa: F401
+    HEALTH,
+    PipelineHealth,
+    introspect_address,
+    note_shard_counters,
+    start_introspect_server,
+    start_progress_log,
+    stop_introspect_server,
+    stop_progress_log,
+)
+from disq_tpu_torch.runtime.flightrec import (  # noqa: F401
+    FlightRecorder,
+    record_event,
+    reset_flightrec,
+    thread_stacks_text,
+)
+from disq_tpu_torch.runtime.profiler import (  # noqa: F401
+    SamplingProfiler,
+    active_profiler,
+    profile_for,
+    reset_profiler,
+    start_profiler,
+    stop_profiler,
 )
 from disq_tpu_torch.runtime.manifest import (  # noqa: F401
     QuarantineManifest,

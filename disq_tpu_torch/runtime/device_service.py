@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from disq_tpu_torch.runtime import counters
+from disq_tpu_torch.runtime import flightrec as _flightrec
 from disq_tpu_torch.runtime.tracing import (
     counter as _counter,
     current_trace as _current_trace,
@@ -532,6 +533,8 @@ class DeviceDecodeService:
 
     def _launch(self, kind: str, lanes: List[_Lane], reason: str):
         _counter("device.batch.flush").inc(reason=reason)
+        _flightrec.record_event("device_flush", codec=kind,
+                                reason=reason, lanes=len(lanes))
         _observe_gauge("device.lane_fill", len(lanes) / LANES)
         with self._cond:
             depth = sum(len(q) for q in self._queues.values())

@@ -1,7 +1,7 @@
 """Pipelined shard executor: bounded stage overlap in both directions.
 
-Counterpart of ``disq_tpu/runtime/executor.py`` (without its live
-introspection, hedging, deadlines and scheduler leases). One core,
+Counterpart of ``disq_tpu/runtime/executor.py`` (without its scheduler
+leases). One core,
 ``_BoundedStagePipeline``, runs N stages, each on its own thread pool,
 and emits results in task order:
 
@@ -34,6 +34,16 @@ Guarantees:
 Kernel launches from decode threads go to the calling thread's current
 CUDA stream; the executor adds no streams of its own.
 
+Live introspection and resilience (``runtime/introspect.py``,
+``runtime/resilience.py``), both off by default (``health=None``,
+``resilience=None``: no hook runs): a run registers on the health board
+and each stage worker stamps a per-shard heartbeat; the watchdog aborts
+through the first-error-abort path. Only the fetch stage is hedged, and
+each shard's deadline is checked at every stage boundary; a shard whose
+deadline passes emits its task's ``deadline_fallback`` (skip and
+quarantine) or aborts the run. Every abort goes to the flight recorder
+(``flightrec.note_abort``).
+
 Telemetry (``runtime/tracing.py``, the reference's names): per-shard
 ``executor.fetch`` / ``executor.decode`` spans, the ordered-emit stall
 spans ``executor.emit.stall`` / ``writer.emit.stall`` (waits over half a
@@ -49,25 +59,39 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
-from disq_tpu_torch.runtime.errors import DisqOptions, ShardRetrier, is_transient
+from disq_tpu_torch.runtime import flightrec
+from disq_tpu_torch.runtime.errors import (
+    DeadlineExceededError,
+    DisqOptions,
+    ShardRetrier,
+    is_transient,
+)
 from disq_tpu_torch.runtime.manifest import retry_shard
 from disq_tpu_torch.runtime.tracing import observe_gauge, record_span, span
 
 # an emit wait shorter than this is no stall worth a span
 _STALL_SPAN_S = 0.0005
 
+# what a fetch stage hands on when the shard's deadline passed and its
+# task has a fallback: the decode stage then emits the fallback
+_DEADLINE_MISS = object()
+
 
 @dataclass
 class ShardTask:
     """One split's work: ``fetch`` does the I/O (stage A) and returns a
     payload, ``decode`` turns it into the shard's result (stage B);
-    ``retrier`` is the shard's ``ShardRetrier`` (None ⇒ no retry)."""
+    ``retrier`` is the shard's ``ShardRetrier`` (None ⇒ no retry).
+    ``deadline_fallback`` (skip and quarantine with a shard deadline)
+    gives the shard's stand-in once its deadline passes; without one a
+    ``DeadlineExceededError`` aborts the run."""
 
     shard_id: int
     fetch: Callable[[], Any]
     decode: Callable[[Any], Any]
     retrier: Optional[ShardRetrier] = None
     what: str = "shard"
+    deadline_fallback: Optional[Callable[[], Any]] = None
 
 
 @dataclass
@@ -100,14 +124,18 @@ class _BoundedStagePipeline:
     ``i`` (``payload`` is None for stage 0). ``on_admit(depth)`` keeps
     the in-flight high-water mark and ``on_stall(seconds, task)`` books
     each ordered-emit wait; both run with the pipeline's condition
-    held."""
+    held. With a ``health`` board and its run ``health_token``, each
+    stage worker beats as it starts a stage on a shard and clears as it
+    ends, and the watchdog's abort is recorded at the emit frontier."""
 
     def __init__(self, workers: int, window: int,
                  stage_fns: Sequence[Callable[[Any, Any], Any]],
                  thread_prefixes: Sequence[str],
                  on_admit: Callable[[int], None],
                  on_stall: Callable[[float, Any], None],
-                 drain_on_close: bool = False) -> None:
+                 drain_on_close: bool = False,
+                 stage_names: Sequence[str] = (),
+                 health=None, health_token: Optional[int] = None) -> None:
         self.workers = workers
         self.window = window
         self.stage_fns = list(stage_fns)
@@ -117,6 +145,9 @@ class _BoundedStagePipeline:
         # the write side drains running jobs at close, so an aborting
         # sink never races a part write against its temp-dir cleanup
         self.drain_on_close = drain_on_close
+        self.stage_names = list(stage_names)
+        self.health = health
+        self.health_token = health_token
 
     def run(self, tasks: List[Any]) -> Iterator[tuple]:
         """Admit the first window now (stage 0 is in flight before the
@@ -131,6 +162,17 @@ class _BoundedStagePipeline:
         pools = [ThreadPoolExecutor(max_workers=self.workers,
                                     thread_name_prefix=prefix)
                  for prefix in self.thread_prefixes]
+        health, token = self.health, self.health_token
+        if health is not None:
+            def inject_abort(exc: BaseException) -> None:
+                # the watchdog's abort, raised at the consumer's next
+                # ``next()`` as a stage failure of the emit frontier
+                with cond:
+                    if not state["aborted"]:
+                        errors.setdefault(state["next_emit"], exc)
+                        cond.notify_all()
+
+            health.set_abort(token, inject_abort)
 
         def job(stage: int, idx: int, task: Any, payload: Any,
                 seconds: List[float]) -> None:
@@ -140,15 +182,22 @@ class _BoundedStagePipeline:
                         state["in_flight"] -= 1
                         cond.notify_all()
                         return
+            if health is not None:
+                name = self.stage_names[stage]
+                health.beat(token, name, task.shard_id)
             t0 = time.perf_counter()
             try:
                 value = self.stage_fns[stage](task, payload)
             except BaseException as e:  # noqa: BLE001 — raised at emit
+                if health is not None:
+                    health.clear(token, name, task.shard_id)
                 with cond:
                     errors[idx] = e
                     state["in_flight"] -= 1
                     cond.notify_all()
                 return
+            if health is not None:
+                health.clear(token, name, task.shard_id)
             seconds.append(time.perf_counter() - t0)
             if stage + 1 < n_stages:
                 pools[stage + 1].submit(job, stage + 1, idx, task, value,
@@ -182,6 +231,9 @@ class _BoundedStagePipeline:
                         self.on_stall(time.perf_counter() - t0, tasks[i])
                         if i in errors:
                             state["aborted"] = True
+                            # every stage worker is still live: the
+                            # bundle's stacks show what each was doing
+                            flightrec.note_abort(errors[i], where="emit")
                             raise errors[i]
                         value, seconds = results.pop(i)
                         state["next_emit"] = i + 1
@@ -197,19 +249,49 @@ class _BoundedStagePipeline:
         return emit()
 
 
+def _check_abort(health, token: Optional[int]) -> None:
+    """The inline runs' watchdog abort: raise the parked
+    ``WatchdogStallError`` at a stage boundary of the run's own
+    thread."""
+    if health is not None:
+        exc = health.take_abort(token)
+        if exc is not None:
+            raise exc
+
+
+def _tracked(inner: Iterator, health, token: int) -> Iterator:
+    """``inner`` with each emitted shard marked done on the health board
+    and the run closed when the iterator ends, fails or is dropped."""
+    try:
+        for res in inner:
+            health.shard_done(token, res.shard_id)
+            yield res
+    finally:
+        health.finish_run(token)
+
+
 class ShardPipelineExecutor:
     """The read direction: fetch → decode → ordered emit. ``workers``
     sizes both pools; ``prefetch_shards`` bounds the shards in flight
-    past the emit frontier (default ``2 × workers``)."""
+    past the emit frontier (default ``2 × workers``). ``health`` (a
+    ``PipelineHealth`` board) and ``resilience`` (a
+    ``ResilienceManager``) are None unless the storage's options arm
+    them."""
 
     def __init__(self, workers: int = 1,
-                 prefetch_shards: Optional[int] = None) -> None:
+                 prefetch_shards: Optional[int] = None, health=None,
+                 watchdog_stall_s: Optional[float] = None,
+                 watchdog_policy: str = "warn", resilience=None) -> None:
         self.workers = max(1, int(workers))
         if prefetch_shards is None:
             prefetch_shards = 2 * self.workers
         self.prefetch_shards = max(1, int(prefetch_shards))
         self.stats = ExecutorStats(workers=self.workers,
                                    window=self.prefetch_shards)
+        self._health = health
+        self._watchdog_stall_s = watchdog_stall_s
+        self._watchdog_policy = watchdog_policy
+        self._resilience = resilience
 
     def map_ordered(self, tasks: Sequence[ShardTask]) -> Iterator[ShardResult]:
         """Run every task through fetch → decode, yielding results in
@@ -218,47 +300,132 @@ class ShardPipelineExecutor:
         self.stats.shards += len(tasks)
         if not tasks:
             return iter(())
+        token = None
+        if self._health is not None:
+            token = self._health.register_run(
+                "read", len(tasks), self._watchdog_stall_s,
+                self._watchdog_policy)
         if self.workers == 1:
-            return self._run_sequential(tasks)
-        return self._run_pipelined(tasks)
+            inner = self._run_sequential(tasks, token)
+        else:
+            inner = self._run_pipelined(tasks, token)
+        if token is None:
+            return inner
+        return _tracked(inner, self._health, token)
 
-    def _run_sequential(self, tasks: List[ShardTask]) -> Iterator[ShardResult]:
-        for task in tasks:
-            yield self._run_one_inline(task)
+    def _run_sequential(self, tasks: List[ShardTask],
+                        token: Optional[int] = None
+                        ) -> Iterator[ShardResult]:
+        try:
+            for task in tasks:
+                yield self._run_one_inline(task, token)
+        except GeneratorExit:
+            raise  # the consumer stopped early: no abort
+        except BaseException as e:
+            flightrec.note_abort(e, where="inline")
+            raise
+        finally:
+            if self._resilience is not None:
+                self._resilience.close()
 
-    def _run_one_inline(self, task: ShardTask) -> ShardResult:
+    def _run_one_inline(self, task: ShardTask,
+                        token: Optional[int] = None) -> ShardResult:
         """The whole shard under one retrier: a transient fault anywhere
         re-runs it from fetch."""
         times = [0.0, 0.0]
+        health = self._health if token is not None else None
+        res = self._resilience
+        deadline = res.new_deadline(task.shard_id) if res is not None \
+            else None
+        if deadline is not None and task.retrier is not None:
+            task.retrier.deadline = deadline
 
         def attempt():
             t0 = time.perf_counter()
+            _check_abort(health, token)
+            if deadline is not None:
+                deadline.check(what=task.what)
+            if health is not None:
+                health.beat(token, "fetch", task.shard_id)
             with span("executor.fetch", shard=task.shard_id):
-                payload = task.fetch()
+                if res is not None:
+                    payload = res.fetch(task.fetch, task.shard_id, deadline)
+                else:
+                    payload = task.fetch()
             t1 = time.perf_counter()
             times[0] += t1 - t0
+            _check_abort(health, token)
+            if deadline is not None:
+                deadline.check(what=task.what)
+            if health is not None:
+                health.beat(token, "decode", task.shard_id)
             with span("executor.decode", shard=task.shard_id):
                 value = task.decode(payload)
             times[1] += time.perf_counter() - t1
+            if health is not None:
+                health.clear(token, "decode", task.shard_id)
+            _check_abort(health, token)
             return value
 
-        if task.retrier is not None:
-            value = task.retrier.call(attempt, what=task.what)
-        else:
-            value = attempt()
+        try:
+            if task.retrier is not None:
+                value = task.retrier.call(attempt, what=task.what)
+            else:
+                value = attempt()
+        except DeadlineExceededError:
+            if task.deadline_fallback is None:
+                raise
+            value = task.deadline_fallback()
         return ShardResult(task.shard_id, value, times[0], times[1])
 
-    def _run_pipelined(self, tasks: List[ShardTask]) -> Iterator[ShardResult]:
+    def _run_pipelined(self, tasks: List[ShardTask],
+                       token: Optional[int] = None
+                       ) -> Iterator[ShardResult]:
+        res = self._resilience
+        deadlines: Dict[int, Any] = {}
+        if res is not None:
+            for t in tasks:
+                dl = res.new_deadline(t.shard_id)
+                if dl is not None:
+                    deadlines[t.shard_id] = dl
+                    if t.retrier is not None:
+                        t.retrier.deadline = dl
+
+        def fetch_once(task: ShardTask) -> Any:
+            if res is not None:
+                return res.fetch(task.fetch, task.shard_id,
+                                 deadlines.get(task.shard_id))
+            return task.fetch()
+
         def fetch_fn(task: ShardTask, _payload: Any) -> Any:
             with span("executor.fetch", shard=task.shard_id):
-                if task.retrier is not None:
-                    return task.retrier.call(task.fetch,
-                                             what=f"{task.what}.fetch")
-                return task.fetch()
+                dl = deadlines.get(task.shard_id)
+                try:
+                    if dl is not None:
+                        dl.check(what=task.what)
+                    if task.retrier is not None:
+                        return task.retrier.call(
+                            lambda: fetch_once(task),
+                            what=f"{task.what}.fetch")
+                    return fetch_once(task)
+                except DeadlineExceededError:
+                    if task.deadline_fallback is None:
+                        raise
+                    return _DEADLINE_MISS
 
         def decode_fn(task: ShardTask, payload: Any) -> Any:
             with span("executor.decode", shard=task.shard_id):
-                return self._decode_with_refetch(task, payload)
+                if payload is _DEADLINE_MISS:
+                    return task.deadline_fallback()
+                dl = deadlines.get(task.shard_id)
+                try:
+                    if dl is not None:
+                        dl.check(what=task.what)
+                    return self._decode_with_refetch(task, payload)
+                except DeadlineExceededError:
+                    if task.deadline_fallback is None:
+                        raise
+                    return task.deadline_fallback()
 
         def on_admit(depth: int) -> None:
             self.stats.max_in_flight = max(self.stats.max_in_flight, depth)
@@ -273,10 +440,23 @@ class ShardPipelineExecutor:
             workers=self.workers, window=self.stats.window,
             stage_fns=(fetch_fn, decode_fn),
             thread_prefixes=("disq-torch-fetch", "disq-torch-decode"),
-            on_admit=on_admit, on_stall=on_stall)
+            on_admit=on_admit, on_stall=on_stall,
+            stage_names=("fetch", "decode"),
+            health=self._health if token is not None else None,
+            health_token=token)
         inner = core.run(tasks)
-        return (ShardResult(tasks[idx].shard_id, value, secs[0], secs[1])
-                for idx, value, secs in inner)
+
+        def adapt() -> Iterator[ShardResult]:
+            try:
+                for idx, value, secs in inner:
+                    yield ShardResult(tasks[idx].shard_id, value, secs[0],
+                                      secs[1])
+            finally:
+                # with the stage pools: no hedge duplicate outlives the run
+                if res is not None:
+                    res.close()
+
+        return adapt()
 
     @staticmethod
     def _decode_with_refetch(task: ShardTask, payload: Any) -> Any:
@@ -294,14 +474,27 @@ class ShardPipelineExecutor:
 
 def executor_for_storage(storage) -> ShardPipelineExecutor:
     """The read executor sized by the storage's ``DisqOptions``; it also
-    applies the options' HTTP cache size (``http_cache_blocks``)."""
+    applies the options' HTTP cache size (``http_cache_blocks``) and
+    resolves, once per run, the flight recorder, the profiler, the
+    introspection board (endpoint, watchdog, progress log) and the
+    resilience manager (hedging, deadlines). With none of them set the
+    executor gets ``health=None`` and ``resilience=None``."""
+    from disq_tpu_torch.runtime import introspect, profiler
+    from disq_tpu_torch.runtime.resilience import resilience_for_options
+
     opts = getattr(storage, "_options", None) or DisqOptions()
+    flightrec.configure_from_options(opts)
+    profiler.configure_from_options(opts)
     if opts.http_cache_blocks:
         from disq_tpu_torch.fsw.http import configure_cache_blocks
 
         configure_cache_blocks(opts.http_cache_blocks)
-    return ShardPipelineExecutor(workers=opts.executor_workers,
-                                 prefetch_shards=opts.prefetch_shards)
+    return ShardPipelineExecutor(
+        workers=opts.executor_workers, prefetch_shards=opts.prefetch_shards,
+        health=introspect.configure_from_options(opts),
+        watchdog_stall_s=opts.watchdog_stall_s,
+        watchdog_policy=opts.watchdog_policy,
+        resilience=resilience_for_options(opts))
 
 
 def read_ledger_for_storage(storage, path: str, n_shards: int,
@@ -311,7 +504,8 @@ def read_ledger_for_storage(storage, path: str, n_shards: int,
     decodes to: the path, the split count, the error policy, and the
     route actually taken (``resident``: a device-backed split spills as
     host bytes and parses again on its device when loaded), so resuming
-    any other read starts afresh."""
+    any other read starts afresh. The shard deadline is part of it: an
+    over-budget split under skip spills as its empty stand-in."""
     opts = getattr(storage, "_options", None) or DisqOptions()
     if not opts.read_ledger:
         return None
@@ -322,6 +516,7 @@ def read_ledger_for_storage(storage, path: str, n_shards: int,
         "path": path,
         "shards": int(n_shards),
         "error_policy": ErrorPolicy.coerce(opts.error_policy).value,
+        "shard_deadline_s": opts.shard_deadline_s,
         "resident_decode": bool(resident),
     })
 
@@ -391,16 +586,22 @@ class WriterStats:
 class ShardWritePipeline:
     """The write direction: encode → deflate → stage → ordered emit, with
     the read executor's guarantees (task order, identical bytes at any
-    ``workers``, inline ``workers=1``, bounded window)."""
+    ``workers``, inline ``workers=1``, bounded window) and its
+    introspection hooks."""
 
     def __init__(self, workers: int = 1,
-                 prefetch_shards: Optional[int] = None) -> None:
+                 prefetch_shards: Optional[int] = None, health=None,
+                 watchdog_stall_s: Optional[float] = None,
+                 watchdog_policy: str = "warn") -> None:
         self.workers = max(1, int(workers))
         if prefetch_shards is None:
             prefetch_shards = 2 * self.workers
         self.prefetch_shards = max(1, int(prefetch_shards))
         self.stats = WriterStats(workers=self.workers,
                                  window=self.prefetch_shards)
+        self._health = health
+        self._watchdog_stall_s = watchdog_stall_s
+        self._watchdog_policy = watchdog_policy
 
     def map_ordered(self, tasks: Sequence[WriteShardTask]
                     ) -> Iterator[WriteShardResult]:
@@ -408,9 +609,18 @@ class ShardWritePipeline:
         self.stats.shards += len(tasks)
         if not tasks:
             return iter(())
+        token = None
+        if self._health is not None:
+            token = self._health.register_run(
+                "write", len(tasks), self._watchdog_stall_s,
+                self._watchdog_policy)
         if self.workers == 1:
-            return self._run_sequential(tasks)
-        return self._run_pipelined(tasks)
+            inner = self._run_sequential(tasks, token)
+        else:
+            inner = self._run_pipelined(tasks, token)
+        if token is None:
+            return inner
+        return _tracked(inner, self._health, token)
 
     @staticmethod
     def _encode(task: WriteShardTask, _payload: Any) -> Any:
@@ -433,15 +643,29 @@ class ShardWritePipeline:
     _STEPS = (("encode", "disq-torch-encode"), ("deflate", "disq-torch-deflate"),
               ("stage", "disq-torch-stage"))
 
-    def _run_sequential(self, tasks: List[WriteShardTask]
+    def _run_sequential(self, tasks: List[WriteShardTask],
+                        token: Optional[int] = None
                         ) -> Iterator[WriteShardResult]:
-        for task in tasks:
-            payload = None
-            for step, _p in self._STEPS:
-                payload = getattr(self, f"_{step}")(task, payload)
-            yield WriteShardResult(task.shard_id, payload)
+        health = self._health if token is not None else None
+        try:
+            for task in tasks:
+                payload = None
+                for step, _p in self._STEPS:
+                    _check_abort(health, token)
+                    if health is not None:
+                        health.beat(token, step, task.shard_id)
+                    payload = getattr(self, f"_{step}")(task, payload)
+                    if health is not None:
+                        health.clear(token, step, task.shard_id)
+                yield WriteShardResult(task.shard_id, payload)
+        except GeneratorExit:
+            raise  # the consumer stopped early: no abort
+        except BaseException as e:
+            flightrec.note_abort(e, where="inline")
+            raise
 
-    def _run_pipelined(self, tasks: List[WriteShardTask]
+    def _run_pipelined(self, tasks: List[WriteShardTask],
+                       token: Optional[int] = None
                        ) -> Iterator[WriteShardResult]:
         # a step that is None on every task gets no pool of its own
         used = [(step, prefix) for step, prefix in self._STEPS
@@ -461,23 +685,51 @@ class ShardWritePipeline:
             workers=self.workers, window=self.stats.window,
             stage_fns=[getattr(self, f"_{step}") for step in steps],
             thread_prefixes=[prefix for _s, prefix in used],
-            on_admit=on_admit, on_stall=on_stall, drain_on_close=True)
+            on_admit=on_admit, on_stall=on_stall, drain_on_close=True,
+            stage_names=steps,
+            health=self._health if token is not None else None,
+            health_token=token)
         for idx, value, _secs in core.run(tasks):
             yield WriteShardResult(tasks[idx].shard_id, value)
 
 
 def writer_for_storage(storage) -> ShardWritePipeline:
-    """The write pipeline sized by the storage's ``DisqOptions``."""
+    """The write pipeline sized by the storage's ``DisqOptions``, with
+    the flight recorder, the profiler and the introspection board
+    resolved once per run as for a read."""
+    from disq_tpu_torch.runtime import introspect, profiler
+
     opts = getattr(storage, "_options", None) or DisqOptions()
-    return ShardWritePipeline(workers=opts.writer_workers,
-                              prefetch_shards=opts.writer_prefetch_shards)
+    flightrec.configure_from_options(opts)
+    profiler.configure_from_options(opts)
+    return ShardWritePipeline(
+        workers=opts.writer_workers,
+        prefetch_shards=opts.writer_prefetch_shards,
+        health=introspect.configure_from_options(opts),
+        watchdog_stall_s=opts.watchdog_stall_s,
+        watchdog_policy=opts.watchdog_policy)
 
 
-def write_retrier_for_storage(storage) -> ShardRetrier:
+def write_retrier_for_storage(storage, path: Optional[str] = None
+                              ) -> ShardRetrier:
     """A fresh per-shard retrier from the storage's retry knobs (writes
-    have no corrupt-block policy, only transient retry)."""
+    have no corrupt-block policy, only transient retry). With ``path``
+    and ``breaker_window`` set, the circuit breaker of the output's
+    filesystem gates it; its retries draw from the retry budget."""
     opts = getattr(storage, "_options", None) or DisqOptions()
-    return ShardRetrier(opts.max_retries, opts.retry_backoff_s)
+    breaker = None
+    if opts.retry_budget_tokens is not None or \
+            opts.breaker_window is not None:
+        from disq_tpu_torch.runtime.resilience import (
+            breaker_for,
+            configure_globals_from_options,
+        )
+
+        configure_globals_from_options(opts)
+        if path is not None:
+            breaker = breaker_for(path)
+    return ShardRetrier(opts.max_retries, opts.retry_backoff_s,
+                        breaker=breaker)
 
 
 def _checkpointed(task: WriteShardTask, manifest, stage_name: str

@@ -47,6 +47,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from disq_tpu_torch.runtime import flightrec
 from disq_tpu_torch.runtime.tracing import RUN_ID, span
 
 FORMAT_VERSION = 1
@@ -103,6 +104,8 @@ class StageManifest:
 
     def __init__(self, path: str, params: Optional[Dict[str, Any]] = None):
         self.path = path
+        # a postmortem bundle keeps this ledger's tail
+        flightrec.note_artifact("stage_manifest", path)
         # the write pipeline marks shards from its stage workers
         self._lock = threading.RLock()
         self._state: Dict[str, Any] = {
@@ -191,6 +194,8 @@ class ReadLedger:
         os.makedirs(base_dir, exist_ok=True)
         self.manifest = StageManifest(
             os.path.join(base_dir, "MANIFEST.json"), params)
+        flightrec.note_artifact(
+            "read_ledger", os.path.join(base_dir, "MANIFEST.json"))
 
     def _spill_path(self, shard_id: int) -> str:
         return os.path.join(self.base_dir, f"shard-{shard_id}.pkl")
@@ -238,6 +243,7 @@ class QuarantineManifest:
     def __init__(self, base_dir: str):
         self.base_dir = base_dir
         self.path = os.path.join(base_dir, self.MANIFEST_NAME)
+        flightrec.note_artifact("quarantine_manifest", self.path)
         self._lock = threading.Lock()
         self._entries: Dict[Tuple[str, int], Dict[str, Any]] = {}
         self._header_ok = False

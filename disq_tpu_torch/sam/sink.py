@@ -48,7 +48,7 @@ def _run_sam_shards(storage, fs, dataset, bounds, n_shards, prefix_bytes,
             shard_id=k,
             encode=wrap_span("sam.write.encode", encode, shard=k),
             stage=wrap_span("sam.write.stage", stage, shard=k),
-            retrier=write_retrier_for_storage(storage),
+            retrier=write_retrier_for_storage(storage, part_path_for(k)),
             what="sam.part",
         )
 
@@ -69,7 +69,7 @@ class SamSink:
         n_shards, bounds = shard_bounds(self._storage, batch.count)
         fs.mkdirs(temp_dir)
         try:
-            merge = write_retrier_for_storage(self._storage)
+            merge = write_retrier_for_storage(self._storage, path)
             header_path = os.path.join(temp_dir, "_header")
             merge.call(fs.write_all, header_path,
                        dataset.header.text.encode(), what="sam.merge")

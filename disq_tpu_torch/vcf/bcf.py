@@ -670,6 +670,7 @@ class BcfSource:
             map_ordered_resumable,
             read_ledger_for_storage,
         )
+        from disq_tpu_torch.runtime.introspect import note_shard_counters
         from disq_tpu_torch.runtime.tracing import wrap_span
 
         fs, path = resolve_path(path)
@@ -708,21 +709,24 @@ class BcfSource:
         parts = []
         shard_counters = []
         # the whole file decodes as one BGZF stream, so a split cannot be
-        # replaced by an empty stand-in; the read ledger applies
+        # replaced by an empty stand-in: a shard deadline keeps the strict
+        # abort; hedging, the budget, the breaker and the ledger apply
         ledger = read_ledger_for_storage(self._storage, path, len(tasks),
                                          device is not None)
         for res in map_ordered_resumable(
                 executor_for_storage(self._storage), tasks, ledger):
             part, n_blocks, c_bytes = res.value
             parts.append(part)
-            shard_counters.append(ShardCounters(
+            c = ShardCounters(
                 shard_id=res.shard_id,
                 blocks=n_blocks,
                 bytes_compressed=c_bytes,
                 bytes_uncompressed=len(part),
                 wall_seconds=res.wall_seconds,
                 retried_reads=shard_ctxs[res.shard_id].retrier.retried,
-            ))
+            )
+            shard_counters.append(c)
+            note_shard_counters("read", c)  # the live /progress feed
         payload = b"".join(parts)
         header, rec_off = read_bcf_header_block(payload)
         batch = decode_bcf_records(payload, header, rec_off)
@@ -848,7 +852,7 @@ class BcfSink:
         tasks = [make_task(k) for k in range(n_shards)]
         # The stream open is the only faultable write-side call here
         # (stream writes land in the atomic staging file directly).
-        with write_retrier_for_storage(self._storage).call(
+        with write_retrier_for_storage(self._storage, path).call(
                 fs.create, path, what="bcf.create") as out:
             out.write(deflate_blob_for(
                 self._storage, build_bcf_header_block(header))[0])

@@ -161,7 +161,7 @@ class VcfSink:
                     "vcf.write.stage",
                     lambda p: self._stage_shard(fs, temp_dir, k, p),
                     shard=k),
-                retrier=write_retrier_for_storage(self._storage),
+                retrier=write_retrier_for_storage(self._storage, temp_dir),
                 what="vcf.part",
             )
 
@@ -175,7 +175,7 @@ class VcfSink:
 
         # the merge's writes retry transient faults as staged parts do
         # (the atomic create makes a retry safe)
-        merge = write_retrier_for_storage(self._storage)
+        merge = write_retrier_for_storage(self._storage, path)
         header_path = os.path.join(temp_dir, "_header")
         if bgz:
             hdr, _ = deflate_blob_for(self._storage, header_bytes)
@@ -239,7 +239,7 @@ class VcfSinkMultiple:
                 encode=wrap_span("vcf.write.encode", encode, shard=k),
                 deflate=wrap_span("vcf.write.deflate", deflate, shard=k),
                 stage=wrap_span("vcf.write.stage", stage, shard=k),
-                retrier=write_retrier_for_storage(self._storage),
+                retrier=write_retrier_for_storage(self._storage, path),
                 what="vcf.part",
             )
 

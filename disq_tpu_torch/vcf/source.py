@@ -37,9 +37,13 @@ from disq_tpu_torch.fsw.filesystem import compute_path_splits, resolve_path
 from disq_tpu_torch.fsw.textsplit import lines_for_split
 from disq_tpu_torch.runtime.columnar import device_route
 from disq_tpu_torch.runtime.errors import (
+    DisqOptions,
+    FetchAttempt,
     FlaggedBlocksError,
     TruncatedReadError,
+    committed,
     context_for_storage,
+    deadline_fallback_for,
     inflate_blocks_salvage,
     salvage_flagged,
 )
@@ -123,9 +127,11 @@ class VcfSource:
 
         def decode(lines):
             with span("vcf.split.decode", shard=shard_id):
-                raw = [ln for ln in lines if ln and not ln.startswith(b"#")]
+                raw = [ln for ln in committed(lines, shard_ctx)
+                       if ln and not ln.startswith(b"#")]
                 return parse_vcf_lines(raw, header.contig_names)
 
+        opts = getattr(self._storage, "_options", None) or DisqOptions()
         return ShardTask(
             shard_id=shard_id,
             # per-split timeline spans carrying shard id and byte range
@@ -134,6 +140,11 @@ class VcfSource:
             decode=decode,
             retrier=shard_ctx.retrier,
             what=f"split{shard_id}",
+            # an over-budget split under skip/quarantine is set aside as
+            # one empty batch
+            deadline_fallback=deadline_fallback_for(
+                opts, shard_ctx,
+                lambda: parse_vcf_lines([], header.contig_names)),
         )
 
     def _emit_batches(self, tasks, shard_ctxs, header, path) -> VariantBatch:
@@ -158,14 +169,17 @@ class VcfSource:
 
     def _track(self, shard_ctx, shard_id: int, batch) -> None:
         from disq_tpu_torch.runtime.counters import ShardCounters
+        from disq_tpu_torch.runtime.introspect import note_shard_counters
 
-        self._last_counters.append(ShardCounters(
+        c = ShardCounters(
             shard_id=shard_id,
             records=int(batch.count),
             skipped_blocks=shard_ctx.skipped_blocks,
             quarantined_blocks=shard_ctx.quarantined_blocks,
             retried_reads=shard_ctx.retrier.retried,
-        ))
+        )
+        self._last_counters.append(c)
+        note_shard_counters("read", c)  # the live /progress feed
 
     def _read_whole_gzip(self, fs, path, header) -> VariantBatch:
         # plain gzip is not splittable: one task reads the whole file
@@ -185,14 +199,19 @@ class VcfSource:
         stage B parses lines columnar, stage C concatenates in split
         order."""
         length = fs.get_file_length(path)
+        opts = getattr(self._storage, "_options", None) or DisqOptions()
+        # a hedged fetch may run twice at once on one split: each attempt
+        # notes its corrupt blocks, and the decode books the winner's
+        fetch = self._bgzf_attempt if opts.hedge_quantile is not None \
+            else self._bgzf_split_lines
         tasks, shard_ctxs = [], []
         for i, s in enumerate(compute_path_splits(fs, path, self.split_size)):
             shard_ctx = ctx.for_shard(i)
             shard_ctxs.append(shard_ctx)
             tasks.append(self._make_task(
                 i, shard_ctx,
-                functools.partial(self._bgzf_split_lines, fs, path,
-                                  s.start, s.end, length, ctx=shard_ctx),
+                functools.partial(fetch, fs, path, s.start, s.end, length,
+                                  ctx=shard_ctx),
                 header, start=s.start, end=s.end,
             ))
         return self._emit_batches(tasks, shard_ctxs, header, path)
@@ -245,6 +264,16 @@ class VcfSource:
                 p if p is not None else _filler(b)
                 for b, p in zip(blocks, payloads)
             ), any(p is None for p in payloads)
+
+    def _bgzf_attempt(self, fs, path: str, start: int, end: int,
+                      length: int, ctx) -> FetchAttempt:
+        """``_bgzf_split_lines`` of a hedged read, booking into
+        ``ctx.attempt()``; the decode commits the winner's books. This
+        fetch inflates, so a duplicate inflates again."""
+        actx = ctx.attempt()
+        lines = self._bgzf_split_lines(fs, path, start, end, length,
+                                       ctx=actx)
+        return FetchAttempt(lines, actx, sum(len(ln) for ln in lines))
 
     def _bgzf_split_lines(
         self, fs, path: str, start: int, end: int, length: int, ctx

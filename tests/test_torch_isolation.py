@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of ``disq_tpu``, no silent CPU.
 
-- importing ``disq_tpu_torch`` (every module of it) pulls in neither
-  ``jax`` nor any ``disq_tpu`` module, and no source file of the port or
-  ``chip_smoke.py`` names one in an import;
+- importing ``disq_tpu_torch`` (every module of it, the resilience and
+  observability planes included) pulls in neither ``jax`` nor any
+  ``disq_tpu`` module, and no source file of the port, ``chip_smoke.py``
+  or the port's scripts (``scripts/torch_*.py``) names one in an import;
 - with no CUDA, an entry point that was not asked for the CPU raises;
 - importing the kernel modules builds nothing, and a build without
   ``nvcc`` raises instead of falling back;
@@ -33,8 +34,14 @@ def _run(code, env=None, cwd=REPO):
                           capture_output=True, text=True, timeout=120)
 
 
+PLANE_MODULES = ("multihost", "flightrec", "resilience", "profiler", "slo",
+                 "introspect", "cluster")
+
+
 def _port_sources():
-    out = [SMOKE]
+    out = [SMOKE] + [os.path.join(REPO, "scripts", f)
+                     for f in os.listdir(os.path.join(REPO, "scripts"))
+                     if f.startswith("torch_") and f.endswith(".py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -58,6 +65,23 @@ def test_import_pulls_in_no_jax_and_no_reference():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", PLANE_MODULES)
+def test_plane_module_imports_alone(module):
+    """Each resilience and observability module imports in a fresh
+    interpreter with neither ``jax`` nor ``disq_tpu`` loaded after it,
+    and starts no thread."""
+    code = (
+        "import importlib, json, sys, threading\n"
+        f"importlib.import_module('disq_tpu_torch.runtime.{module}')\n"
+        "print(json.dumps([sorted(k for k in sys.modules if k == 'jax'\n"
+        "    or k.startswith(('jax.', 'jaxlib', 'disq_tpu.'))\n"
+        "    or k == 'disq_tpu'), threading.active_count()]))\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == [[], 1]
+    assert os.path.join(PKG, "runtime", f"{module}.py") in _port_sources()
 
 
 @pytest.mark.parametrize("path", _port_sources(),

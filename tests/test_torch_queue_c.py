@@ -13,7 +13,12 @@ held against ``disq_tpu`` on the same input, on the CPU:
 - C-P5: ``is_directory``, ``first_file_in_directory``,
   ``_AtomicWriteFile.abort`` and ``BgzfWriter.compressed_bytes_written``
   behave as the reference's, and the fault injector's ``is_directory``
-  works over the posix and the in-memory wrapper.
+  works over the posix and the in-memory wrapper;
+- C-P6: every thread the port starts, with every plane armed (hedged
+  4-worker read, 4-worker write, watchdog, progress log, endpoint,
+  profiler, SLO evaluator, cluster aggregator, remote read, device
+  service, host pool), has a name the profiler books under one of the
+  reference's roles, never ``other``.
 """
 
 import ast
@@ -109,11 +114,6 @@ def test_cp3_absent_quality_is_a_star(fixture_bam):
 DEFERRED = {
     "FleetHandle": "A13d", "ServeHandle": "A13d", "serve": "A13d",
     "serve_fleet": "A13d",
-    "BreakerOpenError": "A13a", "DeadlineExceededError": "A13a",
-    "WatchdogStallError": "A13b", "ClusterAggregator": "A13b",
-    "introspect_address": "A13b", "start_introspect_server": "A13b",
-    "stop_introspect_server": "A13b", "process_count": "A13b",
-    "process_id": "A13b",
     "CoordinatorLostError": "A13c",
 }
 PACKAGES = ("", "bgzf", "bam", "index", "fsw", "runtime", "sort", "ops",
@@ -316,3 +316,93 @@ def test_cp5_bgzf_writer_compressed_bytes_written():
         seen.append(trace)
     assert seen[0] == seen[1]
     assert outs[0] == outs[1]
+
+
+# -- C-P6 ---------------------------------------------------------------------
+
+
+def test_cp6_every_port_thread_maps_to_a_reference_role(tmp_path,
+                                                        monkeypatch):
+    """The threads are recorded as they start and their names read at
+    the end (a request thread renames itself once it runs)."""
+    import threading
+    import urllib.request
+
+    import chip_smoke
+    from disq_tpu.runtime.profiler import THREAD_ROLES as REF_ROLES
+    from disq_tpu_torch.runtime import device_service, introspect, slo
+    from disq_tpu_torch.runtime.cluster import ClusterAggregator
+    from disq_tpu_torch.runtime.profiler import role_of, stop_profiler
+    from disq_tpu_torch.runtime.resilience import reset_resilience
+    from disq_tpu_torch.util import shared_host_pool, shutdown_shared_host_pool
+
+    path = str(tmp_path / "in.bam")
+    with open(path, "wb") as f:
+        f.write(make_bam_bytes(REFS, synth_records(600, REFS, seed=6),
+                               blocksize=600))
+    srv = chip_smoke.range_server(str(tmp_path))
+    monkeypatch.setattr(filesystem, "_SCHEME_REGISTRY",
+                        dict(filesystem._SCHEME_REGISTRY))
+    shutdown_shared_host_pool()
+    started = []
+    real_start = threading.Thread.start
+
+    def recording_start(self):
+        # the target goes when the thread ends: keep whose it was
+        started.append((self, getattr(getattr(self, "_target", None),
+                                      "__self__", None)))
+        return real_start(self)
+
+    monkeypatch.setattr(threading.Thread, "start", recording_start)
+    try:
+        storage = (P.ReadsStorage.make_default(device="cpu")
+                   .split_size(8192).executor_workers(4).writer_workers(4)
+                   .hedged_fetches(0.5, 0.0).watchdog(30.0)
+                   .progress_log(str(tmp_path / "p.jsonl"))
+                   .introspect_port(0).profile_hz(50))
+        storage.options(storage._options.with_slo("*:500:95"))
+        ds = storage.read(path)
+        storage.num_shards(4).write(ds, str(tmp_path / "out.bam"))
+        from disq_tpu_torch.fsw.http import HttpFileSystemWrapper
+
+        # small blocks, so a read runs past the first and prefetches
+        filesystem.register_filesystem("http",
+                                       HttpFileSystemWrapper(block_size=4096))
+        url = f"http://127.0.0.1:{srv.server_address[1]}/in.bam"
+        assert storage.read(url).count() == ds.count()
+        addr = ds.introspect_address()
+        with urllib.request.urlopen(f"http://{addr}/healthz",
+                                    timeout=10) as resp:
+            resp.read()
+        agg = ClusterAggregator([addr])
+        agg_addr = agg.serve(0)
+        with urllib.request.urlopen(f"http://{agg_addr}/healthz",
+                                    timeout=10) as resp:
+            resp.read()
+        agg.close()
+        monkeypatch.setenv("DISQ_TPU_TORCH_DEVICE_SERVICE", "1")
+        P.ReadsStorage.make_default(device="cpu").resident_decode() \
+            .read(path)
+        shared_host_pool().submit(int).result()
+    finally:
+        monkeypatch.undo()
+        device_service.shutdown_service()
+        stop_profiler()
+        slo.reset_slo()
+        introspect.reset_introspection()
+        reset_resilience()
+        srv.shutdown()
+        srv.server_close()
+    ours = [t for t, owner in started if owner is not srv]
+    names = sorted({t.name for t in ours})
+    for prefix in ("disq-torch-fetch", "disq-torch-decode",
+                   "disq-torch-encode", "disq-torch-deflate",
+                   "disq-torch-stage", "disq-hedge", "disq-watchdog",
+                   "disq-introspect", "disq-profiler", "disq-slo",
+                   "disq-cluster", "disq-http-prefetch",
+                   "disq-device-dispatch", "disq-torch-hostwork"):
+        assert any(n.startswith(prefix) for n in names), (prefix, names)
+    ref_roles = {role for _, role in REF_ROLES} | {"slo"}
+    unmapped = [n for n in names if role_of(n) not in ref_roles
+                or role_of(n) == "other"]
+    assert not unmapped, unmapped
