@@ -72,11 +72,21 @@ through their public entry points on ``cuda``:
     vst.introspect_port(0).read("v.vcf.bgz")
     storage.num_shards(8).writer_workers(4).circuit_breaker(3, 30)
         .write(ds, out, BaiWriteOption.ENABLE, sort=True)
+    storage.scheduler("serve", lease_n=2).read(path)               # sched
+    # a second process on the card joins (DISQ_TPU_TORCH_SCHED=host:port);
+    # a victim process is killed holding a lease, the survivor reads on
+    storage.read_ledger(d).scheduler(addr, lease_s=2, steal=False)
+        .read("fault://" + path)
+    storage.num_shards(8).writer_workers(4).scheduler("serve").write(
+        ds, out, BaiWriteOption.ENABLE, SbiWriteOption.ENABLE,
+        StageManifestWriteOption(m), sort=True)
+    storage.scheduler("serve").read(head_cram); vst.scheduler("serve")...
 
 The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
 container), which the read decodes on the card: kernel B3, and B5 on a
-second read under ``DISQ_TPU_TORCH_DEVICE_RANS=legacy``.
+read of the file's first 2 splits under
+``DISQ_TPU_TORCH_DEVICE_RANS=legacy``.
 
 It checks each path's results against the generator (counts, flagstat,
 sort permutation, the sorted BAM re-read record for record, every output
@@ -199,7 +209,21 @@ read with ``fetch`` and ``decode`` samples and no pipeline frame under
 the default read) and the variants phase's VCF.bgz under the endpoint
 (its ``/progress`` holding every line); and the 8-shard sorted write at
 4 writer workers with the breaker armed, byte-identical to the unarmed
-write. Any failed phase exits non-zero.
+write. The sched phase drives the shard scheduler on the same inputs: a
+read under ``.scheduler("serve")`` alone (every split leased and a
+locality miss, B1 = B2 = 6, the columns equal the default read's in its
+order); a read while a second process on the card (this script run with
+``--sched-worker``) joins the same queue (each split won once, each
+side's records equal the default read's records of its splits, B1 and B2
+summing to 6); a victim process that leases splits 0 and 1, finishes and
+spills split 0 to a shared read ledger, hangs in split 1's fetch (a
+fault-store stall) and is killed, then this process's read of the rest
+(split 1 after its 2 s lease expired, B1 = 5) joined with split 0 loaded
+from the spill (B2 once more) equal to the default read; the 8-shard
+sorted write at 4 writer workers leased with a stage manifest,
+byte-identical (BAM, BAI, SBI) to the unscheduled write; and the CRAM
+head (B3 = 2) and the VCF.bgz (B1 = 7) read scheduled, equal to their
+default reads. Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -782,9 +806,10 @@ def check_against_plain(torch, kernel, plain, staged, total: int,
 
 def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     """Write the sorted dataset as CRAM, read it back on the card through
-    B3 and (legacy knob) B5, and hold both kernels against their plain
-    versions and B3 against the native decoder; returns (kernel entries,
-    e2e fields, the 3-split head copy of ``cram_policy_legs``)."""
+    B3 (and its ``HEAD_SPLITS``-split head through B5 under the legacy
+    knob), and hold both kernels against their plain versions and B3
+    against the native decoder; returns (kernel entries, e2e fields, the
+    head copy of ``cram_policy_legs``)."""
     from disq_tpu_torch.native import rans_decode_native
     from disq_tpu_torch.ops import cuda_build
     from disq_tpu_torch.ops import rans as B5
@@ -950,36 +975,38 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
         f"({one_out} bytes) {b3_one_ms:.4f} / {b5_one_ms:.4f} ms")
     del streams, first, m_args
 
-    # -- the CRAM read under the legacy knob (B5) ---------------------------
+    policy_e2e, head = cram_policy_legs(torch, port, args, g, perm_want, cram,
+                                        data, offsets, fields, cr.reads)
+    del cr, rb, data
+    os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
+
+    # -- the CRAM head read under the legacy knob (B5) ------------------------
+    head_streams = len({off // args.split_size for off in head["offsets"]})
     os.environ["DISQ_TPU_TORCH_DEVICE_RANS"] = "legacy"
     try:
         counters.reset()
         B5.last_stats.update(device_lanes=0, host_big=0, host_fallback=0)
         t0 = time.perf_counter()
-        cr5 = storage.read(cram)
+        cr5 = storage.read(head["path"])
         torch.cuda.synchronize()
         legacy_read_s = time.perf_counter() - t0
         legacy = counters.snapshot()
     finally:
         del os.environ["DISQ_TPU_TORCH_DEVICE_RANS"]
     l_launches = legacy["launches"]
-    log(f"cram read (legacy): {legacy_read_s:.3f}s, counters "
-        f"{json.dumps(legacy)}, rans stats {json.dumps(B5.last_stats)}")
-    check(l_launches.get("rans", 0) == splits_with_streams
+    log(f"cram read (legacy, the {HEAD_SPLITS}-split head): "
+        f"{legacy_read_s:.3f}s, counters {json.dumps(legacy)}, rans stats "
+        f"{json.dumps(B5.last_stats)}")
+    check(l_launches.get("rans", 0) == head_streams
           and l_launches.get("rans_simd", 0) == 0,
           f"legacy read launches {l_launches}")
     check(legacy["host_rans_streams"].get("rans0", 0) == 0,
           "an order-0 stream reached the host decoder (legacy)")
-    for col in ("refid", "pos", "flag", "seqs", "quals", "names", "tags",
-                "cigars"):
-        check(np.array_equal(getattr(cr5.reads, col), getattr(rb, col)),
-              f"legacy cram column {col}")
-    cram_counters_ok(cr5, n, fields, args, file_bytes, "legacy cram read")
+    head_equal(cr5.reads, head["reads"], head["records"], "legacy cram read")
+    got_c = {k: getattr(cr5.counters, k) for k in CRAM_COUNTER_KEYS}
+    check(got_c == {k: head["counters"][k] for k in CRAM_COUNTER_KEYS},
+          f"legacy cram read counters {got_c} != {head['counters']}")
     del cr5
-    policy_e2e, head = cram_policy_legs(torch, port, args, g, perm_want, cram,
-                                        data, offsets, fields, cr.reads)
-    del cr, rb, data
-    os.environ.pop("DISQ_TPU_TORCH_CRAM_RANS_O1")
 
     shape = {"streams": len(m_ren) - 1, "bytes_in": int(m_ren[-1]),
              "bytes_out": m_total}
@@ -1020,7 +1047,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
            "cram_write_records_per_s": round(n / cram_write_s, 1),
            "cram_read_s": round(cram_read_s, 4),
            "cram_read_records_per_s": round(n / cram_read_s, 1),
-           "cram_legacy_read_s": round(legacy_read_s, 4), **policy_e2e,
+           "cram_head_legacy_read_s": round(legacy_read_s, 4), **policy_e2e,
            "cram_containers": len(offsets), "cram_file_bytes": file_bytes,
            "cram_splits": -(-file_bytes // args.split_size),
            "spans": cram_spans}
@@ -1072,6 +1099,9 @@ RAGGED = (("name_offsets", ("names",)), ("cigar_offsets", ("cigars",)),
 FIXED = ("refid", "pos", "mapq", "bin", "flag", "next_refid", "next_pos",
          "tlen")
 CRAM_EOF = 38   # bytes of the CRAM 3.0 end-of-file container
+CRAM_COUNTER_KEYS = ("records", "blocks", "bytes_compressed",
+                     "bytes_uncompressed", "skipped_blocks",
+                     "quarantined_blocks", "retried_reads", "shards")
 HEAD_SPLITS = 2  # the CRAM head's depth: a cut of the file's 7 splits
 
 
@@ -2441,7 +2471,7 @@ FLUSH_KNOB = "DISQ_TPU_TORCH_SERVICE_FLUSH_MS"
 SERVICE_CRAM_FLUSH_MS = 5000
 SERVICE_CRAM_SPLITS = 2          # the service CRAM leg's depth: 2 splits
 PLAIN_SAMPLE_LANES = 64          # B1 lanes of a coalesced chunk held
-PLAIN_SAMPLE_STREAMS = 8         # against the plain version (B3 streams)
+PLAIN_SAMPLE_STREAMS = 4         # against the plain version (B3 streams)
 
 
 def span_sums(tracing) -> dict:
@@ -2658,7 +2688,8 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
                   f"{snap['host_rans_streams']}")
             del cr
             # B3's plain version on a sample of the most-coalesced chunk
-            # (~40 s for 1.5 MB streams) runs beside the legs below
+            # (~45 s for 1.5 MB streams, one process per stream) runs
+            # beside the legs below
             _, r_lanes, _, _ = cap.chunk("rans")
             r_pick = _spread([o for _, _, o in r_lanes],
                              PLAIN_SAMPLE_STREAMS)
@@ -4081,15 +4112,8 @@ def plane_legs(torch, port, args, g, info, ds, src, work) -> tuple:
     stall_at = 4 * split + split * 3 // 4
     stall = [dict(kind="stall", path_substr=name, offset=stall_at,
                   stall_s=PLANES_STALL_S, times=1)]
-    # a record belongs to the split its block starts in: its start in the
-    # decoded stream, from the generator's record sizes, to its block
-    size = (36 + NAME_LEN + 1 + 4 * g["ncig"].astype(np.int64)
-            + (READ_LEN + 1) // 2 + READ_LEN + TAG_BYTES)
-    ustart = len(bam_header()) + np.concatenate([[0], np.cumsum(size[:-1])])
-    with open(src, "rb") as f:
-        cpos = np.array([b[0] for b in walk_blocks(f.read())], np.int64)
-    rows = np.flatnonzero(cpos[ustart // MAX_PAYLOAD] // split != 4)
-    del size, ustart, cpos
+    starts = split_starts(g, src, split)
+    rows = np.r_[0:starts[4], starts[5]:n]
     check(len(rows) < n, "planes deadline: split 4 holds no record")
     _fault_store(stall)
     exceeded0 = count("deadline.exceeded")
@@ -4277,6 +4301,459 @@ def plane_legs(torch, port, args, g, info, ds, src, work) -> tuple:
     log(f"planes write: {WRITE_SHARDS} shards at 4 writer workers with the "
         f"breaker armed {armed_s:.3f}s, BAM and BAI byte-identical to the "
         f"unarmed write, breaker {state}")
+    return launches, e2e
+
+
+SCHED_LEASE_N = 2            # splits per lease in every sched leg
+SCHED_LEASE_S = 2.0          # the handoff leg's lease: its crash detection
+SCHED_STALL_S = 300.0        # the victim's stall, which its kill cuts short
+SCHED_WAIT_S = 180.0         # the bound of every wait on a worker process
+SCHED_COUNTERS = ("sched.leases", "sched.steals", "sched.lease_expired",
+                  "sched.dup_done")
+DIGEST_COLUMNS = FIXED + ("names", "cigars", "seqs", "quals", "tags")
+SCHED_SPANS = ("executor.fetch", "executor.decode", "bam.split.decode",
+               "codec.inflate.batch", "sched.rpc", "sched.wait")
+
+
+def split_starts(g: dict, src: str, split: int) -> np.ndarray:
+    """The first record of each split of ``src`` (and ``n`` last): a
+    record belongs to the split its BGZF block starts in, found from its
+    start in the decoded stream (the generator's record sizes)."""
+    size = (36 + NAME_LEN + 1 + 4 * g["ncig"].astype(np.int64)
+            + (READ_LEN + 1) // 2 + READ_LEN + TAG_BYTES)
+    ustart = len(bam_header()) + np.concatenate([[0], np.cumsum(size[:-1])])
+    with open(src, "rb") as f:
+        cpos = np.array([b[0] for b in walk_blocks(f.read())], np.int64)
+    owner = cpos[ustart // MAX_PAYLOAD] // split
+    return np.searchsorted(owner, np.arange(owner[-1] + 2))
+
+
+def batch_digest(batch) -> str:
+    """A digest of every column of a read batch (device-backed or host)."""
+    import hashlib
+
+    rb = batch.to_read_batch() if hasattr(batch, "to_read_batch") else batch
+    h = hashlib.sha1()
+    for col in DIGEST_COLUMNS:
+        h.update(np.ascontiguousarray(getattr(rb, col)).tobytes())
+    return h.hexdigest()
+
+
+def sched_worker(spec: dict) -> int:
+    """A second process of the sched phase on the same card: once the
+    file ``spec["go"]`` names the coordinator (``{"addr": "host:port"}``),
+    one BAM read of ``spec["path"]`` at ``spec["split"]`` leased from it
+    (the host name and lease size come from ``DISQ_TPU_TORCH_SCHED_*`` in
+    its environment), with the read ledger ``spec["ledger"]`` and through
+    a stall at byte ``spec["stall_at"]`` when given. Prints one JSON
+    line: records, their digest, seconds and the kernel launches of the
+    read."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAILED: CUDA is not available", file=sys.stderr, flush=True)
+        return 1
+    sys.path.insert(0, HERE)
+    import disq_tpu_torch as port
+    from disq_tpu_torch.runtime import counters
+
+    path = spec["path"]
+    storage = port.ReadsStorage.make_default().split_size(spec["split"])
+    if spec.get("ledger"):
+        storage = storage.read_ledger(spec["ledger"])
+    if spec.get("stall_at") is not None:
+        _fault_store([dict(kind="stall", path_substr=os.path.basename(path),
+                           offset=spec["stall_at"], stall_s=SCHED_STALL_S,
+                           times=1)])
+        path = "fault://" + path
+    torch.zeros(1, device="cuda")  # the CUDA context, before the wait
+    t0 = time.perf_counter()
+    while not os.path.exists(spec["go"]):
+        if time.perf_counter() - t0 > SCHED_WAIT_S:
+            print("FAILED: no coordinator", file=sys.stderr, flush=True)
+            return 1
+        time.sleep(0.02)
+    with open(spec["go"]) as f:
+        os.environ["DISQ_TPU_TORCH_SCHED"] = json.load(f)["addr"]
+    counters.reset()
+    t0 = time.perf_counter()
+    ds = storage.read(path)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(json.dumps({
+        "records": ds.count(), "digest": batch_digest(ds.reads),
+        "device_backed": bool(ds.count() == 0 or ds.reads.device_backed),
+        "seconds": round(seconds, 4),
+        "launches": counters.snapshot()["launches"]}), flush=True)
+    return 0
+
+
+class _Worker:
+    """A ``sched_worker`` process on this card, started early so that it
+    reaches the card while other legs run, and sent to work by ``go``;
+    its output in files under ``work``; killed on ``close`` if it still
+    runs."""
+
+    def __init__(self, work: str, name: str, spec: dict) -> None:
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("DISQ_TPU_TORCH_SCHED")}
+        env.update(DISQ_TPU_TORCH_SCHED_HOST=name,
+                   DISQ_TPU_TORCH_SCHED_LEASE_N=str(SCHED_LEASE_N))
+        self.out = os.path.join(work, f"sched_{name}.out")
+        self.err = os.path.join(work, f"sched_{name}.err")
+        self.go_path = os.path.join(work, f"sched_{name}.go")
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--sched-worker", json.dumps({**spec, "go": self.go_path})],
+                stdout=out, stderr=err, env=env, cwd=HERE)
+
+    def go(self, addr: str) -> None:
+        """Name the coordinator: the worker's read starts."""
+        tmp = self.go_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"addr": addr}, f)
+        os.replace(tmp, self.go_path)
+
+    def tail(self) -> str:
+        with open(self.err) as f:
+            return f.read()[-2000:]
+
+    def wait_for(self, cond, what: str):
+        """Poll ``cond()`` until it is true (and return it); fails when
+        the worker exits first or ``SCHED_WAIT_S`` passes."""
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < SCHED_WAIT_S:
+            if self.proc.poll() is not None:
+                raise PhaseError(f"{what}: the worker exited "
+                                 f"{self.proc.returncode}: {self.tail()}")
+            got = cond()
+            if got:
+                return got
+            time.sleep(0.05)
+        raise PhaseError(f"{what}: not reached in {SCHED_WAIT_S}s")
+
+    def result(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=SCHED_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise PhaseError(f"a sched worker ran past {SCHED_WAIT_S}s")
+        with open(self.out) as f:
+            lines = f.read().splitlines()
+        if rc != 0 or not lines:
+            raise PhaseError(f"a sched worker exited {rc}: {self.tail()}")
+        return json.loads(lines[-1])
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def sched_legs(torch, port, args, g, info, ds, src, work, head) -> tuple:
+    """The shard scheduler on the main path's BAM, the CRAM head copy and
+    the variants phase's VCF.bgz: (a) one worker serving and leasing
+    every split, (b) this process serving and a second process on the
+    same card joining, (c) a victim process killed while it holds a lease
+    (the survivor reads the rest, the victim's spill loaded from the
+    shared ledger), (d) the 8-shard sorted write leased at 4 writer
+    workers with a manifest, (e) the CRAM head and the VCF.bgz scheduled
+    at 1 worker. Returns the launches of each leg and the e2e fields."""
+    from disq_tpu_torch.bam.columnar import ReadBatch
+    from disq_tpu_torch.runtime import counters, introspect, scheduler, tracing
+    from disq_tpu_torch.runtime.columnar import ColumnarBatch
+    from disq_tpu_torch.runtime.manifest import ReadLedger
+
+    n, split = args.records, args.split_size
+    n_splits = -(-info["file_bytes"] // split)
+    starts = split_starts(g, src, split)
+    check(len(starts) == n_splits + 1 and starts[-1] == n,
+          f"sched: split starts {starts.tolist()}")
+    default = ds.reads.to_read_batch()
+
+    def rows_digest(splits) -> str:
+        return batch_digest(ReadBatch.concat(
+            [default.slice(int(starts[k]), int(starts[k + 1]))
+             for k in splits]))
+
+    def rows(splits) -> int:
+        return int(sum(starts[k + 1] - starts[k] for k in splits))
+
+    def storage():
+        return port.ReadsStorage.make_default().split_size(split)
+
+    def books() -> dict:
+        out = {name: tracing.counter(name).total() for name in SCHED_COUNTERS}
+        for r in ("hit", "miss"):
+            out[f"sched.locality{{result={r}}}"] = \
+                tracing.counter("sched.locality").value(result=r)
+        return out
+
+    def run_of(path: str, shards: int, direction: str = "read") -> dict:
+        key = scheduler.run_key_for(path, shards, direction)
+        return scheduler.active_coordinator().stats()["runs"][key]
+
+    def reset() -> None:
+        scheduler.stop_coordinator()
+        introspect.reset_introspection()
+
+    def stage_sums() -> dict:
+        sums = span_sums(tracing)
+        return {k: sums[k]["s"] for k in SCHED_SPANS if k in sums}
+
+    launches, e2e = {}, {}
+    # the second processes start now and reach the card during leg (a):
+    # p1 joins leg (b); the victim of leg (c) leases splits 0 and 1,
+    # finishes and spills 0, and hangs in split 1's fetch, past every
+    # header and boundary read
+    ledger = os.path.join(work, "ledger_sched")
+    shutil.rmtree(ledger, ignore_errors=True)
+    worker = _Worker(work, "p1", {"path": src, "split": split})
+    victim = _Worker(work, "victim", {
+        "path": src, "split": split, "ledger": ledger,
+        "stall_at": split + split * 3 // 4})
+    try:
+        # -- (a) one worker -----------------------------------------------------
+        reset()
+        tracing.reset_spans()
+        t0 = time.perf_counter()
+        base = storage().read(src)
+        torch.cuda.synchronize()
+        base_s = time.perf_counter() - t0
+        base_spans = stage_sums()
+        del base
+        b0 = books()
+        counters.reset()
+        tracing.reset_spans()
+        t0 = time.perf_counter()
+        got = storage().scheduler("serve", lease_n=SCHED_LEASE_N).read(src)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_spans = stage_sums()
+        snap = counters.snapshot()["launches"]
+        sched = _delta(b0, books())
+        run = run_of(src, n_splits)
+        check(snap.get("inflate", 0) == n_splits
+              and snap.get("parse", 0) == n_splits,
+              f"sched one worker: launches {snap} for {n_splits} splits")
+        check(sched.get("sched.locality{result=miss}") == n_splits
+              and not sched.get("sched.locality{result=hit}"),
+              f"sched one worker: {sched}")
+        check(run["finished"] and set(run["done"].values()) == {"p0"},
+              f"sched one worker: run {run}")
+        same_reads(torch, got, ds, "sched one worker")
+        del got
+        launches["one_worker"] = snap
+        e2e.update(sched_default_read_s=round(base_s, 4),
+                   sched_one_worker_read_s=round(one_s, 4))
+        log(f"sched one_worker: {n} records, {one_s:.3f}s (default read "
+            f"{base_s:.3f}s in this leg), launches {snap}, {sched}; span "
+            f"seconds {one_spans} (default read {base_spans}); the columns "
+            f"equal the default read's in its order")
+
+        # -- (b) two processes on one card --------------------------------------
+        reset()
+        addr = scheduler.serve_coordinator(lease_s=30.0)
+        b0 = books()
+        worker.go(addr)
+        # join as soon as the worker has: both then lease from one queue
+        t_join = time.perf_counter()
+        worker.wait_for(lambda: "p1" in scheduler.active_coordinator()
+                        .stats()["members"], "sched two processes: join")
+        join_s = time.perf_counter() - t_join
+        counters.reset()
+        t0 = time.perf_counter()
+        mine = storage().scheduler("serve", lease_n=SCHED_LEASE_N).read(src)
+        torch.cuda.synchronize()
+        mine_s = time.perf_counter() - t0
+        snap = counters.snapshot()["launches"]
+        theirs = worker.result()
+        sched = _delta(b0, books())
+        run = run_of(src, n_splits)
+        done = {int(k): h for k, h in run["done"].items()}
+        check(run["finished"] and sorted(done) == list(range(n_splits))
+              and set(done.values()) <= {"p0", "p1"},
+              f"sched two processes: run {run}")
+        by = {h: sorted(k for k, w in done.items() if w == h)
+              for h in ("p0", "p1")}
+        check(mine.count() == rows(by["p0"])
+              and batch_digest(mine.reads) == rows_digest(by["p0"]),
+              f"sched two processes: this process's {mine.count()} records "
+              f"differ from the default read's splits {by['p0']}")
+        check(mine.count() == 0 or mine.reads.device_backed,
+              "sched two processes: not device-backed")
+        check(theirs["records"] == rows(by["p1"])
+              and theirs["digest"] == rows_digest(by["p1"])
+              and theirs["device_backed"],
+              f"sched two processes: the worker's {theirs} differ from the "
+              f"default read's splits {by['p1']}")
+        for kernel in ("inflate", "parse"):
+            total = snap.get(kernel, 0) + theirs["launches"].get(kernel, 0)
+            check(total == n_splits, f"sched two processes: {kernel} launches "
+                  f"{snap} + {theirs['launches']} for {n_splits} splits")
+        del mine
+        launches["two_processes"] = {k: snap.get(k, 0)
+                                     + theirs["launches"].get(k, 0)
+                                     for k in ("inflate", "parse")}
+        e2e.update(sched_two_process_read_s=round(mine_s, 4),
+                   sched_worker_read_s=theirs["seconds"])
+        log(f"sched two_processes: splits {by} (each once), this process "
+            f"{rows(by['p0'])} records {mine_s:.3f}s launches {snap}, the "
+            f"worker {theirs['records']} records {theirs['seconds']:.3f}s "
+            f"launches {theirs['launches']} (joined {join_s:.3f}s after its "
+            f"go), {sched}; both equal the default read's splits")
+
+        # -- (c) crash handoff ----------------------------------------------------
+        reset()
+        addr = scheduler.serve_coordinator(lease_s=SCHED_LEASE_S)
+        fpath = "fault://" + src
+        b0 = books()
+        victim.go(addr)
+        since = []
+
+        def wedged():
+            # split 0 done, and a second on: the victim hangs in split 1's
+            # fetch (its lease of split 1 may expire meanwhile)
+            runs = scheduler.active_coordinator().stats()["runs"]
+            r = runs.get(scheduler.run_key_for(fpath, n_splits))
+            if not r or "0" not in r["done"]:
+                return None
+            since.append(time.perf_counter())
+            return r if since[-1] - since[0] >= 1.0 else None
+
+        run = victim.wait_for(wedged, "sched handoff: the victim wedged")
+        victim.close()  # SIGKILL while it holds split 1
+        victim_done = sorted(int(k) for k in run["done"])
+        spilled = ReadLedger(ledger).completed_shards()
+        check(victim_done == [0] and spilled == [0]
+              and run["leases"].get("1", {}).get("host", "victim") == "victim",
+              f"sched handoff: the victim did {victim_done}, spilled "
+              f"{spilled}, run {run}")
+        _fault_store([])  # the same path, no fault
+        counters.reset()
+        t0 = time.perf_counter()
+        survivor = storage().read_ledger(ledger).scheduler(
+            addr, lease_n=SCHED_LEASE_N, lease_s=SCHED_LEASE_S,
+            steal=False).read(fpath)
+        torch.cuda.synchronize()
+        survivor_s = time.perf_counter() - t0
+        # the victim's finished split from its spill: the parse kernel again
+        spills = [ReadLedger(ledger).load(k)[0] for k in spilled]
+        whole = port.ReadsDataset(header=survivor.header,
+                                  reads=ColumnarBatch.concat(
+                                      spills + [survivor.reads]))
+        same_reads(torch, whole, ds, "sched handoff")
+        snap = counters.snapshot()["launches"]
+        sched = _delta(b0, books())
+        run = run_of(fpath, n_splits)
+        fresh = n_splits - len(spilled)
+        check(survivor.count() == rows(range(1, n_splits)),
+              f"sched handoff: the survivor read {survivor.count()} records")
+        check(snap.get("inflate", 0) == fresh
+              and snap.get("parse", 0) == fresh + len(spilled),
+              f"sched handoff: launches {snap}, {fresh} fresh splits, "
+              f"{len(spilled)} spills")
+        check(sched.get("sched.lease_expired", 0) >= 1
+              and 1 in run["requeued"], f"sched handoff: {sched}, run {run}")
+        check(run["finished"] and run["done"]["0"] == "victim"
+              and all(run["done"][str(k)] == "p0" for k in range(1, n_splits)),
+              f"sched handoff: run {run}")
+        del survivor, whole, spills
+        ReadLedger(ledger).finish()
+        launches["handoff"] = snap
+        e2e["sched_handoff_read_s"] = round(survivor_s, 4)
+        log(f"sched handoff: the victim finished {victim_done} and was killed "
+            f"holding split 1; the survivor read {n - rows([0])} records "
+            f"in {survivor_s:.3f}s, launches {snap} (inflate for the {fresh} "
+            f"splits not spilled, parse also for {len(spilled)} spill), "
+            f"{sched}; with the spill, equal to the default read")
+
+        # -- (d) write leases -----------------------------------------------------
+        reset()
+        out = os.path.join(work, "sorted_sbi_sched.bam")
+        manifest = os.path.join(work, "sched.manifest")
+        b0 = books()
+        counters.reset()
+        t0 = time.perf_counter()
+        (storage().num_shards(WRITE_SHARDS).writer_workers(4)
+         .scheduler("serve", lease_n=SCHED_LEASE_N)
+         .write(ds, out, port.BaiWriteOption.ENABLE, port.SbiWriteOption.ENABLE,
+                port.StageManifestWriteOption(manifest), sort=True))
+        write_s = time.perf_counter() - t0
+        snap = counters.snapshot()["launches"]
+        sched = _delta(b0, books())
+        for ext in ("", ".bai", ".sbi"):
+            with open(out + ext, "rb") as a, \
+                    open(os.path.join(work, "sorted_sbi.bam") + ext, "rb") as b:
+                check(a.read() == b.read(),
+                      f"sched write: {ext or '.bam'} differs from the "
+                      f"unscheduled write")
+        run = run_of(out, WRITE_SHARDS, "write")
+        check(run["finished"] and run["dir"] == "write"
+              and len(run["done"]) == WRITE_SHARDS
+              and not os.path.exists(manifest), f"sched write: run {run}")
+        launches["write"] = snap
+        e2e["sched_leased_write_s"] = round(write_s, 4)
+        log(f"sched write: {WRITE_SHARDS} shards at 4 writer workers leased "
+            f"with a manifest, {write_s:.3f}s, launches {snap}, {sched}; BAM, "
+            f"BAI and SBI byte-identical to the unscheduled write")
+
+        # -- (e) the CRAM head and the VCF.bgz ----------------------------------
+        reset()
+        keys = CRAM_COUNTER_KEYS
+        streams = len({off // split for off in head["offsets"]})
+        b0 = books()
+        counters.reset()
+        t0 = time.perf_counter()
+        cr = storage().scheduler("serve", lease_n=SCHED_LEASE_N).read(
+            head["path"])
+        cram_s = time.perf_counter() - t0
+        snap = counters.snapshot()["launches"]
+        sched = _delta(b0, books())
+        check(snap.get("rans_simd", 0) == streams,
+              f"sched cram: launches {snap} for {streams} splits with streams")
+        got_c = {k: getattr(cr.counters, k) for k in keys}
+        check(got_c == {k: head["counters"][k] for k in keys},
+              f"sched cram: counters {got_c} != {head['counters']}")
+        head_equal(cr.reads, head["reads"], head["records"], "sched cram")
+        del cr
+        launches["cram"] = snap
+        log(f"sched cram: {head['records']} records, {cram_s:.3f}s, launches "
+            f"{snap}, {sched}; equal to the head's default read")
+
+        reset()
+        vbgz = os.path.join(work, "v.vcf.bgz")
+        with open(vbgz, "rb") as f:
+            want_b1 = b1_split_launches(f.read(), VCF_SPLIT)
+        vst = port.VariantsStorage.make_default().split_size(VCF_SPLIT)
+        counters.reset()
+        want = vst.read(vbgz)
+        base_snap = counters.snapshot()["launches"]
+        b0 = books()
+        counters.reset()
+        t0 = time.perf_counter()
+        vgot = vst.scheduler("serve", lease_n=SCHED_LEASE_N).read(vbgz)
+        vcf_s = time.perf_counter() - t0
+        snap = counters.snapshot()["launches"]
+        sched = _delta(b0, books())
+        check(snap.get("inflate", 0) == want_b1 == base_snap.get("inflate", 0),
+              f"sched vcf: launches {snap} (default {base_snap}), want {want_b1}")
+        check(vgot.count() == want.count() == VCF_SITES,
+              f"sched vcf: {vgot.count()} sites")
+        for col in ("chrom", "pos", "end", "line_offsets", "lines"):
+            check(np.array_equal(getattr(vgot.variants, col),
+                                 getattr(want.variants, col)),
+                  f"sched vcf: column {col}")
+        del vgot, want
+        launches["vcf"] = snap
+        e2e.update(sched_cram_head_read_s=round(cram_s, 4),
+                   sched_vcf_read_s=round(vcf_s, 4))
+        log(f"sched vcf: {VCF_SITES} sites, {vcf_s:.3f}s, launches {snap}, "
+            f"{sched}; equal to the default read")
+    finally:
+        worker.close()
+        victim.close()
+        reset()
     return launches, e2e
 
 
@@ -4600,7 +5077,8 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     resume_e2e, resumed = read_resume_legs(torch, port, args, g, info, ds,
                                            src, work, head)
-    head = {k: head[k] for k in ("path", "offsets", "records", "counters")}
+    head = {k: head[k] for k in ("path", "offsets", "records", "counters",
+                                 "reads")}
     log(f"phase read resume: {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     ops_e2e = device_op_legs(torch, g, perm_want, ds)
@@ -4632,6 +5110,10 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     planes, planes_e2e = plane_legs(torch, port, args, g, info, ds, src, work)
     log(f"phase planes: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    sched, sched_e2e = sched_legs(torch, port, args, g, info, ds, src, work,
+                                  head)
+    log(f"phase sched: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
@@ -4659,13 +5141,16 @@ def run(args) -> dict:
     for name in ("inflate", "parse"):
         by_name[name]["launches_on_planes"] = {
             leg: books.get(name, 0) for leg, books in planes.items()}
+    for name in ("inflate", "parse", "rans_simd"):
+        by_name[name]["launches_on_sched"] = {
+            leg: books.get(name, 0) for leg, books in sched.items()}
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
            "sort_write_records_per_s": round(n / write_s, 1),
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
            **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
-           **traversal_e2e, **variants_e2e, **planes_e2e,
+           **traversal_e2e, **variants_e2e, **planes_e2e, **sched_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
@@ -4680,7 +5165,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--records", type=int, default=2_000_000)
     ap.add_argument("--split-size", type=int, default=64 << 20)
+    # the sched phase's second process (a JSON spec): see sched_worker
+    ap.add_argument("--sched-worker", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.sched_worker:
+        return sched_worker(json.loads(args.sched_worker))
     try:
         res = run(args)
     except PhaseError as e:

@@ -30,6 +30,7 @@ from disq_tpu_torch.runtime import (  # noqa: F401
     BreakerOpenError,
     ClusterAggregator,
     ColumnarBatch,
+    CoordinatorLostError,
     CorruptBlockError,
     DeadlineExceededError,
     DisqOptions,

@@ -55,6 +55,10 @@ Usage::
     ds = storage.profile_hz(99).read("sample.bam")
     ds.introspect_address()   # "127.0.0.1:<port>": /metrics, /healthz, ...
 
+    # the shard scheduler: this process serves the queue of splits, and
+    # others join it (DISQ_TPU_TORCH_SCHED=host:port) and lease from it
+    ds = storage.scheduler("serve", lease_n=2, lease_s=10.0).read("x.bam")
+
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
 and without an explicit CPU request, ``read`` and ``write`` raise. On
@@ -115,9 +119,10 @@ def _introspect_address() -> "str | None":
 
 
 class _PlaneKnobs:
-    """The resilience and observability builders both storages share
-    (``DisqOptions``' knobs of ``runtime/resilience.py``,
-    ``introspect.py``, ``flightrec.py`` and ``profiler.py``)."""
+    """The resilience, observability and scheduler builders both
+    storages share (``DisqOptions``' knobs of ``runtime/resilience.py``,
+    ``introspect.py``, ``flightrec.py``, ``profiler.py`` and
+    ``scheduler.py``)."""
 
     def introspect_port(self, port: int):
         """Serve the process-wide introspection endpoint (``/metrics``,
@@ -196,6 +201,25 @@ class _PlaneKnobs:
         ``/debug/profile`` and kept in a postmortem bundle. Env
         equivalent: ``DISQ_TPU_TORCH_PROFILE_HZ``."""
         self._options = self._options.with_profile(hz)
+        return self
+
+    def scheduler(self, mode: str, lease_n: int = 2, lease_s: float = 10.0,
+                  steal: bool = True, run_weight: float = 1.0,
+                  failover_dir: Optional[str] = None):
+        """Lease this storage's splits from the shard scheduler
+        (``runtime/scheduler.py``): ``"serve"`` hosts the shared queue on
+        this process's introspection endpoint and works, ``"host:port"``
+        joins it, ``"auto"`` finds it through ``failover_dir``. A worker
+        leases ``lease_n`` splits at a time, a lease unfinished after
+        ``lease_s`` seconds goes back to the queue, ``steal`` lets an
+        idle worker take a stale lease, ``run_weight`` is the run's
+        share when runs contend, and ``failover_dir`` arms coordinator
+        failover. A write with a ``StageManifestWriteOption`` leases its
+        shards too. BCF reads keep the static split loop. Env
+        equivalents: ``DISQ_TPU_TORCH_SCHED`` and
+        ``DISQ_TPU_TORCH_SCHED_{LEASE_N,LEASE_S,STEAL,WEIGHT,FAILOVER}``."""
+        self._options = self._options.with_scheduler(
+            mode, lease_n, lease_s, steal, run_weight, failover_dir)
         return self
 
 

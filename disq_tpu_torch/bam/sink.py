@@ -257,8 +257,30 @@ class BamSink:
             frag_cache[k] = {"sbi": sbi_frag, "bai": bai_frag}
         return info
 
+    @staticmethod
+    def _part_byte_ranges(batch, bounds):
+        """Each part's uncompressed byte range in the merged record
+        stream (the record encoder's size arithmetic at the shard
+        bounds): the write leases' locality hint, computed only when
+        they are armed. None when the batch cannot tell cheaply (the
+        leases then go in queue order)."""
+        try:
+            name_len = np.diff(batch.name_offsets)
+            n_cigar = np.diff(batch.cigar_offsets)
+            l_seq = np.diff(batch.seq_offsets)
+            tag_len = np.diff(batch.tag_offsets)
+        except Exception:  # noqa: BLE001 — a hint never fails a write
+            return None
+        sizes = (36 + (name_len + 1) + 4 * n_cigar + (l_seq + 1) // 2
+                 + l_seq + tag_len).astype(np.int64)
+        cum = np.zeros(len(sizes) + 1, np.int64)
+        np.cumsum(sizes, out=cum[1:])
+        return [(int(cum[int(bounds[k])]), int(cum[int(bounds[k + 1])]))
+                for k in range(len(bounds) - 1)]
+
     def _make_write_task(self, fs, header, batch, temp_dir, bounds,
-                         write_bai, write_sbi, k, frag_cache, resident=None):
+                         write_bai, write_sbi, k, frag_cache, resident=None,
+                         byte_range=None):
         # the 3-argument encode call stays when the device path is off
         if resident is None:
             def encode():
@@ -278,22 +300,31 @@ class BamSink:
                 lambda p: self._stage_shard(fs, temp_dir, k, frag_cache, p),
                 shard=k),
             retrier=write_retrier_for_storage(self._storage, temp_dir),
-            what="bam.part")
+            what="bam.part", byte_range=byte_range)
 
     # -- the parts and the merge --------------------------------------------
 
     def _write_parts_and_merge(self, fs, header, batch, path, temp_dir,
                                n_shards, bounds, write_bai, write_sbi,
                                manifest=None, resident=None) -> None:
+        from disq_tpu_torch.runtime.scheduler import write_leasing_armed
+
         frag_cache = None if manifest is not None else {}
+        # the byte ranges feed the write leases' locality; an unleased
+        # write skips the size walk
+        ranges = (self._part_byte_ranges(batch, bounds)
+                  if manifest is not None
+                  and write_leasing_armed(self._storage) else None)
         try:
             with trace_phase("bam.write.parts"):
                 infos = run_write_stage(
                     writer_for_storage(self._storage), n_shards,
                     lambda k: self._make_write_task(
                         fs, header, batch, temp_dir, bounds, write_bai,
-                        write_sbi, k, frag_cache, resident),
-                    manifest=manifest, stage_name="bam.parts")
+                        write_sbi, k, frag_cache, resident,
+                        ranges[k] if ranges else None),
+                    manifest=manifest, stage_name="bam.parts",
+                    storage=self._storage, path=path, fs=fs)
         finally:
             if resident is not None:
                 # the uploaded record blob is done with the parts stage

@@ -162,7 +162,8 @@ class BamSource:
         """One batch per split, in split order, through the shard
         executor (resumable under the storage's read ledger); each
         shard gets its own retrier and corrupt-block books
-        (``ctx.for_shard``)."""
+        (``ctx.for_shard``). Under the shard scheduler, the batches of
+        the splits this process won."""
         from disq_tpu_torch.runtime.counters import ShardCounters
         from disq_tpu_torch.runtime.errors import (
             DisqOptions,
@@ -171,10 +172,10 @@ class BamSource:
         from disq_tpu_torch.runtime.executor import (
             ShardTask,
             executor_for_storage,
-            map_ordered_resumable,
             read_ledger_for_storage,
         )
         from disq_tpu_torch.runtime.introspect import note_shard_counters
+        from disq_tpu_torch.runtime.scheduler import scheduled_map_ordered
 
         opts = getattr(self._storage, "_options", None) or DisqOptions()
         # a hedged fetch may run twice at once on one shard: each attempt
@@ -199,12 +200,17 @@ class BamSource:
                 # aside as the empty batch an empty range decodes to
                 deadline_fallback=deadline_fallback_for(
                     opts, shard_ctx, functools.partial(
-                        _books_of_empty, shard_ctx))))
+                        _books_of_empty, shard_ctx)),
+                # the compressed byte window: the scheduler's locality
+                byte_range=(bounds[i] >> 16, (bounds[i + 1] >> 16) + 1)))
         ledger = read_ledger_for_storage(self._storage, path, len(tasks),
                                          self._resident())
         out = []
         self._last_counters = []
-        for res in map_ordered_resumable(executor_for_storage(self._storage),
+        # the scheduler off (the default): map_ordered_resumable; on: the
+        # splits this process wins from the shared queue
+        for res in scheduled_map_ordered(self._storage, fs, path,
+                                         executor_for_storage(self._storage),
                                          tasks, ledger):
             batch, stats, (skipped, quarantined, retried) = res.value
             c = ShardCounters(

@@ -80,7 +80,8 @@ def run_cram_write_stage(storage, fs, batch, bounds, n_shards, ref_fetch,
             retrier=write_retrier_for_storage(storage, part_path_for(k)),
             what="cram.part")
 
-    return run_write_stage(writer_for_storage(storage), n_shards, make_task)
+    return run_write_stage(writer_for_storage(storage), n_shards, make_task,
+                           storage=storage, path=part_path_for(0))
 
 
 def _header_container(header) -> bytes:

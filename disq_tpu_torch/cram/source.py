@@ -134,10 +134,10 @@ class CramSource:
         from disq_tpu_torch.runtime.executor import (
             ShardTask,
             executor_for_storage,
-            map_ordered_resumable,
             read_ledger_for_storage,
         )
         from disq_tpu_torch.runtime.introspect import note_shard_counters
+        from disq_tpu_torch.runtime.scheduler import scheduled_map_ordered
 
         fs, path = resolve_path(path)
         ctx = context_for_storage(self._storage, path)
@@ -190,12 +190,16 @@ class CramSource:
                 # aside as zero containers
                 deadline_fallback=deadline_fallback_for(
                     opts, shard_ctx, functools.partial(
-                        _books_of_nothing, shard_ctx))))
+                        _books_of_nothing, shard_ctx)),
+                byte_range=(s.start, s.end)))  # the scheduler's locality
         ledger = read_ledger_for_storage(self._storage, path, len(tasks),
                                          device is not None)
         batches: List[ReadBatch] = []
         shard_counters = []
-        for res in map_ordered_resumable(executor_for_storage(self._storage),
+        # the scheduler off (the default): map_ordered_resumable; on: the
+        # container splits this process wins from the shared queue
+        for res in scheduled_map_ordered(self._storage, fs, path,
+                                         executor_for_storage(self._storage),
                                          tasks, ledger):
             shard_batches, (skipped, quarantined, retried) = res.value
             owned = owned_by_shard[res.shard_id]

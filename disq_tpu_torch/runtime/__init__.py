@@ -6,8 +6,9 @@ layer (``resilience``: hedged fetches, shard deadlines, the retry
 budget, circuit breakers), live introspection (``introspect``), the
 flight recorder (``flightrec``), the sampling profiler (``profiler``),
 per-tenant SLOs (``slo``), the cluster rollup (``cluster``), process
-identity (``multihost``), and the device service and write path
-(imported by name: ``device_service``, ``device_write``)."""
+identity (``multihost``), the shard scheduler (``scheduler``), and the
+device service and write path (imported by name: ``device_service``,
+``device_write``)."""
 
 from disq_tpu_torch.runtime.columnar import (  # noqa: F401
     ColumnarBatch,
@@ -27,6 +28,7 @@ from disq_tpu_torch.runtime.debug import (  # noqa: F401
 )
 from disq_tpu_torch.runtime.errors import (  # noqa: F401
     BreakerOpenError,
+    CoordinatorLostError,
     CorruptBlockError,
     DeadlineExceededError,
     DisqOptions,
@@ -71,6 +73,13 @@ from disq_tpu_torch.runtime.cluster import (  # noqa: F401
 from disq_tpu_torch.runtime.multihost import (  # noqa: F401
     process_count,
     process_id,
+)
+from disq_tpu_torch.runtime.scheduler import (  # noqa: F401
+    SchedulerClient,
+    ShardCoordinator,
+    client_for_storage,
+    scheduled_map_ordered,
+    serve_coordinator,
 )
 from disq_tpu_torch.runtime.introspect import (  # noqa: F401
     HEALTH,

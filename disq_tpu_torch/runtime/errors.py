@@ -21,7 +21,8 @@ Counterpart of ``disq_tpu/runtime/errors.py``:
 ``http_cache_blocks``, and the knobs of the resilience
 (``runtime/resilience.py``), introspection (``runtime/introspect.py``),
 SLO (``runtime/slo.py``), flight-recorder (``runtime/flightrec.py``) and
-profiler (``runtime/profiler.py``) planes, each off by default.
+profiler (``runtime/profiler.py``) planes and of the shard scheduler
+(``runtime/scheduler.py``), each off by default.
 ``ShardRetrier`` is the resilience layer's choke point: the shared
 retry budget, a filesystem's circuit breaker and a shard's deadline all
 act through it.
@@ -130,6 +131,21 @@ class DisqOptions:
     ``DISQ_TPU_TORCH_POSTMORTEM_DIR``), ``profile_hz`` starts the
     sampling profiler (env ``DISQ_TPU_TORCH_PROFILE_HZ``), and ``slo``
     arms the per-tenant burn-rate evaluator (env ``DISQ_TPU_TORCH_SLO``).
+
+    The shard scheduler (``runtime/scheduler.py``): ``scheduler`` None
+    (the default) keeps the static split loops, with no coordinator,
+    thread or socket; ``"serve"`` hosts the coordinator on this process's
+    introspection endpoint and works; ``"host:port"`` joins that
+    coordinator; ``"auto"`` finds it through ``sched_failover_dir``.
+    ``sched_lease_n`` splits per lease, ``sched_lease_s`` seconds before
+    an unfinished lease goes back to the queue, ``sched_steal`` lets an
+    idle worker take a stale lease, ``sched_run_weight`` is the run's
+    share under the coordinator's weighted max-min quota, and
+    ``sched_failover_dir`` arms coordinator failover (a journal, the
+    address file and the member registry in that directory). Env
+    ``DISQ_TPU_TORCH_SCHED`` and ``DISQ_TPU_TORCH_SCHED_{LEASE_N,LEASE_S,
+    STEAL,WEIGHT,FAILOVER}``; the env wins for the tuning knobs, so a
+    subprocess worker takes its launcher's settings.
     """
 
     error_policy: ErrorPolicy = ErrorPolicy.STRICT
@@ -159,6 +175,12 @@ class DisqOptions:
     postmortem_dir: Optional[str] = None
     profile_hz: Optional[float] = None
     slo: Optional[str] = None
+    scheduler: Optional[str] = None
+    sched_lease_n: int = 2
+    sched_lease_s: float = 10.0
+    sched_steal: bool = True
+    sched_run_weight: float = 1.0
+    sched_failover_dir: Optional[str] = None
 
     def with_policy(self, policy: "ErrorPolicy | str") -> "DisqOptions":
         return replace(self, error_policy=ErrorPolicy.coerce(policy))
@@ -243,6 +265,28 @@ class DisqOptions:
         parse_slo_spec(spec)  # raises ValueError on a malformed spec
         return replace(self, slo=str(spec))
 
+    def with_scheduler(self, mode: str, lease_n: int = 2,
+                       lease_s: float = 10.0, steal: bool = True,
+                       run_weight: float = 1.0,
+                       failover_dir: Optional[str] = None) -> "DisqOptions":
+        """Join the shard scheduler, validated here so a bad knob fails
+        when the options are built."""
+        if not mode:
+            raise ValueError(
+                "scheduler mode must be 'serve', 'auto' or 'host:port'")
+        if lease_n < 1:
+            raise ValueError(f"sched_lease_n must be >= 1, got {lease_n}")
+        if lease_s <= 0:
+            raise ValueError(f"sched_lease_s must be > 0, got {lease_s}")
+        if run_weight <= 0:
+            raise ValueError(
+                f"sched_run_weight must be > 0, got {run_weight}")
+        return replace(self, scheduler=str(mode), sched_lease_n=int(lease_n),
+                       sched_lease_s=float(lease_s), sched_steal=bool(steal),
+                       sched_run_weight=float(run_weight),
+                       sched_failover_dir=(str(failover_dir)
+                                           if failover_dir else None))
+
     def with_device_deflate(self, enable: bool = True) -> "DisqOptions":
         return replace(self, device_deflate=bool(enable))
 
@@ -304,6 +348,20 @@ class FlaggedBlocksError(ValueError):
 
 class TransientIOError(IOError):
     """An error known to be transient (the fault injector raises it)."""
+
+
+class CoordinatorLostError(TransientIOError):
+    """The shard scheduler's coordinator became unreachable mid-run
+    (``runtime/scheduler.py``). Transient: with failover armed the
+    worker finds the new coordinator and retries; without it, or once
+    the rediscovery retries run out, it is the read's failure."""
+
+    def __init__(self, message: str, *, address: str = "",
+                 op: str = "") -> None:
+        super().__init__(
+            f"{message} [address={address or '?'} op={op or '?'}]")
+        self.address = address
+        self.op = op
 
 
 class MissingReferenceError(ValueError):

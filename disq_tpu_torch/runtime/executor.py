@@ -1,7 +1,6 @@
 """Pipelined shard executor: bounded stage overlap in both directions.
 
-Counterpart of ``disq_tpu/runtime/executor.py`` (without its scheduler
-leases). One core,
+Counterpart of ``disq_tpu/runtime/executor.py``. One core,
 ``_BoundedStagePipeline``, runs N stages, each on its own thread pool,
 and emits results in task order:
 
@@ -30,6 +29,10 @@ Guarantees:
   ``map_ordered_resumable`` with a ``ReadLedger`` serves finished splits
   from their spills and spills each fresh one as it emits
   (``runtime/manifest.py``).
+- **Leases.** With the shard scheduler armed (``runtime/scheduler.py``)
+  the sources' split loops and a manifest's write stage lease their
+  shards from the shared queue instead; each task's ``byte_range`` is
+  its locality coordinate there.
 
 Kernel launches from decode threads go to the calling thread's current
 CUDA stream; the executor adds no streams of its own.
@@ -57,7 +60,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 from disq_tpu_torch.runtime import flightrec
 from disq_tpu_torch.runtime.errors import (
@@ -84,7 +88,10 @@ class ShardTask:
     ``retrier`` is the shard's ``ShardRetrier`` (None ⇒ no retry).
     ``deadline_fallback`` (skip and quarantine with a shard deadline)
     gives the shard's stand-in once its deadline passes; without one a
-    ``DeadlineExceededError`` aborts the run."""
+    ``DeadlineExceededError`` aborts the run. ``byte_range`` is the
+    split's compressed byte window ``(lo, hi)`` in the input, which the
+    shard scheduler's locality score matches against a worker's HTTP
+    block cache (None: never routed by locality)."""
 
     shard_id: int
     fetch: Callable[[], Any]
@@ -92,6 +99,7 @@ class ShardTask:
     retrier: Optional[ShardRetrier] = None
     what: str = "shard"
     deadline_fallback: Optional[Callable[[], Any]] = None
+    byte_range: Optional[Tuple[int, int]] = None
 
 
 @dataclass
@@ -557,7 +565,9 @@ class WriteShardTask:
     """One write shard: ``encode`` slices the batch and encodes records,
     ``deflate`` compresses (None ⇒ pass-through), ``stage`` writes the
     part (None ⇒ the caller consumes the payload at emit). ``retrier``
-    guards only ``stage``: the other steps are CPU work."""
+    guards only ``stage``: the other steps are CPU work. ``byte_range``
+    is the part's uncompressed byte range in the merged output, the
+    write leases' locality coordinate (None: leased in queue order)."""
 
     shard_id: int
     encode: Callable[[], Any]
@@ -565,6 +575,7 @@ class WriteShardTask:
     stage: Optional[Callable[[Any], Any]] = None
     retrier: Optional[ShardRetrier] = None
     what: str = "write"
+    byte_range: Optional[Tuple[int, int]] = None
 
 
 @dataclass
@@ -754,7 +765,8 @@ def _checkpointed(task: WriteShardTask, manifest, stage_name: str
 
 def run_write_stage(pipeline: ShardWritePipeline, n_shards: int,
                     make_task: Callable[[int], WriteShardTask],
-                    manifest=None, stage_name: str = "write.parts"
+                    manifest=None, stage_name: str = "write.parts",
+                    storage=None, path: Optional[str] = None, fs=None
                     ) -> List[Any]:
     """Run one write stage's shards through ``pipeline``; returns each
     shard's stage result in shard order. With a ``StageManifest``,
@@ -763,7 +775,20 @@ def run_write_stage(pipeline: ShardWritePipeline, n_shards: int,
     that still fails raises ``RuntimeError`` naming it), and each fresh
     shard is recorded when its stage step lands, on the stage worker, in
     completion order: a crash while a straggler holds up the ordered
-    emit keeps every shard already staged."""
+    emit keeps every shard already staged.
+
+    With ``storage`` and ``path`` and a manifest, and the shard scheduler
+    armed on the storage, the shards are leased from the coordinator
+    instead (``scheduler.scheduled_write_stage``, the manifest as the
+    durable side; ``fs``, the output's filesystem, gives the locality
+    hint). Otherwise nothing more is built."""
+    if manifest is not None and storage is not None and path is not None:
+        from disq_tpu_torch.runtime import scheduler
+
+        if scheduler.write_leasing_armed(storage):
+            return scheduler.scheduled_write_stage(
+                storage, path, pipeline, n_shards, make_task, manifest,
+                stage_name=stage_name, fs=fs)
     infos: List[Any] = [None] * n_shards
     pending: List[int] = []
     for k in range(n_shards):

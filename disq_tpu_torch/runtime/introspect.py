@@ -25,9 +25,11 @@ Counterpart of ``disq_tpu/runtime/introspect.py``:
   ``/debug/profile`` and ``/debug/bundle``. Every payload carries
   ``multihost.process_id()`` (the ``disq_tpu_process_info`` series, a
   ``process_id`` key) so ``runtime/cluster.py`` can merge N workers.
-  The scheduler, serving and fleet planes (``/sched/*``, ``/serve/*``,
+  ``/sched/*`` goes to the shard scheduler (``runtime/scheduler.py``),
+  resolved only when such a request arrives (409 without a coordinator
+  in the process). The serving and fleet planes (``/serve/*``,
   ``/query/*``, ``/fleet/*``) are not ported yet; they answer as the
-  reference's answer when none is running.
+  reference's do when none is running.
 
 Disabled (the default), ``configure_from_options`` returns None, the
 pipelines carry ``health=None`` (every per-shard hook is one ``is None``
@@ -42,6 +44,7 @@ import os
 import sys
 import threading
 import time
+import urllib.parse
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -567,13 +570,15 @@ class _NamedThreadingHTTPServer(ThreadingHTTPServer):
         super().process_request_thread(request, client_address)
 
 
-def _unported_plane(path: str) -> Tuple[int, Dict[str, Any]]:
-    """``(status, doc)`` of a scheduler, serving or fleet request: the
-    reference's answer when the plane is not running in the process (409
-    for ``/sched/*``, 503 for the others)."""
+def _plane(method: str, path: str, doc: Dict[str, Any]
+           ) -> Tuple[int, Dict[str, Any]]:
+    """``(status, doc)`` of a scheduler, serving or fleet request. The
+    scheduler is imported only here; the serving and fleet planes give
+    the reference's answer when they are not running (503)."""
     if path.startswith("/sched/"):
-        return 409, {"error": "no scheduler coordinator in this process "
-                              "(DisqOptions.scheduler='serve' arms one)"}
+        from disq_tpu_torch.runtime import scheduler
+
+        return scheduler.handle_http(method, path, doc)
     if path.startswith("/fleet/"):
         return 503, {"error": "fleet tier not started"}
     return 503, {"error": "serving plane not started"}
@@ -651,7 +656,13 @@ class _Handler(BaseHTTPRequestHandler):
                 "spans": ring[-n:],
             })
         elif path.startswith(("/sched/", "/serve/", "/fleet/")):
-            code, body = _unported_plane(path)
+            # every query parameter (run=, ...) passes through
+            doc: Dict[str, Any] = {}
+            for part in query.split("&"):
+                name, eq, value = part.partition("=")
+                if eq and name:
+                    doc[name] = urllib.parse.unquote(value)
+            code, body = _plane("GET", path, doc)
             self._send_json(body, code)
         elif path == "/debug/stacks":
             self._send(200, flightrec.thread_stacks_text().encode(),
@@ -689,9 +700,9 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self) -> None:  # noqa: N802 — http.server API
         """The mutating endpoints of the scheduler (``/sched/*``),
         serving (``/query/*``, ``/serve/*``) and fleet (``/fleet/*``)
-        planes; everything else is GET-only. None of the three is
-        ported yet, so a well-formed request gets the reference's answer
-        for a process that runs none of them."""
+        planes; everything else is GET-only. The request's trace context
+        (``X-Disq-Trace-*``) is active while it is handled, so its spans
+        carry the caller's trace id."""
         path, _, _query = self.path.partition("?")
         if not path.startswith(("/sched/", "/query/", "/serve/",
                                 "/fleet/")):
@@ -707,7 +718,8 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, OSError) as e:
             self._send_json({"error": f"bad request body: {e}"}, 400)
             return
-        code, body = _unported_plane(path)
+        with tracing.trace_scope(tracing.trace_from_headers(self.headers)):
+            code, body = _plane("POST", path, doc)
         self._send_json(body, code)
 
     def _serve_profile(self, query: str) -> None:

@@ -30,6 +30,10 @@ Counterparts of ``disq_tpu/runtime/manifest.py``, with its file layouts:
     bytes; ``pathtag`` is a digest of the input path, so several inputs
     can share one directory.
 
+- ``SchedJournal``: the shard scheduler's replication log
+  (``runtime/scheduler.py``), JSONL as the quarantine's, one line per
+  state transition of the coordinator.
+
 ``RUN_ID`` (``runtime/tracing.py``'s, so the span log and the ledgers
 name a run alike) names this process's run: quarantine lines
 and every shard a manifest marks done carry it, so a resumed manifest
@@ -48,7 +52,7 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from disq_tpu_torch.runtime import flightrec
-from disq_tpu_torch.runtime.tracing import RUN_ID, span
+from disq_tpu_torch.runtime.tracing import RUN_ID, counter, span
 
 FORMAT_VERSION = 1
 QUARANTINE_FORMAT_VERSION = 1
@@ -100,34 +104,106 @@ class StageManifest:
     """Shard-level checkpoint ledger of a multi-stage run, keyed by
     ``(stage, shard_id)``. A stored ``params`` fingerprint that differs
     from ``params`` (or a damaged file) starts afresh; the old file is
-    replaced at the next flush."""
+    replaced at the next flush.
 
-    def __init__(self, path: str, params: Optional[Dict[str, Any]] = None):
+    ``flush_interval_s`` 0 (the default) rewrites the file on every
+    ``mark_done``; a positive interval (the write leases, which complete
+    shards at RPC rate) rewrites at most once per interval, so a crash
+    loses at most that interval's records, whose parts run again.
+    ``mark_shared`` arms the mode several processes mark into one file
+    in: each flush first merges the records another process flushed,
+    under an exclusive lock on ``<path>.lock``."""
+
+    def __init__(self, path: str, params: Optional[Dict[str, Any]] = None,
+                 flush_interval_s: float = 0.0):
         self.path = path
+        self.flush_interval_s = float(flush_interval_s)
         # a postmortem bundle keeps this ledger's tail
         flightrec.note_artifact("stage_manifest", path)
         # the write pipeline marks shards from its stage workers
         self._lock = threading.RLock()
+        self._dirty = False
+        self._last_flush = 0.0
+        self._shared = False
         self._state: Dict[str, Any] = {
             "version": FORMAT_VERSION,
             "params": params or {},
             "stages": {},
             "run_id": RUN_ID,
         }
-        if os.path.exists(path):
-            try:
-                with open(path, "r") as f:
-                    stored = json.load(f)
-            except (json.JSONDecodeError, OSError, UnicodeDecodeError):
-                stored = {}
-            if (isinstance(stored, dict)
-                    and stored.get("version") == FORMAT_VERSION
-                    and (params is None or stored.get("params") == params)):
-                self._state = stored
+        stored = self._load()
+        if stored is not None and (params is None
+                                   or stored.get("params") == params):
+            self._state = stored
+
+    def _load(self) -> Optional[Dict[str, Any]]:
+        """The document on disk, or None when it is missing, damaged or
+        of another version."""
+        try:
+            with open(self.path, "r") as f:
+                stored = json.load(f)
+        except (json.JSONDecodeError, OSError, UnicodeDecodeError):
+            return None
+        if (isinstance(stored, dict)
+                and stored.get("version") == FORMAT_VERSION):
+            return stored
+        return None
+
+    def _merge_stored_locked(self) -> None:
+        """Fold in the shard records another process flushed (caller
+        holds the lock); a document of other params is ignored."""
+        stored = self._load()
+        if stored is None or stored.get("params") != self._state["params"]:
+            return
+        for stage, st in (stored.get("stages") or {}).items():
+            mine = self._stage(stage)
+            for sid, info in (st.get("shards") or {}).items():
+                mine["shards"].setdefault(sid, info)
+            for sid, rid in (st.get("runs") or {}).items():
+                mine.setdefault("runs", {}).setdefault(sid, rid)
 
     def _flush(self) -> None:
-        _atomic_write(self.path, lambda f: json.dump(self._state, f),
-                      prefix=".manifest-")
+        def rewrite() -> None:
+            _atomic_write(self.path, lambda f: json.dump(self._state, f),
+                          prefix=".manifest-")
+
+        if self._shared:
+            # merge and rewrite as one unit across processes, or two
+            # hosts' interleaved merges lose the slower one's shards
+            import fcntl
+
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+            with open(self.path + ".lock", "w") as lockf:
+                fcntl.flock(lockf, fcntl.LOCK_EX)
+                try:
+                    self._merge_stored_locked()
+                    rewrite()
+                finally:
+                    fcntl.flock(lockf, fcntl.LOCK_UN)
+        else:
+            rewrite()
+        self._dirty = False
+        self._last_flush = time.monotonic()
+
+    def flush(self) -> None:
+        """Write the records a flush interval held back, now."""
+        with self._lock:
+            if self._dirty:
+                self._flush()
+
+    def mark_shared(self, flush_interval_s: Optional[float] = None) -> None:
+        """Arm the shared mode (see the class docstring); with
+        ``flush_interval_s``, also batch the flushes behind it."""
+        with self._lock:
+            self._shared = True
+            if flush_interval_s is not None:
+                self.flush_interval_s = float(flush_interval_s)
+
+    def reload(self) -> None:
+        """Take in the shard records other processes flushed since this
+        object last read the file."""
+        with self._lock:
+            self._merge_stored_locked()
 
     def _stage(self, stage: str) -> Dict[str, Any]:
         return self._state["stages"].setdefault(stage, {"shards": {}})
@@ -142,12 +218,17 @@ class StageManifest:
 
     def mark_done(self, stage: str, shard_id: int, info: Any = None) -> None:
         """Record ``shard_id`` of ``stage`` as done with its JSON
-        ``info``, and the run that did it; flushed before returning."""
+        ``info``, and the run that did it; flushed before returning
+        unless a flush interval holds it back."""
         with self._lock:
             st = self._stage(stage)
             st["shards"][str(shard_id)] = info
             st.setdefault("runs", {})[str(shard_id)] = RUN_ID
-            self._flush()
+            self._dirty = True
+            if (self.flush_interval_s <= 0.0
+                    or time.monotonic() - self._last_flush
+                    >= self.flush_interval_s):
+                self._flush()
 
     def shard_run_id(self, stage: str, shard_id: int) -> Optional[str]:
         """The ``RUN_ID`` of the run that marked this shard done."""
@@ -176,8 +257,9 @@ class StageManifest:
     def finish(self) -> None:
         """The commit point: remove the manifest (the caller removes the
         staged parts)."""
-        if os.path.exists(self.path):
-            os.unlink(self.path)
+        for p in (self.path, self.path + ".lock"):
+            if os.path.exists(p):
+                os.unlink(p)
 
 
 class ReadLedger:
@@ -202,9 +284,14 @@ class ReadLedger:
 
     def is_done(self, shard_id: int) -> bool:
         """Recorded and its spill present (a recorded split whose spill
-        is gone runs again)."""
-        return (self.manifest.is_done(self.STAGE, shard_id)
-                and os.path.exists(self._spill_path(shard_id)))
+        is gone runs again). A spill this object has no record of sends
+        it to the file once: another process sharing the directory may
+        have recorded the split since the ledger was opened."""
+        if not os.path.exists(self._spill_path(shard_id)):
+            return False
+        if not self.manifest.is_done(self.STAGE, shard_id):
+            self.manifest.reload()
+        return self.manifest.is_done(self.STAGE, shard_id)
 
     def record(self, shard_id: int, value: Any) -> None:
         import pickle
@@ -321,3 +408,130 @@ class QuarantineManifest:
             self._entries[(path, block_offset)] = entry
             self._append(entry)
         return sidecar
+
+
+JOURNAL_FORMAT_VERSION = 1
+
+
+class SchedJournal:
+    """The shard scheduler's replication log (``runtime/scheduler.py``):
+    append-only JSONL, line 1 ``{"version": 1}``, then one record per
+    state transition, ``{"op", ...fields, "t"}`` with ``op`` one of
+    ``run``, ``join``, ``lease``, ``done``, ``steal``, ``expire``,
+    ``member_lost`` and ``takeover``, ``t`` the coordinator's monotonic
+    clock. A crash tears at most the last line, which ``load`` skips, so
+    a standby replays a state the dead coordinator passed through.
+
+    Each record reaches the OS file as ``append`` returns (a SIGKILLed
+    process loses none); the fsync is batched, every ``fsync_every``
+    records or ``fsync_interval_s``, so power loss drops at most that
+    unsynced tail."""
+
+    def __init__(self, path: str, fsync_every: int = 8,
+                 fsync_interval_s: float = 0.05) -> None:
+        self.path = path
+        self.fsync_every = max(1, int(fsync_every))
+        self.fsync_interval_s = float(fsync_interval_s)
+        self._lock = threading.Lock()
+        self._f = None
+        self._header_ok = False
+        self._since_fsync = 0
+        self._last_fsync = 0.0
+        flightrec.note_artifact("sched_journal", path)
+
+    @staticmethod
+    def load(path: str) -> List[Dict[str, Any]]:
+        """Every surviving record (the header excluded), a torn tail
+        skipped; a missing, headerless or foreign journal loads empty."""
+        try:
+            with open(path, "r") as f:
+                lines = f.read().splitlines()
+        except (OSError, UnicodeDecodeError):
+            return []
+        records: List[Dict[str, Any]] = []
+        for i, line in enumerate(lines):
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                if i == 0:
+                    break  # headerless or torn journal: not trusted
+                continue  # a torn line from a crash
+            if i == 0:
+                if (not isinstance(rec, dict)
+                        or rec.get("version") != JOURNAL_FORMAT_VERSION):
+                    break  # a foreign journal is not replayed
+                continue
+            if isinstance(rec, dict):
+                records.append(rec)
+        return records
+
+    def _open_locked(self):
+        if self._f is not None:
+            return self._f
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        if os.path.exists(self.path) and os.path.getsize(self.path) > 0:
+            # a takeover continues the dead coordinator's file, so a
+            # second failover still sees the whole history; a headerless
+            # or foreign file is set aside
+            try:
+                with open(self.path, "r") as f:
+                    head = json.loads(f.readline())
+                ok = (isinstance(head, dict)
+                      and head.get("version") == JOURNAL_FORMAT_VERSION)
+            except (OSError, UnicodeDecodeError, json.JSONDecodeError):
+                ok = False
+            if not ok:
+                os.replace(self.path, self.path + ".bak")
+            else:
+                with open(self.path, "rb") as f:
+                    f.seek(-1, os.SEEK_END)
+                    torn = f.read(1) != b"\n"
+                if torn:
+                    # end the torn line, so the first record appended
+                    # here (the standby's takeover) stays a line of its own
+                    with open(self.path, "a") as f:
+                        f.write("\n")
+            self._header_ok = ok
+        self._f = open(self.path, "a")
+        if not self._header_ok:
+            self._f.write(json.dumps({"version": JOURNAL_FORMAT_VERSION})
+                          + "\n")
+            self._f.flush()
+            self._header_ok = True
+        return self._f
+
+    def append(self, op: str, **fields: Any) -> None:
+        rec = {"op": op}
+        rec.update(fields)
+        line = json.dumps(rec, separators=(",", ":")) + "\n"
+        with self._lock:
+            f = self._open_locked()
+            f.write(line)
+            f.flush()  # a tailing standby sees it now
+            self._since_fsync += 1
+            now = time.monotonic()
+            if (self._since_fsync >= self.fsync_every
+                    or now - self._last_fsync >= self.fsync_interval_s):
+                self._fsync_locked(now)
+        counter("sched.journal.records").inc(op=op)
+
+    def _fsync_locked(self, now: float) -> None:
+        os.fsync(self._f.fileno())
+        self._since_fsync = 0
+        self._last_fsync = now
+        counter("sched.journal.fsyncs").inc()
+
+    def sync(self) -> None:
+        """Fsync the unsynced tail now."""
+        with self._lock:
+            if self._f is not None and self._since_fsync:
+                self._fsync_locked(time.monotonic())
+
+    def close(self) -> None:
+        with self._lock:
+            if self._f is None:
+                return
+            if self._since_fsync:
+                self._fsync_locked(time.monotonic())
+            self._f.close()
+            self._f = None

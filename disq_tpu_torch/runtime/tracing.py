@@ -516,6 +516,17 @@ def inject_trace_headers(headers: Dict[str, str]) -> Dict[str, str]:
     return headers
 
 
+def trace_from_headers(headers: Any) -> Optional[TraceContext]:
+    """The inbound context of an HTTP request's headers (any mapping
+    with ``.get``), or None when it carries no trace id."""
+    trace_id = headers.get(TRACE_ID_HEADER)
+    if not trace_id:
+        return None
+    return TraceContext(str(trace_id),
+                        str(headers.get(TRACE_PARENT_HEADER) or ""),
+                        str(headers.get(TRACE_TENANT_HEADER) or "anon"))
+
+
 @contextlib.contextmanager
 def trace_scope(ctx: Optional[TraceContext]) -> Iterator[None]:
     """Scope ``ctx`` (None = no-op) over a block — used by the device

@@ -52,7 +52,8 @@ def _run_sam_shards(storage, fs, dataset, bounds, n_shards, prefix_bytes,
             what="sam.part",
         )
 
-    return run_write_stage(writer_for_storage(storage), n_shards, make_task)
+    return run_write_stage(writer_for_storage(storage), n_shards, make_task,
+                           storage=storage, path=part_path_for(0))
 
 
 class SamSink:

@@ -710,7 +710,9 @@ class BcfSource:
         shard_counters = []
         # the whole file decodes as one BGZF stream, so a split cannot be
         # replaced by an empty stand-in: a shard deadline keeps the strict
-        # abort; hedging, the budget, the breaker and the ledger apply
+        # abort; hedging, the budget, the breaker and the ledger apply.
+        # No shard scheduler either: every process needs the whole
+        # stream to parse it, so leased splits make no partition
         ledger = read_ledger_for_storage(self._storage, path, len(tasks),
                                          device is not None)
         for res in map_ordered_resumable(

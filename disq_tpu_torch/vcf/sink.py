@@ -166,7 +166,7 @@ class VcfSink:
             )
 
         infos = run_write_stage(writer_for_storage(self._storage), n_shards,
-                                make_task)
+                                make_task, storage=self._storage, path=path)
         part_paths = [i["part"] for i in infos]
         part_lens = [i["len"] for i in infos]
         tbi_frags: List[TbiIndex] = [
@@ -244,7 +244,7 @@ class VcfSinkMultiple:
             )
 
         run_write_stage(writer_for_storage(self._storage), n_shards,
-                        make_task)
+                        make_task, storage=self._storage, path=path)
 
 
 def _lines_blob(part: VariantBatch) -> bytes:

@@ -119,7 +119,7 @@ class VcfSource:
                 functools.partial(lines_for_split, fs, path, s.start, s.end),
                 header, start=s.start, end=s.end,
             ))
-        return self._emit_batches(tasks, shard_ctxs, header, path)
+        return self._emit_batches(tasks, shard_ctxs, header, path, fs)
 
     def _make_task(self, shard_id, shard_ctx, fetch, header,
                    start=None, end=None):
@@ -145,23 +145,30 @@ class VcfSource:
             deadline_fallback=deadline_fallback_for(
                 opts, shard_ctx,
                 lambda: parse_vcf_lines([], header.contig_names)),
+            # the split's byte window: the scheduler's locality
+            byte_range=((start, end)
+                        if start is not None and end is not None else None),
         )
 
-    def _emit_batches(self, tasks, shard_ctxs, header, path) -> VariantBatch:
+    def _emit_batches(self, tasks, shard_ctxs, header, path,
+                      fs) -> VariantBatch:
         """Run the split tasks through the storage's executor (resumable
-        under its read ledger) and concatenate in split order."""
+        under its read ledger) and concatenate in split order; under the
+        shard scheduler, the splits this process wins from the shared
+        queue."""
         from disq_tpu_torch.runtime.executor import (
             executor_for_storage,
-            map_ordered_resumable,
             read_ledger_for_storage,
         )
+        from disq_tpu_torch.runtime.scheduler import scheduled_map_ordered
 
         ledger = read_ledger_for_storage(
             self._storage, path, len(tasks),
             device_route(self._storage) is not None)
         batches = []
-        for res in map_ordered_resumable(
-                executor_for_storage(self._storage), tasks, ledger):
+        for res in scheduled_map_ordered(
+                self._storage, fs, path, executor_for_storage(self._storage),
+                tasks, ledger):
             batches.append(res.value)
             self._track(shard_ctxs[res.shard_id], res.shard_id, res.value)
         return (VariantBatch.concat(batches) if batches
@@ -214,7 +221,7 @@ class VcfSource:
                                   ctx=shard_ctx),
                 header, start=s.start, end=s.end,
             ))
-        return self._emit_batches(tasks, shard_ctxs, header, path)
+        return self._emit_batches(tasks, shard_ctxs, header, path, fs)
 
     def _inflate_with_gaps(self, data, blocks, gaps, base: int, ctx):
         """``_inflate_with_policy`` when the block walk itself needed

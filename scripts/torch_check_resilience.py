@@ -17,6 +17,17 @@ disabled-path section of ``scripts/check_overhead.py``, over
    start no ``disq-hedge``, ``disq-watchdog``, ``disq-introspect``,
    ``disq-profiler`` or ``disq-slo`` thread; and a read with every fetch
    hedged decodes, and writes back, the same bytes as the default read.
+4. **The scheduler off is free.** With no scheduler knob
+   ``client_for_storage`` returns None, ``scheduled_map_ordered`` returns
+   the very iterator ``map_ordered_resumable`` returns, write leasing is
+   not armed, and no coordinator, journal or ``disq-introspect`` thread
+   exists; a scheduled read with failover off writes no journal.
+5. **Journal replay is exact and pure.** A journaled ``ShardCoordinator``
+   driven through joins, leases, completions, expiry, a steal, a lost
+   race, a second run and a restarted pass replays (``replay_journal``)
+   to its live ``state_fingerprint()``, with a torn tail line too; the
+   replay reads no clock, leaves its records as they were and gives the
+   same state twice.
 
 Run it in a fresh interpreter (the planes are process-global):
 ``python scripts/torch_check_resilience.py`` prints ``OK`` and exits 0.
@@ -197,18 +208,143 @@ def check_disabled_path(errors):
     reset_resilience()
 
 
+def check_scheduler_off(errors):
+    from bam_oracle import DEFAULT_REFS, make_bam_bytes, synth_records
+
+    from disq_tpu_torch import ReadsStorage
+    from disq_tpu_torch.runtime import introspect, scheduler
+    from disq_tpu_torch.runtime.executor import (
+        ShardPipelineExecutor,
+        ShardTask,
+    )
+
+    storage = ReadsStorage.make_default(device="cpu")
+    if scheduler.client_for_storage(storage) is not None:
+        errors.append("client_for_storage built a client with no knob set")
+    if scheduler.write_leasing_armed(storage):
+        errors.append("write leasing armed with no knob set")
+    gen = scheduler.scheduled_map_ordered(
+        storage, None, "x", ShardPipelineExecutor(workers=1),
+        [ShardTask(shard_id=0, fetch=lambda: 1, decode=lambda p: p)])
+    if getattr(gen, "gi_code", None) is not \
+            ShardPipelineExecutor._run_sequential.__code__:
+        errors.append("scheduled_map_ordered (scheduler off) did not "
+                      "return map_ordered_resumable's iterator")
+    list(gen)
+    if scheduler.active_coordinator() is not None \
+            or scheduler.active_journal() is not None:
+        errors.append("a coordinator or journal exists with no knob set")
+    if _plane_threads():
+        errors.append(f"plane threads with the scheduler off: "
+                      f"{_plane_threads()}")
+    with tempfile.TemporaryDirectory(prefix="torch-sched-") as tmp:
+        path = os.path.join(tmp, "t.bam")
+        with open(path, "wb") as f:
+            f.write(make_bam_bytes(DEFAULT_REFS, synth_records(200, seed=3),
+                                   blocksize=600))
+        ds = storage.split_size(4096).scheduler("serve").read(path)
+        if ds.count() != 200:
+            errors.append(f"a scheduled read gave {ds.count()} records")
+        if scheduler.active_journal() is not None or any(
+                "journal" in name for _d, _s, names in os.walk(tmp)
+                for name in names):
+            errors.append("a scheduled read with failover off journaled")
+    scheduler.stop_coordinator()
+    introspect.reset_introspection()
+
+
+def _sched_schedule(coord, now):
+    table = {str(i): ([i * 100, i * 100 + 100] if i % 2 else None)
+             for i in range(8)}
+    coord.join("A", {"key": "r1", "path": "p1", "shards": table})
+    coord.join("B", {"key": "r1", "path": "p1", "shards": table})
+    coord.join("B", {"key": "r2", "path": "p2", "weight": 3.0,
+                     "shards": {str(i): None for i in range(4)}})
+    coord.lease("A", "r1", want=3)
+    now[0] = 1.0
+    coord.lease("B", "r1", want=2)
+    coord.lease("B", "r2", want=2)
+    coord.done("A", "r1", 0)
+    coord.done("B", "r1", 0)  # a lost race: no record
+    now[0] = 12.0
+    coord.lease("B", "r1", want=1)  # the sweep requeues expired leases
+    coord.steal("A", "r1")
+    for s in range(4):
+        coord.done("B", "r2", s, epoch=1)
+    coord.join("B", {"key": "r2", "path": "p2", "weight": 3.0,
+                     "shards": {str(i): None for i in range(4)}})
+
+
+def check_journal_replay(errors):
+    import copy
+    import json
+
+    from disq_tpu_torch.runtime.manifest import SchedJournal
+    from disq_tpu_torch.runtime.scheduler import (
+        ShardCoordinator,
+        replay_journal,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="torch-journal-") as tmp:
+        jpath = os.path.join(tmp, "journal.jsonl")
+        journal = SchedJournal(jpath)
+        now = [0.0]
+        coord = ShardCoordinator(lease_s=10.0, clock=lambda: now[0],
+                                 journal=journal)
+        _sched_schedule(coord, now)
+        journal.close()
+        records = SchedJournal.load(jpath)
+        if not records:
+            errors.append("the journaled coordinator wrote no records")
+            return
+        live = coord.state_fingerprint()
+        before = copy.deepcopy(records)
+        clocks = (time.monotonic, time.time, time.perf_counter)
+
+        def no_clock():
+            raise AssertionError("replay_journal read a clock")
+
+        time.monotonic = time.time = time.perf_counter = no_clock
+        try:
+            first = replay_journal(records, lease_s=10.0).state_fingerprint()
+            second = replay_journal(records, lease_s=10.0).state_fingerprint()
+        except AssertionError as e:
+            errors.append(str(e))
+            return
+        finally:
+            time.monotonic, time.time, time.perf_counter = clocks
+        if first != live:
+            errors.append(
+                "journal replay diverged from the live coordinator:\n"
+                f"    live:     {json.dumps(live, sort_keys=True)}\n"
+                f"    replayed: {json.dumps(first, sort_keys=True)}")
+        if second != first or records != before:
+            errors.append("replay_journal is not pure: a second replay "
+                          "differs or the records changed")
+        with open(jpath, "a") as f:  # a crash tears the last line
+            f.write('{"op": "done", "key": "r1", "hos')
+        torn = SchedJournal.load(jpath)
+        if len(torn) != len(records) or \
+                replay_journal(torn, lease_s=10.0).state_fingerprint() != live:
+            errors.append("a torn journal tail did not replay the "
+                          "surviving prefix")
+
+
 def main() -> int:
     errors = []
     check_breaker_totality(errors)
     check_hedge_accounting(errors)
     check_disabled_path(errors)
+    check_scheduler_off(errors)
+    check_journal_replay(errors)
     if errors:
         print(f"torch_check_resilience: {len(errors)} problem(s)")
         for e in errors:
             print(f"  - {e}")
         return 1
     print("torch_check_resilience: OK (breaker machine total, hedge books "
-          "balanced, disabled path builds nothing)")
+          "balanced, disabled path builds nothing, scheduler off builds "
+          "nothing, journal replay exact and pure)")
     return 0
 
 

@@ -114,7 +114,6 @@ def test_cp3_absent_quality_is_a_star(fixture_bam):
 DEFERRED = {
     "FleetHandle": "A13d", "ServeHandle": "A13d", "serve": "A13d",
     "serve_fleet": "A13d",
-    "CoordinatorLostError": "A13c",
 }
 PACKAGES = ("", "bgzf", "bam", "index", "fsw", "runtime", "sort", "ops",
             "traversal", "cram", "vcf", "sam")
