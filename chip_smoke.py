@@ -18,7 +18,7 @@ through their public entry points on ``cuda``:
     storage.executor_workers(4).read(path)                         # executor
     storage.error_policy("skip" | "quarantine").read(flipped)      # policies
     storage.num_shards(8).writer_workers(4).write(ds, out, ..., sort=True)
-    storage.write(ds.coordinate_sorted(), out_cram, CraiWriteOption.ENABLE)
+    storage.write(sorted_head, out_cram, CraiWriteOption.ENABLE)  # CRAM_CUT
     cr = storage.read(out_cram); cr.count(); cr.flagstat()         # CRAM
     storage.executor_workers(4).read(head_cram)                    # executor
     storage.error_policy("skip" | "quarantine").read(flipped_head) # policies
@@ -81,8 +81,15 @@ through their public entry points on ``cuda``:
         ds, out, BaiWriteOption.ENABLE, SbiWriteOption.ENABLE,
         StageManifestWriteOption(m), sort=True)
     storage.scheduler("serve").read(head_cram); vst.scheduler("serve")...
+    handle = serve({"bam": sorted_bam, "vcf": vcf_bgz}, port=0)   # serve
+    # POST /query/reads from 1, 8, 32 closed-loop clients, cold and hot;
+    # DISQ_TPU_TORCH_DEVICE_SERVICE=1; legacy; variants, stats, markdup,
+    # pileup, filtered-count; then through a router over two replica
+    # processes on the card (this script with --serve-replica)
+    fleet = serve_fleet([replica1, replica2], datasets={"bam": ...})
 
-The CRAM is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
+The CRAM holds the sorted reads before chr1:230,000,000 (``CRAM_CUT``,
+a cut of depth) and is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
 quality scores are order-0 rANS streams (one per 10,000-record
 container), which the read decodes on the card: kernel B3, and B5 on a
 read of the file's first 2 splits under
@@ -223,7 +230,23 @@ from the spill (B2 once more) equal to the default read; the 8-shard
 sorted write at 4 writer workers leased with a stage manifest,
 byte-identical (BAM, BAI, SBI) to the unscheduled write; and the CRAM
 head (B3 = 2) and the VCF.bgz (B1 = 7) read scheduled, equal to their
-default reads. Any failed phase exits non-zero.
+default reads. The serve phase serves the
+sorted BAM and the VCF.bgz from a daemon on the card to closed-loop HTTP
+clients with the config 13 traffic (64 regions of 20,000 bp, weight
+1/rank) at 1, 8 and 32 clients, cold then hot, cold through the device
+service at 1 and 32, cold under ``legacy``, and variants, stats,
+markdup, pileup and filtered-count queries, then through the fleet
+router over two replica processes (cold, hot, one replica stalling 80 ms
+per query, then killed): every answer's count and digest equal the
+traversal read of its interval and a numpy oracle over the generator,
+variants the tabix read, flagstat, depth, pileup and the filtered count
+numpy's; B1 once per request that missed the decoded tier (0 hot),
+fewer B1 launches than such requests through the service at 32 clients,
+B4 under ``legacy``, F1 once per filtered count, no block inflated on
+the host, most hot fleet routes by locality, a hedge launched against
+the stalling replica, every request answered after the kill; and the
+service's most-coalesced launch held against zlib and the plain
+version. Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -816,20 +839,34 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     from disq_tpu_torch.ops import rans_simd as B3
     from disq_tpu_torch.runtime import counters, tracing
 
-    n = args.records
     cram = os.path.join(work, "sorted.cram")
     # quality scores as order-0 rANS: the streams the device decodes
     os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
+    # a cut of depth: the sorted reads before CRAM_CUT, which hold the
+    # head's splits, CRAM_INTERVAL and the service's splits
+    cut_refid = [name for name, _ in REFS].index(CRAM_CUT[0])
+    n = int(np.sum((g["refid"] >= 0) & ((g["refid"] < cut_refid) | (
+        (g["refid"] == cut_refid) & (g["pos"] < CRAM_CUT[1])))))
+    perm_want = perm_want[:n]
+    last = g["refid"][perm_want] == cut_refid
+    check(g["refid"][perm_want].min() >= 0
+          and g["refid"][perm_want].max() == cut_refid
+          and g["pos"][perm_want][last].max() < CRAM_CUT[1],
+          "the CRAM cut is not a prefix of the sorted reads")
     sorted_ds = ds.coordinate_sorted()
-    t0 = time.perf_counter()
-    storage.write(sorted_ds, cram, port.CraiWriteOption.ENABLE)
-    cram_write_s = time.perf_counter() - t0
+    cut_ds = port.ReadsDataset(header=sorted_ds.header,
+                               reads=sorted_ds.reads.slice(0, n))
     del sorted_ds
+    t0 = time.perf_counter()
+    storage.write(cut_ds, cram, port.CraiWriteOption.ENABLE)
+    cram_write_s = time.perf_counter() - t0
+    del cut_ds
     offsets = crai_container_offsets(cram + ".crai")
     file_bytes = os.path.getsize(cram)
     splits_with_streams = len({off // args.split_size for off in offsets})
-    log(f"cram write: {cram_write_s:.3f}s ({n / cram_write_s:.0f} rec/s), "
-        f"{len(offsets)} containers, {file_bytes} file bytes, "
+    log(f"cram write: {n} sorted records (before {CRAM_CUT[0]}:"
+        f"{CRAM_CUT[1]}), {cram_write_s:.3f}s ({n / cram_write_s:.0f} "
+        f"rec/s), {len(offsets)} containers, {file_bytes} file bytes, "
         f"{splits_with_streams} splits hold order-0 streams")
 
     # -- the CRAM read on cuda (B3) -----------------------------------------
@@ -851,7 +888,8 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
     log(f"cram read: {cram_read_s:.3f}s ({n / cram_read_s:.0f} rec/s), "
         f"counters {json.dumps(main)}, rans_simd stats {json.dumps(stats)}")
     check(count == n, f"cram count {count} != {n}")
-    check(fstat == numpy_flagstat(g["flag"]), f"cram flagstat {fstat}")
+    check(fstat == numpy_flagstat(g["flag"][perm_want]),
+          f"cram flagstat {fstat}")
     rb = cr.reads
     refid = g["refid"][perm_want]
     for col in ("refid", "pos", "mapq", "bin", "flag", "next_refid",
@@ -1043,7 +1081,7 @@ def cram_phases(torch, port, args, g, perm_want, ds, storage, work, dev):
          "single_stream": {"bytes_out": one_out, "ms": round(b5_one_ms, 4),
                            "ns_per_byte": round(b5_one_ms * 1e6 / one_out, 3)}},
     ]
-    e2e = {"cram_write_s": round(cram_write_s, 4),
+    e2e = {"cram_records": n, "cram_write_s": round(cram_write_s, 4),
            "cram_write_records_per_s": round(n / cram_write_s, 1),
            "cram_read_s": round(cram_read_s, 4),
            "cram_read_records_per_s": round(n / cram_read_s, 1),
@@ -1102,7 +1140,12 @@ CRAM_EOF = 38   # bytes of the CRAM 3.0 end-of-file container
 CRAM_COUNTER_KEYS = ("records", "blocks", "bytes_compressed",
                      "bytes_uncompressed", "skipped_blocks",
                      "quarantined_blocks", "retried_reads", "shards")
-HEAD_SPLITS = 2  # the CRAM head's depth: a cut of the file's 7 splits
+HEAD_SPLITS = 2  # the CRAM head's depth: a cut of the file's splits
+# the CRAM's depth: the sorted reads before this position, which fill
+# the head's 2 splits (the second one in part), CRAM_INTERVAL and the
+# service's splits (a cut of the 2,000,000 sorted reads' CRAM: its write
+# took ~100 s, and each of its ~8 reads 16-35 s)
+CRAM_CUT = ("chr1", 230_000_000)
 
 
 def cram_head_copy(path: str, offsets, split: int, splits: int):
@@ -2539,10 +2582,10 @@ class ChunkCapture:
         svc = DS.DeviceDecodeService
         self._saved.append((svc, "submit_inflate", svc.submit_inflate))
 
-        def submit_inflate(service, payloads, usizes,
-                           _orig=svc.submit_inflate):
+        def submit_inflate(service, payloads, usizes, *rest,
+                           _orig=svc.submit_inflate, **kw):
             self.submitted += len(payloads)
-            return _orig(service, payloads, usizes)
+            return _orig(service, payloads, usizes, *rest, **kw)
 
         svc.submit_inflate = submit_inflate
         return self
@@ -3322,7 +3365,7 @@ def operator_legs(torch, port, args, work, dev):
 TRAVERSAL_INTERVALS = (("chr1", 50_000_001, 200_000_000),
                        ("chr2", 100_000_001, 100_500_000),
                        ("chr3", 150_000_001, 160_000_000))
-CRAM_INTERVAL = ("chr2", 100_000_001, 103_000_000)
+CRAM_INTERVAL = ("chr1", 100_000_001, 103_000_000)
 TRAVERSAL_FILTER = "-F 0x904 -q 20"
 
 
@@ -4757,6 +4800,636 @@ def sched_legs(torch, port, args, g, info, ds, src, work, head) -> tuple:
     return launches, e2e
 
 
+# -- the serving edge and the fleet ------------------------------------------
+
+SERVE_REGIONS = 64           # the config 13 workload: 64 regions of
+SERVE_SPAN = 20_000          # 20,000 bp, weight 1/rank (random.Random(13))
+SERVE_LEVELS = (1, 8, 32)    # closed-loop clients per level
+SERVE_LEGACY_REQUESTS = 16   # the cold pass under ``legacy`` (B4)
+SERVE_FLUSH_MS = 10          # the service legs' flush window
+SERVE_STALL_S = 0.08         # replica 2's stall on every query (stall leg)
+SERVE_FLEET_CLIENTS = 8
+SERVE_WAIT_S = 180.0         # the bound of every wait on a replica
+SERVE_STATS = ("chr2", 100_000_001, 100_500_000)   # stats, markdup, filter
+SERVE_PILEUP = ("chr1", 50_000_001, 50_016_384)    # the coverage vector
+TRACE_KNOB = "DISQ_TPU_TORCH_TRACE_REQUESTS"
+
+
+def serve_regions():
+    """The config 13 regions ``(contig, 0-based start)`` over ``REFS``
+    and their weights (1/rank: a few hot regions dominate)."""
+    import random
+
+    rng = random.Random(13)
+    regions = []
+    for _ in range(SERVE_REGIONS):
+        name, length = REFS[rng.randrange(len(REFS))]
+        regions.append((name, rng.randrange(0, length - SERVE_SPAN)))
+    return regions, [1.0 / (i + 1) for i in range(len(regions))]
+
+
+def closed_loop(addr: str, path: str, c: int, n_req: int, seed: int,
+                dataset: str = "bam"):
+    """``c`` closed-loop clients, each on one keep-alive connection with
+    Nagle off, each sending ``n_req`` ``/query/reads``-shaped requests
+    for weighted random config 13 regions (``random.Random(seed * 1000 +
+    k)``). Returns (sorted latencies in s, wall s, [(region, status,
+    body)], errors)."""
+    import http.client
+    import random
+    import socket
+    import threading
+
+    regions, weights = serve_regions()
+    lat = [[] for _ in range(c)]
+    answers = [[] for _ in range(c)]
+    errors = []
+
+    def client(k):
+        crng = random.Random(seed * 1000 + k)
+        host, _, p = addr.partition(":")
+        conn = http.client.HTTPConnection(host, int(p), timeout=SERVE_WAIT_S)
+        try:
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            for _ in range(n_req):
+                i = crng.choices(range(len(regions)), weights)[0]
+                contig, start = regions[i]
+                body = json.dumps({
+                    "dataset": dataset, "tenant": f"t{k % 4}", "limit": 0,
+                    "digest": True, "intervals": [{
+                        "contig": contig, "start": start + 1,
+                        "end": start + SERVE_SPAN}]})
+                t0 = time.perf_counter()
+                conn.request("POST", path, body=body,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                payload = resp.read()
+                lat[k].append(time.perf_counter() - t0)
+                answers[k].append((i, resp.status, json.loads(payload)))
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(f"client {k}: {type(e).__name__}: {e}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(c)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    return (sorted(x for lst in lat for x in lst), wall,
+            [a for lst in answers for a in lst], errors)
+
+
+def latency_row(lats, wall) -> dict:
+    def pc(p):
+        return lats[min(len(lats) - 1, int(p / 100 * len(lats)))] * 1e3
+
+    return {"requests": len(lats), "p50_ms": round(pc(50), 4),
+            "p99_ms": round(pc(99), 4), "qps": round(len(lats) / wall, 1)}
+
+
+def post(addr: str, path: str, doc: dict):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://{addr}{path}", data=json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_WAIT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def serve_replica(spec: dict) -> int:
+    """A fleet replica of the serve phase on the same card: a port daemon
+    on ``cuda`` serving ``spec["bam"]`` as ``bam``; while the file
+    ``spec["slow"]`` exists, every query first stalls ``SERVE_STALL_S``.
+    Prints ``ADDR host:port``, serves until its standard input closes,
+    then prints one JSON line of its kernel launches and host-inflated
+    blocks."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAILED: CUDA is not available", file=sys.stderr, flush=True)
+        return 1
+    sys.path.insert(0, HERE)
+    import disq_tpu_torch as port
+    from disq_tpu_torch.runtime import counters
+
+    torch.zeros(1, device="cuda")  # the CUDA context, before the address
+    handle = port.serve({"bam": spec["bam"]}, port=0, tenant_slots=64,
+                        tenant_queue=256)
+    daemon = handle.daemon
+    orig = daemon.handle
+
+    def handle_maybe_slow(method, path, doc):
+        if path.startswith("/query/") and os.path.exists(spec["slow"]):
+            time.sleep(SERVE_STALL_S)
+        return orig(method, path, doc)
+
+    daemon.handle = handle_maybe_slow
+    print(f"ADDR {handle.address}", flush=True)
+    sys.stdin.readline()
+    snap = counters.snapshot()
+    print(json.dumps({"launches": snap["launches"],
+                      "host_fallback_blocks": snap["host_fallback_blocks"],
+                      "device": str(daemon.device)}), flush=True)
+    handle.close()
+    return 0
+
+
+class _Replica:
+    """A ``serve_replica`` process on this card, started early so that it
+    reaches the card while other legs run; its output in files under
+    ``work``; stopped (or killed) on ``close``."""
+
+    def __init__(self, work: str, name: str, spec: dict) -> None:
+        self.out = os.path.join(work, f"serve_{name}.out")
+        self.err = os.path.join(work, f"serve_{name}.err")
+        self.slow = os.path.join(work, f"serve_{name}.slow")
+        with open(self.out, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--serve-replica", json.dumps({**spec, "slow": self.slow})],
+                stdin=subprocess.PIPE, stdout=out, stderr=err, cwd=HERE)
+
+    def _lines(self) -> list:
+        with open(self.out) as f:
+            return f.read().splitlines()
+
+    def address(self) -> str:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < SERVE_WAIT_S:
+            for line in self._lines():
+                if line.startswith("ADDR "):
+                    return line.split()[1]
+            if self.proc.poll() is not None:
+                with open(self.err) as f:
+                    raise PhaseError(f"a serve replica exited "
+                                     f"{self.proc.returncode}: "
+                                     f"{f.read()[-2000:]}")
+            time.sleep(0.05)
+        raise PhaseError(f"a serve replica named no address in "
+                         f"{SERVE_WAIT_S}s")
+
+    def result(self) -> dict:
+        try:
+            self.proc.stdin.close()
+            rc = self.proc.wait(timeout=SERVE_WAIT_S)
+        except subprocess.TimeoutExpired:
+            raise PhaseError("a serve replica ran past its stop")
+        lines = self._lines()
+        if rc != 0 or not lines:
+            raise PhaseError(f"a serve replica exited {rc}")
+        return json.loads(lines[-1])
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def serve_legs(torch, port, args, g, perm_want, work) -> tuple:
+    """The serving edge on the traversal phase's ``sorted.bam`` (BAI) and
+    the variants phase's ``v.vcf.bgz`` (TBI). (a) One daemon in this
+    process on ``cuda``: the config 13 traffic (``SERVE_REGIONS``
+    regions of ``SERVE_SPAN`` bp, weight 1/rank) from closed-loop HTTP
+    clients at each of ``SERVE_LEVELS``, cold then hot; cold again
+    through the device service at 1 and 32 clients (traced requests, a
+    ``SERVE_FLUSH_MS`` flush window); a cold pass under ``legacy``; then
+    ``/query/variants`` over ``VCF_INTERVALS``, ``/query/stats``
+    (flagstat, depth), ``/query/markdup-stats`` with ``rgstats`` and
+    ``/query/filtered-count`` over ``SERVE_STATS`` and ``/query/pileup``
+    over ``SERVE_PILEUP``. (b) A fleet of two replica processes on the
+    card (this script with ``--serve-replica``) behind the router in this
+    process: the config 13 traffic at ``SERVE_FLEET_CLIENTS`` clients,
+    cold then hot; a leg while replica 2 stalls every query; a leg after
+    replica 2 is killed. (c) Every answer against the port's traversal
+    read of the same interval and a numpy oracle over the generator; B1
+    once per request that missed the decoded tier (0 hot), fewer
+    launches than such requests through the service at 32 clients, B4
+    instead under ``legacy``, F1 once per filtered count, no block
+    inflated on the host; the most-coalesced service launch against zlib
+    and the plain version. Returns (per-kernel entries, e2e)."""
+    import hashlib
+
+    from disq_tpu_torch.bam.columnar import ReadBatch
+    from disq_tpu_torch.ops import inflate_simd as B1
+    from disq_tpu_torch.ops.markdup import markdup_batch
+    from disq_tpu_torch.ops.rgstats import read_group_stats
+    from disq_tpu_torch.runtime import counters, introspect, tracing
+    from disq_tpu_torch.runtime import device_service as DS
+    from disq_tpu_torch.runtime import serve as S
+
+    split = args.split_size
+    bam = os.path.join(work, "sorted.bam")
+    vbgz = os.path.join(work, "v.vcf.bgz")
+    regions, _ = serve_regions()
+    contigs = [name for name, _ in REFS]
+    # the replicas start now and reach the card during (a)
+    replicas = [_Replica(work, name, {"bam": bam}) for name in ("r1", "r2")]
+    handle = fleet = None
+    entries, e2e, books = {}, {}, {}
+    try:
+        cols = {c: g[c][perm_want] for c in FIXED}
+        span = cigar_extents(g)[0][perm_want]
+        ends = cols["pos"].astype(np.int64) + np.maximum(span, 1)
+
+        def oracle(contig, start, end):
+            """Sorted rows overlapping 1-based ``[start, end]``."""
+            return np.nonzero((cols["refid"] == contigs.index(contig))
+                              & (cols["pos"] < end)
+                              & (ends > start - 1))[0]
+
+        def traversal(*intervals):
+            """The port's indexed read of ``intervals`` (1-based, closed)
+            as a host batch, and each interval's records in it, against
+            the oracle."""
+            got = port.ReadsStorage.make_default().split_size(split).read(
+                bam, traversal=port.TraversalParameters(
+                    [port.Interval(*iv) for iv in intervals]))
+            rb = (getattr(got.reads, "to_read_batch", lambda: got.reads)()
+                  if got.count() else ReadBatch.empty())
+            rb_ends = rb.alignment_ends() if rb.count else np.zeros(0)
+            out = []
+            for contig, start, end in intervals:
+                sub = rb.filter((rb.refid == contigs.index(contig))
+                                & (rb.pos < end) & (rb_ends > start - 1))
+                rows = oracle(contig, start, end)
+                check(sub.count == len(rows)
+                      and np.array_equal(sub.refid, cols["refid"][rows])
+                      and np.array_equal(sub.pos, cols["pos"][rows]),
+                      f"serve truth {contig}:{start}-{end}: {sub.count} "
+                      f"records, oracle {len(rows)}")
+                out.append((sub, rows))
+            return out
+
+        # one traversal read of the 64 regions, split per region
+        t0 = time.perf_counter()
+        truth = [(int(sub.count), S.ServeDaemon._batch_digest(sub))
+                 for sub, _ in traversal(*[(c, s0 + 1, s0 + SERVE_SPAN)
+                                           for c, s0 in regions])]
+        truth_s = time.perf_counter() - t0
+
+        def answers_ok(answers, errors, what):
+            check(not errors, f"{what}: {errors[:3]}")
+            for i, status, body in answers:
+                check(status == 200, f"{what}: region {i} {status} {body}")
+                check((body["count"], body["digest"]) == truth[i],
+                      f"{what}: region {i} {regions[i]} answered "
+                      f"{body['count']} {body['digest']}, want {truth[i]}")
+
+        # -- (a) one daemon on cuda ------------------------------------------
+        handle = port.serve({"bam": bam, "vcf": vbgz}, port=0,
+                            tenant_slots=64, tenant_queue=256)
+        daemon = handle.daemon
+        addr = handle.address
+        check(daemon.device.type == "cuda" and daemon.device_route,
+              f"serve: the daemon runs on {daemon.device}")
+        missed = []
+        pending_orig = daemon._inflate_pending
+
+        def pending_counted(ds_, pending, *rest):
+            missed.append(len(pending))
+            return pending_orig(ds_, pending, *rest)
+
+        daemon._inflate_pending = pending_counted
+        host0 = dict(B1.last_stats)
+        host_blocks = 0
+        levels, launches = {}, {}
+
+        def leg(name, c, n_req, seed):
+            nonlocal host_blocks
+            counters.reset()
+            missed.clear()
+            lats, wall, answers, errors = closed_loop(
+                addr, "/query/reads", c, n_req, seed)
+            answers_ok(answers, errors, f"serve {name}")
+            snap = counters.snapshot()
+            host_blocks += sum(snap["host_fallback_blocks"].values())
+            la = {k: v for k, v in snap["launches"].items() if v}
+            row = {**latency_row(lats, wall), "missed": len(missed),
+                   "missed_blocks": sum(missed), "launches": la}
+            levels[name] = row
+            launches[name] = la
+            e2e[f"serve_{name}_s"] = round(wall, 4)
+            log(f"serve {name}: {c} clients x {n_req}, {json.dumps(row)}")
+            return row
+
+        for c in SERVE_LEVELS:
+            daemon.cache.clear()
+            n_req = max(96, 24 * c) // c
+            cold = leg(f"cold_c{c}", c, n_req, c)
+            check(cold["missed"] > 0 and cold["launches"].get("inflate")
+                  == cold["missed"] and "inflate_legacy" not in
+                  cold["launches"],
+                  f"serve cold_c{c}: launches {cold['launches']} for "
+                  f"{cold['missed']} requests that missed")
+            hot = leg(f"hot_c{c}", c, n_req, c)
+            check(hot["missed"] == 0 and not hot["launches"],
+                  f"serve hot_c{c}: launches {hot['launches']}, "
+                  f"{hot['missed']} missed")
+
+        # the device service: lanes of concurrent requests share launches
+        os.environ[SERVICE_KNOB] = "1"
+        os.environ[FLUSH_KNOB] = str(SERVE_FLUSH_MS)
+        os.environ[TRACE_KNOB] = "1"
+        tracing.reset_trace_state()
+        service = {}
+        try:
+            with ChunkCapture(DS) as cap:
+                for c in (1, 32):
+                    DS.shutdown_service()
+                    daemon.cache.clear()
+                    tracing.reset_gauges()
+                    f0 = _flushes(tracing)
+                    r0 = dict(tracing.REGISTRY.counter(
+                        "device.batch.requests")._snapshot())
+                    row = leg(f"service_c{c}", c, max(96, 24 * c) // c,
+                              99 + c)
+                    row["flush"] = _delta(f0, _flushes(tracing))
+                    row["lane_fill"] = tracing.REGISTRY.gauge(
+                        "device.lane_fill").state()
+                    row["batch_requests"] = _delta(r0, dict(
+                        tracing.REGISTRY.counter(
+                            "device.batch.requests")._snapshot()))
+                    service[c] = row
+                    b1 = row["launches"].get("inflate", 0)
+                    check(row["missed"] > 0 and 0 < b1 <= row["missed"],
+                          f"serve service_c{c}: B1 {b1} for "
+                          f"{row['missed']} requests that missed")
+                    log(f"serve service_c{c}: flushes "
+                        f"{json.dumps(row['flush'])}, lane_fill "
+                        f"{json.dumps(row['lane_fill'])}, requests per "
+                        f"launch {json.dumps(row['batch_requests'])}")
+        finally:
+            os.environ.pop(SERVICE_KNOB, None)
+            os.environ.pop(FLUSH_KNOB, None)
+            os.environ.pop(TRACE_KNOB, None)
+            tracing.reset_trace_state()
+            DS.shutdown_service()
+        c32 = service[32]
+        shared = [int(k.split("=")[1].rstrip("}")) for k in
+                  c32["batch_requests"]]
+        check(c32["launches"]["inflate"] < c32["missed"]
+              and max(shared, default=0) > 1,
+              f"serve service_c32: {c32['launches']} launches for "
+              f"{c32['missed']} requests that missed, requests per launch "
+              f"{c32['batch_requests']}")
+        check(service[1]["launches"]["inflate"] == service[1]["missed"],
+              f"serve service_c1: {service[1]['launches']} for "
+              f"{service[1]['missed']} requests")
+        (owners, n_lanes), lanes, _, (blob, ln, st, oo) = cap.chunk("inflate")
+        pls = [bytes(p) for p, _, _ in lanes]
+        exp = [e for _, e, _ in lanes]
+        check(not st.any() and np.array_equal(ln, exp),
+              "serve service chunk: the dispatcher's B1 flagged a lane")
+        for j, p in enumerate(pls):
+            check(blob[oo[j]: oo[j + 1]].tobytes() == zlib.decompress(p, -15),
+                  f"serve service chunk: B1 lane {j} differs from zlib")
+        pick = _spread([o for _, _, o in lanes], PLAIN_SAMPLE_LANES)
+        # the plain version's processes start and run beside the legs
+        # below (their start alone takes seconds)
+        import threading
+
+        plain_box = []
+        plain_thread = threading.Thread(target=lambda: plain_box.append(
+            plain_async("inflate", [pls[j] for j in pick],
+                        [exp[j] for j in pick])))
+        plain_thread.start()
+        k_sample = (np.concatenate([blob[oo[j]: oo[j + 1]] for j in pick]),
+                    ln[pick], st[pick])
+        staged = B1.Staged("inflate", [pls, np.concatenate(
+            [[0], np.cumsum([len(p) for p in pls])[:-1]]).astype(np.int64),
+            np.array([len(p) for p in pls], np.int64), oo], daemon.device)
+        total = int(oo[-1])
+        b1_ms = cuda_ms(torch, lambda: B1.inflate(*staged.tensors, total),
+                        1, 5)
+        torch.cuda.synchronize()
+        staged.release()
+        b1_bytes = sum(len(p) for p in pls) + total + 8 * (3 * n_lanes + 1)
+        del blob, lanes
+
+        # B4 under legacy
+        os.environ["DISQ_TPU_TORCH_DEVICE_INFLATE"] = "legacy"
+        try:
+            daemon.cache.clear()
+            row = leg("legacy", 1, SERVE_LEGACY_REQUESTS, 7)
+        finally:
+            os.environ.pop("DISQ_TPU_TORCH_DEVICE_INFLATE")
+        check(row["launches"].get("inflate_legacy") == row["missed"] > 0
+              and "inflate" not in row["launches"],
+              f"serve legacy: launches {row['launches']} for "
+              f"{row['missed']} requests that missed")
+
+        # the other query paths
+        def query(name, path, doc):
+            counters.reset()
+            missed.clear()
+            t = time.perf_counter()
+            status, body = post(addr, path, doc)
+            secs = time.perf_counter() - t
+            check(status == 200, f"serve {name}: {status} {body}")
+            snap = counters.snapshot()
+            la = {k: v for k, v in snap["launches"].items() if v}
+            check(la.get("inflate", 0) == len(missed) and not sum(
+                snap["host_fallback_blocks"].values()),
+                  f"serve {name}: launches {la} for {len(missed)} "
+                  f"requests that missed")
+            launches[name] = la
+            e2e[f"serve_{name}_s"] = round(secs, 4)
+            return body, la
+
+        def ivs(*intervals):
+            return [{"contig": c, "start": s, "end": e}
+                    for c, s, e in intervals]
+
+        vst = port.VariantsStorage.make_default().split_size(VCF_SPLIT)
+        for name, sel in [(f"variants_{iv[0]}", [iv]) for iv in VCF_INTERVALS] \
+                + [("variants_all", list(VCF_INTERVALS))]:
+            body, _ = query(name, "/query/variants",
+                            {"dataset": "vcf", "limit": 0,
+                             "intervals": ivs(*sel)})
+            want = vst.read(vbgz, intervals=[port.Interval(*iv)
+                                             for iv in sel]).variants
+            h = hashlib.sha1()
+            for col in (want.chrom, want.pos, want.lines):
+                h.update(col.tobytes())
+            check(body["count"] == int(want.count) > 0
+                  and body["digest"] == h.hexdigest(),
+                  f"serve {name}: {body['count']} sites, want "
+                  f"{int(want.count)} (the tabix read)")
+        (rb, rows), = traversal(SERVE_STATS)
+        body, _ = query("flagstat", "/query/stats",
+                        {"dataset": "bam", "stat": "flagstat",
+                         "intervals": ivs(SERVE_STATS)})
+        check(body["flagstat"] == numpy_flagstat(cols["flag"][rows]),
+              f"serve flagstat: {body['flagstat']}")
+        body, _ = query("depth", "/query/stats",
+                        {"dataset": "bam", "stat": "depth", "window": 1024,
+                         "intervals": ivs(SERVE_STATS)})
+        src_rows = perm_want[rows]
+        want_depth = numpy_depth({k: g[k][src_rows] for k in (
+            "cig", "ncig", "pos", "flag", "refid")}, 1024)
+        check(body["depth"]["refs"] == {
+            REFS[r][0]: {"windows": len(a), "max": int(a.max()),
+                         "total": int(a.sum())}
+            for r, a in want_depth.items()},
+              f"serve depth: {body['depth']}")
+        body, _ = query("markdup", "/query/markdup-stats",
+                        {"dataset": "bam", "rgstats": True,
+                         "intervals": ivs(SERVE_STATS)})
+        marked, res = markdup_batch(rb)
+        want = json.loads(json.dumps({"markdup": res.stats(),
+                                      "rgstats": read_group_stats(marked)},
+                                     default=str))
+        check(body["count"] == len(rows)
+              and {k: body[k] for k in want} == want,
+              f"serve markdup: {body['markdup']} != {want['markdup']}")
+        body, la = query("filtered_count", "/query/filtered-count",
+                         {"dataset": "bam", "filter": OPS_FILTER,
+                          "intervals": ivs(SERVE_STATS)})
+        names = g["names"][src_rows]
+        keep = (((cols["flag"][rows] & 0x904) == 0)
+                & (cols["mapq"][rows] >= 20)
+                & subsample_keep(fnv1a_rows(names), 7, 0.5))
+        check(body["matched"] == int(keep.sum()) > 0
+              and la.get("read_filter") == 1,
+              f"serve filtered count: {body['matched']} matched, numpy "
+              f"{int(keep.sum())}; launches {la}")
+        p_rows = oracle(*SERVE_PILEUP)
+        body, _ = query("pileup", "/query/pileup",
+                        {"dataset": "bam", "intervals": ivs(SERVE_PILEUP)})
+        lo0, hi0 = SERVE_PILEUP[1] - 1, SERVE_PILEUP[2]
+        sel = p_rows[(cols["flag"][p_rows] & 4) == 0]
+        b_lo = np.clip(cols["pos"][sel] - lo0, 0, hi0 - lo0 - 1)
+        b_hi = np.clip(ends[sel] - 1 - lo0, 0, hi0 - lo0 - 1)
+        diff = np.zeros(hi0 - lo0 + 1, np.int64)
+        np.add.at(diff, b_lo, 1)
+        np.add.at(diff, b_hi + 1, -1)
+        cov = np.cumsum(diff)[:-1]
+        check(body["coverage"] == cov.tolist() and cov.max() > 0,
+              "serve pileup: coverage differs from the numpy difference "
+              "array")
+        host_blocks += sum(counters.snapshot()["host_fallback_blocks"]
+                           .values())
+        host_lanes = {k: B1.last_stats[k] - host0[k]
+                      for k in ("host_big", "host_fallback")}
+        check(host_blocks == 0 and not any(host_lanes.values()),
+              f"serve: blocks inflated on the host: {host_blocks}, "
+              f"{host_lanes}")
+        card = card_line()
+        log(f"serve levels ({card}): " + json.dumps({
+            k: {m: v[m] for m in ("p50_ms", "p99_ms", "qps")}
+            for k, v in levels.items()}))
+
+        # -- (b) the fleet -----------------------------------------------------
+        t0 = time.perf_counter()
+        addrs = [r.address() for r in replicas]
+        log(f"serve: truth read {truth_s:.3f}s; the replicas' addresses "
+            f"after {time.perf_counter() - t0:.3f}s more")
+        fleet = port.serve_fleet(addrs, datasets={"bam": bam},
+                                 refresh_s=0.25)
+        check(fleet.address == addr, "the router is not on this endpoint")
+        fleet_rows = {}
+
+        def fleet_leg(name, seed):
+            h0 = {k: tracing.counter(k).total()
+                  for k in ("hedge.launched", "fleet.hedge.launched")}
+            r0 = {r: tracing.counter("fleet.route").value(result=r)
+                  for r in ("hit", "miss")}
+            lats, wall, answers, errors = closed_loop(
+                addr, "/fleet/query/reads", SERVE_FLEET_CLIENTS,
+                max(96, 24 * SERVE_FLEET_CLIENTS) // SERVE_FLEET_CLIENTS,
+                seed)
+            answers_ok(answers, errors, f"fleet {name}")
+            row = latency_row(lats, wall)
+            row["routes"] = {r: tracing.counter("fleet.route").value(
+                result=r) - r0[r] for r in r0}
+            row.update({k: tracing.counter(k).total() - v
+                        for k, v in h0.items()})
+            row["routed"] = {r["endpoint"]: r["routed"]
+                             for r in fleet.stats()["replicas"]}
+            fleet_rows[name] = row
+            e2e[f"fleet_{name}_s"] = round(wall, 4)
+            log(f"fleet {name}: {json.dumps(row)}")
+            return row
+
+        fleet_leg("cold", SERVE_FLEET_CLIENTS)
+        hot = fleet_leg("hot", SERVE_FLEET_CLIENTS)
+        check(hot["routes"]["hit"] > hot["routes"]["miss"],
+              f"fleet hot: routes {hot['routes']}: most not by locality")
+        with open(replicas[1].slow, "w"):
+            pass
+        try:
+            stall = fleet_leg("stall", 80)
+        finally:
+            os.remove(replicas[1].slow)
+        check(stall["hedge.launched"] >= 1
+              and stall["fleet.hedge.launched"] >= 1,
+              f"fleet stall: no hedge launched ({stall})")
+        replicas[1].close()  # SIGKILL
+        kill = fleet_leg("kill", 81)
+        st = fleet.stats()
+        dead = [r for r in st["replicas"] if r["endpoint"] == addrs[1]]
+        check(st["live"] == 1 and dead and not dead[0]["alive"]
+              and kill["routed"][addrs[1]] == stall["routed"][addrs[1]],
+              f"fleet kill: {st}")
+        fleet.close()
+        fleet = None
+        survivor = replicas[0].result()
+        check(survivor["launches"].get("inflate", 0) > 0
+              and not sum(survivor["host_fallback_blocks"].values())
+              and survivor["device"].startswith("cuda"),
+              f"fleet: the surviving replica {survivor}")
+        plain_thread.join()
+        (p_blob, p_len, p_st), b1_plain_ms, _procs = plain_box[0]()
+        mism = int((k_sample[0] != p_blob).sum()
+                   + (k_sample[1] != p_len).sum()
+                   + (k_sample[2] != p_st).sum())
+        check(mism == 0, f"serve service chunk: B1 != plain version ({mism})")
+        entries = {
+            "inflate": {
+                "launches_on_serve": {k: v.get("inflate", 0)
+                                      for k, v in launches.items()},
+                "launches_on_serve_replica": survivor["launches"].get(
+                    "inflate", 0),
+                "serve_chunk": {
+                    "lanes": n_lanes, "owners": owners, "bytes_out": total,
+                    "ms": round(b1_ms, 4),
+                    "bound_ms": round(b1_bytes / HBM_BYTES_PER_S * 1e3, 6),
+                    "lanes_against_zlib": n_lanes,
+                    "plain_sample_lanes": len(pick),
+                    "plain_ms_on_sample": round(b1_plain_ms, 4),
+                    "mismatches": mism}},
+            "inflate_legacy": {"launches_on_serve": {
+                "legacy": launches["legacy"].get("inflate_legacy", 0)}},
+            "read_filter": {"launches_on_serve": {
+                "filtered_count": launches["filtered_count"].get(
+                    "read_filter", 0)}},
+        }
+        e2e.update(serve_truth_s=round(truth_s, 4), serve_levels=levels,
+                   fleet=fleet_rows)
+        routes = {k: v["routes"] for k, v in fleet_rows.items()}
+        log(f"serve: {SERVE_REGIONS} regions, every answer equal to the "
+            f"traversal read and the oracle; fleet routes "
+            f"{json.dumps(routes)}; kernels {json.dumps(entries)}")
+    finally:
+        if fleet is not None:
+            fleet.close()
+        for r in replicas:
+            r.close()
+        if handle is not None:
+            handle.close()
+        introspect.reset_introspection()
+    return entries, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -5114,6 +5787,9 @@ def run(args) -> dict:
     sched, sched_e2e = sched_legs(torch, port, args, g, info, ds, src, work,
                                   head)
     log(f"phase sched: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    served, serve_e2e = serve_legs(torch, port, args, g, perm_want, work)
+    log(f"phase serve: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
@@ -5144,6 +5820,8 @@ def run(args) -> dict:
     for name in ("inflate", "parse", "rans_simd"):
         by_name[name]["launches_on_sched"] = {
             leg: books.get(name, 0) for leg, books in sched.items()}
+    for name, entry in served.items():
+        by_name[name].update(entry)
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
@@ -5151,6 +5829,7 @@ def run(args) -> dict:
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
            **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
            **traversal_e2e, **variants_e2e, **planes_e2e, **sched_e2e,
+           **serve_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
@@ -5167,9 +5846,13 @@ def main(argv=None) -> int:
     ap.add_argument("--split-size", type=int, default=64 << 20)
     # the sched phase's second process (a JSON spec): see sched_worker
     ap.add_argument("--sched-worker", help=argparse.SUPPRESS)
+    # a fleet replica of the serve phase (a JSON spec): see serve_replica
+    ap.add_argument("--serve-replica", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.sched_worker:
         return sched_worker(json.loads(args.sched_worker))
+    if args.serve_replica:
+        return serve_replica(json.loads(args.serve_replica))
     try:
         res = run(args)
     except PhaseError as e:

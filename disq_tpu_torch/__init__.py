@@ -11,11 +11,13 @@ from disq_tpu_torch.api import (  # noqa: F401
     BaiWriteOption,
     CraiWriteOption,
     FileCardinalityWriteOption,
+    FleetHandle,
     Interval,
     ReadsDataset,
     ReadsFormatWriteOption,
     ReadsStorage,
     SbiWriteOption,
+    ServeHandle,
     StageManifestWriteOption,
     TabixIndexWriteOption,
     TempPartsDirectoryWriteOption,
@@ -25,6 +27,8 @@ from disq_tpu_torch.api import (  # noqa: F401
     VariantsFormatWriteOption,
     VariantsStorage,
     WriteOption,
+    serve,
+    serve_fleet,
 )
 from disq_tpu_torch.runtime import (  # noqa: F401
     BreakerOpenError,

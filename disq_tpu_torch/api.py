@@ -59,6 +59,12 @@ Usage::
     # others join it (DISQ_TPU_TORCH_SCHED=host:port) and lease from it
     ds = storage.scheduler("serve", lease_n=2, lease_s=10.0).read("x.bam")
 
+    # the serving edge: region queries over HTTP, each cache-missing
+    # block inflated on the card; a fleet router over such replicas
+    handle = serve({"wgs": "sorted.bam", "calls": "v.vcf.bgz"}, port=0)
+    fleet = serve_fleet(["127.0.0.1:8765", "127.0.0.1:8766"],
+                        datasets={"wgs": "sorted.bam"})
+
 Entry points run on ``cuda`` unless the caller asks for another device
 (``make_default(device="cpu")`` or ``.device("cpu")``); without CUDA
 and without an explicit CPU request, ``read`` and ``write`` raise. On
@@ -789,3 +795,165 @@ class VariantsStorage(_PlaneKnobs):
         except Exception as e:
             flightrec.note_abort(e, where="write")
             raise
+
+
+class ServeHandle:
+    """Handle on the serving plane started by :func:`serve`.
+
+    ``address`` is the ``host:port`` of the HTTP endpoint now answering
+    ``POST /query/reads``, ``/query/variants``, ``/query/stats``,
+    ``/query/markdup-stats``, ``/query/pileup``, ``/query/filtered-count``,
+    ``POST /serve/register`` and ``GET /serve/stats`` beside the
+    introspection endpoints. ``close()`` stops the daemon (and the HTTP
+    server, when :func:`serve` started it)."""
+
+    def __init__(self, address: str, daemon, owns_server: bool) -> None:
+        self.address = address
+        self.daemon = daemon
+        self._owns_server = owns_server
+
+    def register(self, name: str, path: str, kind: str = None) -> dict:
+        """Register a dataset by path; ``kind`` ('reads' | 'variants') is
+        taken from the extension when omitted."""
+        return self.daemon.register(name, path, kind)
+
+    def stats(self) -> dict:
+        return self.daemon.stats()
+
+    def close(self) -> None:
+        from disq_tpu_torch.runtime import serve as serve_mod
+        from disq_tpu_torch.runtime.introspect import stop_introspect_server
+
+        serve_mod.stop_serve()
+        if self._owns_server:
+            stop_introspect_server()
+
+    def __enter__(self) -> "ServeHandle":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+
+def serve(datasets: dict = None, *, port: int = 0, options=None,
+          device=None, tenant_slots: int = None, tenant_queue: int = None,
+          compressed_cache_mb: int = None,
+          decoded_cache_mb: int = None,
+          parsed_cache_mb: int = None) -> ServeHandle:
+    """Start the long-lived multi-tenant interval-query daemon
+    (``runtime/serve.py``) on ``device`` (``cuda`` unless the caller
+    asks for another; on the CPU it inflates with host zlib) and return
+    a :class:`ServeHandle`.
+
+    ``datasets`` maps name -> path to register at once; more can be
+    added with ``handle.register`` or ``POST /serve/register``. Queries
+    are answered over the HTTP endpoint with every cache-missing block of
+    a request inflated in one device batch (coalesced across requests by
+    the device service when ``DISQ_TPU_TORCH_DEVICE_SERVICE=1``), a
+    shared hot cache (compressed blocks, decoded payloads, parsed chunk
+    batches), and per-tenant admission (``tenant_slots`` concurrent
+    requests per tenant and a ``tenant_queue``-deep wait queue; beyond
+    that a tenant's requests are shed with 429)."""
+    from disq_tpu_torch.runtime import serve as serve_mod
+    from disq_tpu_torch.runtime.introspect import introspect_address
+
+    kwargs = {"options": options, "device": device}
+    for key, value in (("tenant_slots", tenant_slots),
+                       ("tenant_queue", tenant_queue),
+                       ("compressed_cache_mb", compressed_cache_mb),
+                       ("decoded_cache_mb", decoded_cache_mb),
+                       ("parsed_cache_mb", parsed_cache_mb)):
+        if value is not None:
+            kwargs[key] = value
+    owns_server = introspect_address() is None
+    address = serve_mod.start_serve(port, **kwargs)
+    handle = ServeHandle(address, serve_mod.serve_if_running(),
+                         owns_server)
+    for name, path in (datasets or {}).items():
+        handle.register(name, path)
+    return handle
+
+
+class FleetHandle:
+    """Handle on the fleet routing tier started by :func:`serve_fleet`.
+
+    ``address`` is the ``host:port`` of the HTTP endpoint now answering
+    ``POST /fleet/query/*``, ``POST /fleet/register`` and
+    ``GET /fleet/stats``. ``close()`` stops the router (and the HTTP
+    server, when :func:`serve_fleet` started it)."""
+
+    def __init__(self, address: str, router, owns_server: bool) -> None:
+        self.address = address
+        self.router = router
+        self._owns_server = owns_server
+
+    def register(self, name: str, path: str, kind: str = None) -> dict:
+        """Fan a dataset registration out to every live replica (each
+        bumps the dataset's epoch and drops its stale cache entries)."""
+        status, doc = self.router.register(name, path, kind)
+        if status != 200:
+            raise RuntimeError(doc.get("error", f"HTTP {status}"))
+        return doc
+
+    def query(self, endpoint: str, doc: dict) -> tuple:
+        """Route one query (``endpoint``: 'reads', 'variants', 'stats',
+        ...) -> ``(status, body)``."""
+        return self.router.query(f"/query/{endpoint}", doc)
+
+    def stats(self) -> dict:
+        return self.router.stats()
+
+    def close(self) -> None:
+        from disq_tpu_torch.runtime import fleet as fleet_mod
+        from disq_tpu_torch.runtime.introspect import stop_introspect_server
+
+        fleet_mod.stop_fleet()
+        if self._owns_server:
+            stop_introspect_server()
+
+    def __enter__(self) -> "FleetHandle":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close()
+
+
+_FLEET_UNSET = object()  # None is meaningful (hedging off)
+
+
+def serve_fleet(replicas, *, port: int = 0, datasets: dict = None,
+                policy: str = "locality",
+                hedge_quantile: float = _FLEET_UNSET,
+                hedge_min_s: float = None,
+                tenant_slots: int = None, tenant_queue: int = None,
+                refresh_s: float = None,
+                probe_s: float = None) -> FleetHandle:
+    """Start the fleet routing tier (``runtime/fleet.py``) over
+    ``replicas`` (``host:port`` serving endpoints) and return a
+    :class:`FleetHandle`.
+
+    A query sent to ``/fleet/query/*`` is forwarded to the replica whose
+    hot-block cache already holds its blocks (digest overlap from each
+    replica's ``/serve/cachemap``), hedged to the runner-up past the
+    rolling latency quantile (``hedge_quantile``; None turns hedging
+    off), and admitted against the fleet-wide sum of the replicas'
+    tenant capacity. The router runs no kernel: its replicas do."""
+    from disq_tpu_torch.runtime import fleet as fleet_mod
+    from disq_tpu_torch.runtime.introspect import introspect_address
+
+    kwargs = {"policy": policy}
+    if hedge_quantile is not _FLEET_UNSET:
+        kwargs["hedge_quantile"] = hedge_quantile
+    for key, value in (("hedge_min_s", hedge_min_s),
+                       ("tenant_slots", tenant_slots),
+                       ("tenant_queue", tenant_queue),
+                       ("refresh_s", refresh_s), ("probe_s", probe_s)):
+        if value is not None:
+            kwargs[key] = value
+    owns_server = introspect_address() is None
+    address = fleet_mod.start_fleet(list(replicas), port, **kwargs)
+    handle = FleetHandle(address, fleet_mod.fleet_if_running(),
+                         owns_server)
+    for name, path in (datasets or {}).items():
+        handle.register(name, path)
+    return handle

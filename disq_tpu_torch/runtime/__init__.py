@@ -7,8 +7,9 @@ budget, circuit breakers), live introspection (``introspect``), the
 flight recorder (``flightrec``), the sampling profiler (``profiler``),
 per-tenant SLOs (``slo``), the cluster rollup (``cluster``), process
 identity (``multihost``), the shard scheduler (``scheduler``), and the
-device service and write path (imported by name: ``device_service``,
-``device_write``)."""
+device service and write path, the serving plane and the fleet router
+(imported by name: ``device_service``, ``device_write``, ``serve``,
+``fleet``)."""
 
 from disq_tpu_torch.runtime.columnar import (  # noqa: F401
     ColumnarBatch,

@@ -21,11 +21,13 @@ previous one. Owners receive host bytes only: every tensor of a chunk
 lives and dies on the service's stream.
 
 Error isolation is per owner: a lane the kernel flags is decoded again
-on the host, over the shared host pool, and if the host fails too only
-its owner's submission records the error (under the lane's index, so a
-caller can name the block or stream); lanes of other owners in the same
-chunk are delivered. A chunk whose launch or fetch fails fails every
-owner with lanes in it; nothing falls back to the host for it.
+on the host, over the shared host pool (an inflate submission made with
+``host_rescue=False`` records the error instead), and if the host fails
+too only its owner's submission records the error (under the lane's
+index, so a caller can name the block or stream); lanes of other owners
+in the same chunk are delivered. A chunk whose launch or fetch fails
+fails every owner with lanes in it; nothing falls back to the host for
+it.
 
 Telemetry: ``device.batch.flush{reason}``, ``device.lane_fill`` (lanes
 per launch / ``LANES``), ``device.queue_depth``, ``device.service.wait``
@@ -105,12 +107,15 @@ class Submission:
     every lane landed or failed."""
 
     __slots__ = ("_event", "_lock", "_pending", "errors", "blob",
-                 "offsets", "parts")
+                 "offsets", "parts", "host_rescue")
 
     def __init__(self, blob: Optional[np.ndarray] = None,
                  offsets: Optional[np.ndarray] = None,
-                 parts_n: Optional[int] = None) -> None:
+                 parts_n: Optional[int] = None,
+                 host_rescue: bool = True) -> None:
         self._event = threading.Event()
+        # False: a lane the kernel flags fails, with no host decode
+        self.host_rescue = host_rescue
         self._lock = threading.Lock()
         self.blob = blob
         self.offsets = offsets
@@ -224,15 +229,25 @@ class _InflateEngine:
         for j0, j1 in _runs(lanes, ok):
             lanes[j0].sub.deliver_run(lanes[j0].index, j1 - j0,
                                       blob[out_off[j0]: out_off[j1]])
-        flagged = [lanes[j] for j in np.nonzero(~ok)[0]]
+        flagged = np.nonzero(~ok)[0]
+        rescue = []
+        for j in flagged:
+            lane = lanes[j]
+            if lane.sub.host_rescue:
+                rescue.append(lane)
+            else:
+                lane.sub.fail(lane.index, ValueError(
+                    f"device inflate failed: status {int(status[j])} "
+                    f"({IS.STATUS_NAMES[int(status[j])]}), {int(out_len[j])}"
+                    f" of {lane.expect} bytes"))
         counters.add_stats(IS.last_stats,
                            device_lanes=len(lanes) - len(flagged),
-                           host_fallback=len(flagged))
-        if flagged:
-            counters.book_host_fallback("flagged", len(flagged))
+                           host_fallback=len(rescue))
+        if rescue:
+            counters.book_host_fallback("flagged", len(rescue))
             self._host_map(
-                flagged, lambda lane: IS.host_inflate(lane.payload,
-                                                      lane.expect))
+                rescue, lambda lane: IS.host_inflate(lane.payload,
+                                                     lane.expect))
 
 
 class _RansEngine:
@@ -356,15 +371,17 @@ class DeviceDecodeService:
     def alive(self) -> bool:
         return self._thread.is_alive() and not self._closed
 
-    def submit_inflate(self, payloads: Sequence,
-                       usizes: Sequence[int]) -> Submission:
+    def submit_inflate(self, payloads: Sequence, usizes: Sequence[int],
+                       host_rescue: bool = True) -> Submission:
         """One split's raw-DEFLATE payloads; the result is ``(blob,
-        offsets)``, every block's bytes contiguous in submission order."""
+        offsets)``, every block's bytes contiguous in submission order.
+        ``host_rescue=False`` fails a flagged lane instead of decoding it
+        again on the host (the serving plane's contract)."""
         n = len(payloads)
         offsets = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(np.asarray(usizes, dtype=np.int64), out=offsets[1:])
         sub = Submission(blob=np.empty(int(offsets[-1]), np.uint8),
-                         offsets=offsets)
+                         offsets=offsets, host_rescue=host_rescue)
         ctx = _current_trace()
         lanes = [_Lane(sub, i, p, int(usizes[i]), ctx)
                  for i, p in enumerate(payloads)]

@@ -26,10 +26,10 @@ Counterpart of ``disq_tpu/runtime/introspect.py``:
   ``multihost.process_id()`` (the ``disq_tpu_process_info`` series, a
   ``process_id`` key) so ``runtime/cluster.py`` can merge N workers.
   ``/sched/*`` goes to the shard scheduler (``runtime/scheduler.py``),
-  resolved only when such a request arrives (409 without a coordinator
-  in the process). The serving and fleet planes (``/serve/*``,
-  ``/query/*``, ``/fleet/*``) are not ported yet; they answer as the
-  reference's do when none is running.
+  ``/serve/*`` and ``/query/*`` to the serving plane
+  (``runtime/serve.py``), ``/fleet/*`` to the fleet router
+  (``runtime/fleet.py``), each module resolved only when such a request
+  arrives (409 without a coordinator, 503 without a daemon or router).
 
 Disabled (the default), ``configure_from_options`` returns None, the
 pipelines carry ``health=None`` (every per-shard hook is one ``is None``
@@ -572,16 +572,21 @@ class _NamedThreadingHTTPServer(ThreadingHTTPServer):
 
 def _plane(method: str, path: str, doc: Dict[str, Any]
            ) -> Tuple[int, Dict[str, Any]]:
-    """``(status, doc)`` of a scheduler, serving or fleet request. The
-    scheduler is imported only here; the serving and fleet planes give
-    the reference's answer when they are not running (503)."""
+    """``(status, doc)`` of a scheduler, serving or fleet request. Each
+    plane's module is imported only when a request for it arrives, so a
+    process that serves none of them imports none (503 while a plane is
+    not running)."""
     if path.startswith("/sched/"):
         from disq_tpu_torch.runtime import scheduler
 
         return scheduler.handle_http(method, path, doc)
     if path.startswith("/fleet/"):
-        return 503, {"error": "fleet tier not started"}
-    return 503, {"error": "serving plane not started"}
+        from disq_tpu_torch.runtime import fleet
+
+        return fleet.handle_http(method, path, doc)
+    from disq_tpu_torch.runtime import serve
+
+    return serve.handle_http(method, path, doc)
 
 
 class _Handler(BaseHTTPRequestHandler):

@@ -469,10 +469,12 @@ def telemetry_summary() -> Dict[str, Any]:
 # context rides on each queued lane and the dispatcher re-activates it
 # per owner via ``trace_scope`` when booking that owner's share. An HTTP
 # hop (the remote filesystem's ranged GETs and HEADs) carries the
-# context out in the X-Disq-Trace-* headers (``inject_trace_headers``);
-# the reference's edge helpers (minting under DISQ_TPU_TRACE_REQUESTS,
-# ``trace_from_headers``) wait for the port's serving edge. With no
-# context active, ``current_trace()`` is one ContextVar read.
+# context out in the X-Disq-Trace-* headers (``inject_trace_headers``).
+# The serving edge (``runtime/serve.py``, ``runtime/fleet.py``) adopts an
+# inbound context (``trace_from_headers``) or, under
+# DISQ_TPU_TORCH_TRACE_REQUESTS, mints a root one (``mint_trace``). With
+# no context active, ``current_trace()`` is one ContextVar read and no id
+# is ever minted.
 
 TRACE_ID_HEADER = "X-Disq-Trace-Id"
 TRACE_PARENT_HEADER = "X-Disq-Trace-Parent"
@@ -497,11 +499,83 @@ class TraceContext:
 
 _trace_var: "contextvars.ContextVar[Optional[TraceContext]]" = (
     contextvars.ContextVar("disq_tpu_torch_trace", default=None))
+_trace_mint_lock = threading.Lock()
+_trace_ids_minted = 0
+_trace_span_seq = 0
+_trace_env_resolved = False
+_trace_requests = False
+
+
+def trace_requests_enabled() -> bool:
+    """True when ``DISQ_TPU_TORCH_TRACE_REQUESTS`` is set truthy: the
+    serving edge then mints a trace for requests that arrive without
+    one. Resolved once per process (explicit headers always win)."""
+    global _trace_env_resolved, _trace_requests
+    if not _trace_env_resolved:
+        with _trace_mint_lock:
+            if not _trace_env_resolved:
+                _trace_requests = os.environ.get(
+                    "DISQ_TPU_TORCH_TRACE_REQUESTS", "").lower() not in (
+                        "", "0", "false", "off")
+                _trace_env_resolved = True
+    return _trace_requests
 
 
 def current_trace() -> Optional[TraceContext]:
     """The active request context, or None (the common, free case)."""
     return _trace_var.get()
+
+
+def _mint_id(nbytes: int = 8) -> str:
+    global _trace_ids_minted
+    with _trace_mint_lock:
+        _trace_ids_minted += 1
+    return os.urandom(nbytes).hex()
+
+
+def trace_ids_minted() -> int:
+    """How many trace/span ids this process has minted: the disabled
+    path's checks hold it at 0."""
+    with _trace_mint_lock:
+        return _trace_ids_minted
+
+
+def mint_trace(tenant: str) -> TraceContext:
+    """A fresh root context at the serving edge."""
+    return TraceContext(_mint_id(8), _mint_id(4), str(tenant))
+
+
+def child_context(ctx: TraceContext) -> TraceContext:
+    """A hop-local context under ``ctx``'s trace: the same trace id and
+    tenant, a fresh hop id (a sequence, not entropy: hop ids need only be
+    unique within one process's part of the trace)."""
+    global _trace_span_seq
+    with _trace_mint_lock:
+        _trace_span_seq += 1
+        seq = _trace_span_seq
+    return TraceContext(ctx.trace_id, f"{RUN_ID}-{seq:x}", ctx.tenant)
+
+
+def activate_trace(ctx: TraceContext) -> "contextvars.Token":
+    """Make ``ctx`` the active context of this thread; returns the token
+    for ``deactivate_trace``."""
+    return _trace_var.set(ctx)
+
+
+def deactivate_trace(token: "contextvars.Token") -> None:
+    _trace_var.reset(token)
+
+
+def reset_trace_state() -> None:
+    """Test hook: forget the env resolution and zero the mint counter
+    (an active context of the calling thread stays)."""
+    global _trace_env_resolved, _trace_requests, _trace_ids_minted
+    global _trace_span_seq
+    with _trace_mint_lock:
+        _trace_env_resolved = False
+        _trace_requests = False
+        _trace_ids_minted = 0
+        _trace_span_seq = 0
 
 
 def inject_trace_headers(headers: Dict[str, str]) -> Dict[str, str]:

@@ -22,7 +22,13 @@ disabled-path section of ``scripts/check_overhead.py``, over
    the very iterator ``map_ordered_resumable`` returns, write leasing is
    not armed, and no coordinator, journal or ``disq-introspect`` thread
    exists; a scheduled read with failover off writes no journal.
-5. **Journal replay is exact and pure.** A journaled ``ShardCoordinator``
+5. **The serving plane and the fleet off are free.** After a default
+   read and write neither ``runtime/serve.py`` nor ``runtime/fleet.py``
+   is imported; imported, ``serve_if_running()`` and ``fleet_if_running()``
+   return None, ``handle_http`` answers 503 and leaves them None, no
+   trace id is minted, no plane thread runs, and importing the fleet
+   leaves the serving plane's answers as they were.
+6. **Journal replay is exact and pure.** A journaled ``ShardCoordinator``
    driven through joins, leases, completions, expiry, a steal, a lost
    race, a second run and a restarted pass replays (``replay_journal``)
    to its live ``state_fingerprint()``, with a torn tail line too; the
@@ -253,6 +259,52 @@ def check_scheduler_off(errors):
     introspect.reset_introspection()
 
 
+def check_serve_fleet_off(errors):
+    import json
+
+    from disq_tpu_torch.runtime import tracing
+
+    for name in ("serve", "fleet"):
+        if f"disq_tpu_torch.runtime.{name}" in sys.modules:
+            errors.append(f"runtime.{name} was imported with no serve() or "
+                          "serve_fleet() call")
+    from disq_tpu_torch.runtime import serve
+
+    if serve.serve_if_running() is not None:
+        errors.append("a serve daemon exists with no serve() call")
+    off = [serve.handle_http("POST", "/query/reads", {}),
+           serve.handle_http("GET", "/serve/stats", {}),
+           serve.handle_http("GET", "/serve/cachemap", {})]
+    if any(code != 503 for code, _ in off):
+        errors.append(f"serve.handle_http answered {[c for c, _ in off]} "
+                      "with no daemon running")
+    if serve.serve_if_running() is not None:
+        errors.append("serve.handle_http with no daemon built one")
+    if "disq_tpu_torch.runtime.fleet" in sys.modules:
+        errors.append("the serve-off path imported runtime.fleet")
+    from disq_tpu_torch.runtime import fleet
+
+    if fleet.fleet_if_running() is not None:
+        errors.append("a fleet router exists with no serve_fleet() call")
+    code, _ = fleet.handle_http("POST", "/fleet/query/reads", {})
+    if code != 503:
+        errors.append(f"fleet.handle_http answered {code} with no router")
+    if fleet.fleet_if_running() is not None:
+        errors.append("fleet.handle_http with no router built one")
+    after = [serve.handle_http("POST", "/query/reads", {}),
+             serve.handle_http("GET", "/serve/stats", {}),
+             serve.handle_http("GET", "/serve/cachemap", {})]
+    if json.dumps(off) != json.dumps(after):
+        errors.append("the serve-off answers changed once the fleet module "
+                      "was imported")
+    if tracing.trace_ids_minted():
+        errors.append(f"{tracing.trace_ids_minted()} trace ids minted with "
+                      "request tracing off")
+    if _plane_threads():
+        errors.append(f"plane threads with serve and fleet off: "
+                      f"{_plane_threads()}")
+
+
 def _sched_schedule(coord, now):
     table = {str(i): ([i * 100, i * 100 + 100] if i % 2 else None)
              for i in range(8)}
@@ -336,6 +388,7 @@ def main() -> int:
     check_hedge_accounting(errors)
     check_disabled_path(errors)
     check_scheduler_off(errors)
+    check_serve_fleet_off(errors)
     check_journal_replay(errors)
     if errors:
         print(f"torch_check_resilience: {len(errors)} problem(s)")
@@ -344,7 +397,8 @@ def main() -> int:
         return 1
     print("torch_check_resilience: OK (breaker machine total, hedge books "
           "balanced, disabled path builds nothing, scheduler off builds "
-          "nothing, journal replay exact and pure)")
+          "nothing, serve and fleet off build nothing, journal replay "
+          "exact and pure)")
     return 0
 
 

@@ -35,7 +35,7 @@ def _run(code, env=None, cwd=REPO):
 
 
 PLANE_MODULES = ("multihost", "flightrec", "resilience", "profiler", "slo",
-                 "introspect", "cluster", "scheduler")
+                 "introspect", "cluster", "scheduler", "serve", "fleet")
 
 
 def _port_sources():

@@ -110,11 +110,8 @@ def test_cp3_absent_quality_is_a_star(fixture_bam):
 # -- C-P4 ---------------------------------------------------------------------
 
 # names a reference ``__init__`` exports from a module the port has, that
-# arrive with a later slice (ROADMAP.md Queue A)
-DEFERRED = {
-    "FleetHandle": "A13d", "ServeHandle": "A13d", "serve": "A13d",
-    "serve_fleet": "A13d",
-}
+# arrive with a later slice (ROADMAP.md Queue A): none left
+DEFERRED = {}
 PACKAGES = ("", "bgzf", "bam", "index", "fsw", "runtime", "sort", "ops",
             "traversal", "cram", "vcf", "sam")
 
@@ -146,6 +143,25 @@ def test_cp4_reference_exports_importable_at_same_path(pkg):
     if not pkg:
         assert P.__version__ == importlib.import_module("disq_tpu").__version__
         assert P.Interval is P.api.Interval
+
+
+@pytest.mark.parametrize("module", ["serve", "fleet"])
+def test_cp4_plane_module_names_equal_reference(module):
+    """The serving plane and the fleet router define every public name
+    (class, function, constant) of the reference's module."""
+    path = os.path.join(REPO, "disq_tpu", "runtime", f"{module}.py")
+    tree = ast.parse(open(path).read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    port = importlib.import_module(f"disq_tpu_torch.runtime.{module}")
+    missing = sorted(n for n in names
+                     if not n.startswith("_") and not hasattr(port, n))
+    assert not missing, missing
 
 
 def test_cp4_deferred_names_are_still_absent():
