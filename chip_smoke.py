@@ -189,9 +189,9 @@ one flipped bit (the lines touching that block lost, one block skipped)
 and through the TBI for three intervals (B1 once per merged chunk), each
 equal to the generator's lines and columns, no block inflated on the
 host; writes it with W2 (inflating to the zlib-6 write's stream, its TBI
-mapping to the same uncompressed offsets); writes the first 100,000
+mapping to the same uncompressed offsets); writes the first 50,000
 sites as BCF with zlib-6 and with W2 and reads it back (B1 once per
-split) equal to the VCF lines; and writes the first 200,000 sorted reads
+split) equal to the VCF lines; and writes the first 100,000 sorted reads
 of the main path's device-backed dataset as SAM text, reads them back
 equal to the generator (names, sequences, qualities, CIGARs, tags with
 NM as an int32) and writes and re-reads them as BAM. The planes phase
@@ -246,7 +246,22 @@ B4 under ``legacy``, F1 once per filtered count, no block inflated on
 the host, most hot fleet routes by locality, a hedge launched against
 the stalling replica, every request answered after the kill; and the
 service's most-coalesced launch held against zlib and the plain
-version. Any failed phase exits non-zero.
+version. The mesh phase runs the port's mesh (``runtime/mesh.py``) at 8
+shards on the one card (``DISQ_TPU_TORCH_FORCE_DEVICE_COUNT=8``, the
+counterpart of XLA's forced device count): (a) a ``.mesh(8)`` read of
+the main BAM, its columns equal to the generator's and the unmeshed
+read's, B1 once per split and B2 once per shard of each split; (b) its
+flagstat through ``psum``, depth and region pileup through
+``_depth_psum``, each equal to the unmeshed result; (c) its
+``resident_coordinate_sort`` permutation equal to ``torch.sort
+(stable=True)`` of the unmeshed keys; (d) the sorted BAM + BAI written
+from it byte-identical to the main path's; (e) ``sharded_coordinate_sort``
+and ``hierarchical_coordinate_sort`` (2 x 4) on 2,000,000 u64 keys,
+uniform and 90 % one key, equal to a stable sort; (f) markdup on
+``dups.bam`` through the mesh equal to it off the mesh; (g)
+``global_mesh()`` of shape (1, 8) with ``psum`` over both axes. The
+cross-process ``dcn`` leg needs two cards, and this phase says so.
+Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
 
@@ -2637,7 +2652,8 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
     chunk each engine launched, what the dispatcher fetched for it:
     B1 and B3 against zlib / the native decoder on every lane and all
     three against their plain versions. Returns (per-kernel service
-    entries, e2e fields)."""
+    entries, e2e fields, the call that joins B3's plain sample and
+    completes its entry, which the run makes after its last phase)."""
     from disq_tpu_torch.api import ReadsDataset
     from disq_tpu_torch.native import rans_decode_native
     from disq_tpu_torch.ops import deflate as DF
@@ -2730,12 +2746,13 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
                   f"{snap['host_fallback_blocks']}, host rANS "
                   f"{snap['host_rans_streams']}")
             del cr
-            # B3's plain version on a sample of the most-coalesced chunk
-            # (~45 s for 1.5 MB streams, one process per stream) runs
-            # beside the legs below
+            # B3's plain version on the most-coalesced chunk's smallest
+            # streams (the plain version takes one loop turn per 4 output
+            # bytes: ~45 s for a 1.5 MB stream), beside the legs below
             _, r_lanes, _, _ = cap.chunk("rans")
-            r_pick = _spread([o for _, _, o in r_lanes],
-                             PLAIN_SAMPLE_STREAMS)
+            r_pick = sorted(np.argsort([e for _, e, _ in r_lanes],
+                                       kind="stable")
+                            [:PLAIN_SAMPLE_STREAMS].tolist())
             r_sample = [r_lanes[j][0][0] for j in r_pick]
             b3_plain = plain_async("rans_simd", r_sample,
                                    [0] * len(r_sample), 1)
@@ -2853,9 +2870,6 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
               f"service chunk: B3 stream {j} differs from the native codec")
     k = [np.concatenate([out[out_off[j]: out_off[j + 1]] for j in r_pick]),
          used[r_pick], st[r_pick]]
-    p, b3_plain_ms, _procs = b3_plain()
-    b3_err, b3_mism = rans_errors(k, p, 0)
-    check(b3_mism == 0, f"service chunk: B3 != plain version ({b3_mism})")
     _live, c_args, _ = B3.stage_streams(streams, dev)
     c_total = int(out_off[-1])
     b3_ms = cuda_ms(torch, lambda: B3.rans0_decode(*c_args, c_total), 1, 3)
@@ -2870,10 +2884,22 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
         "bound_ms": round(b3_bound, 6), "bound_by": b3_by,
         "splits": books["cram"]["splits"],
         "streams_against_native": len(streams),
-        "plain_sample_streams": len(r_sample),
-        "plain_ms_on_sample": round(b3_plain_ms, 4), "mismatches": b3_mism,
-        "max_abs_err": b3_err}
+        "plain_sample_streams": len(r_sample)}
     del out, streams, r_lanes, c_args
+
+    def b3_against_plain() -> None:
+        """The sample's plain decode (one process per stream, ~45 s for
+        a 1.5 MB stream) runs beside the next phases; the run joins it
+        before it reports."""
+        p, b3_plain_ms, _procs = b3_plain()
+        b3_err, b3_mism = rans_errors(k, p, 0)
+        check(b3_mism == 0, f"service chunk: B3 != plain version "
+              f"({b3_mism})")
+        entries["rans_simd"].update(
+            plain_ms_on_sample=round(b3_plain_ms, 4), mismatches=b3_mism,
+            max_abs_err=b3_err)
+        log(f"service chunk: B3 against its plain version on "
+            f"{len(r_sample)} streams, {b3_plain_ms:.1f} ms, 0 mismatches")
 
     # -- W2 on the most-coalesced deflate chunk ------------------------------
     (owners, n_lanes), lanes, handle, (body_h, end_h) = cap.chunk("deflate")
@@ -2910,7 +2936,7 @@ def service_legs(torch, port, args, g, perm_want, info, ds, src, work, dev,
         "mismatches": w2_mism, "max_abs_err": w2_err}
     del payload, lanes, pls
     log(f"service kernels on coalesced chunks: {json.dumps(entries)}")
-    return entries, e2e
+    return entries, e2e, b3_against_plain
 
 
 def trace_leg(torch, port, args, src, work) -> dict:
@@ -3613,9 +3639,9 @@ SV_FRACTION = 0.01           # symbolic <DEL> alleles with END=
 VCF_INTERVALS = (("chr1", 20_000_001, 20_400_000),
                  ("chr2", 100_000_001, 100_300_000),
                  ("chr3", 150_000_001, 150_200_000))
-BCF_SITES = 100_000          # the BCF legs' cut: the first sites
+BCF_SITES = 50_000           # the BCF legs' cut: the first sites
 BCF_SPLIT = 1 << 20          # small enough for several BCF splits
-SAM_RECORDS = 200_000        # the SAM legs' cut: the first sorted reads
+SAM_RECORDS = 100_000        # the SAM legs' cut: the first sorted reads
 AF_TEXT = ("0", "0.125", "0.25", "0.375", "0.5", "0.625", "0.75", "0.875",
            "1")                   # AC/8, as the BCF codec prints a float
 GT_TEXT = ("0/0", "0/1", "1/1", "0|1")
@@ -5430,6 +5456,191 @@ def serve_legs(torch, port, args, g, perm_want, work) -> tuple:
     return entries, e2e
 
 
+MESH_SHARDS = 8               # the mesh phase's shards on the one card
+MESH_PILEUP = (0, 1_000_000, 1_250_000)   # refid, start, end
+MESH_KEYS = 2_000_000            # u64 keys of the sharded sorts
+
+
+def mesh_legs(torch, port, args, g, perm_want, fstat, ds, src, dst, work,
+              n_splits) -> tuple:
+    """The mesh phase (module docstring), with the forced device count
+    set only inside it. Returns the launches of the meshed read and the
+    phase's end-to-end numbers."""
+    from disq_tpu_torch.ops.pileup import region_pileup
+    from disq_tpu_torch.runtime import counters, tracing
+    from disq_tpu_torch.runtime import mesh as M
+    from disq_tpu_torch.runtime.columnar import coordinate_key
+    from disq_tpu_torch.runtime.multihost import global_mesh
+    from disq_tpu_torch.sort import sharded as SS
+
+    e2e = {}
+    os.environ[M.FORCE_ENV] = str(MESH_SHARDS)
+    try:
+        # (a) the meshed read
+        st = port.ReadsStorage.make_default().split_size(args.split_size) \
+            .mesh(MESH_SHARDS)
+        tracing.reset_telemetry()
+        counters.reset()
+        t0 = time.perf_counter()
+        mds = st.read(src)
+        torch.cuda.synchronize()
+        e2e["mesh_read_s"] = round(time.perf_counter() - t0, 4)
+        books = counters.snapshot()["launches"]
+        mb = mds.reads
+        check(mb.device_backed and mb.mesh is not None
+              and M.shard_count(mb.mesh) == MESH_SHARDS,
+              f"mesh (a): the read is not on an {MESH_SHARDS}-shard mesh")
+        shards = mb.shard_columns()["pos"]
+        check([int(t.numel()) for t in shards]
+              == [hi - lo for lo, hi in M.shard_bounds(mb.count,
+                                                       MESH_SHARDS)],
+              "mesh (a): shard sizes")
+        batches = tracing.REGISTRY.counter("device.mesh.batches").total()
+        check(books.get("inflate", 0) == n_splits
+              and books.get("parse", 0) == MESH_SHARDS * n_splits
+              and batches == n_splits,
+              f"mesh (a): launches {books}, mesh batches {batches}, want B1 "
+              f"= {n_splits}, B2 = {MESH_SHARDS} x {n_splits}")
+        for col in FIXED:
+            got = getattr(mb, col)
+            check(np.array_equal(got, g[col]), f"mesh (a): column {col}")
+            check(np.array_equal(got, getattr(ds.reads, col)),
+                  f"mesh (a): column {col} vs the unmeshed read")
+        log(f"mesh (a) read: {e2e['mesh_read_s']}s, {mb.count} reads on "
+            f"{MESH_SHARDS} shards, columns equal the unmeshed read's; "
+            f"launches {json.dumps(books)}")
+
+        # (b) the reductions
+        t0 = time.perf_counter()
+        m_fs = mds.flagstat()
+        m_depth = mds.depth(1024)
+        m_pile = region_pileup(mb, *MESH_PILEUP)
+        torch.cuda.synchronize()
+        e2e["mesh_reductions_s"] = round(time.perf_counter() - t0, 4)
+        check(m_fs == fstat, f"mesh (b): flagstat {m_fs}")
+        u_depth = ds.depth(1024)
+        check(sorted(m_depth) == sorted(u_depth) and all(
+            np.array_equal(m_depth[r], u_depth[r]) for r in u_depth),
+            "mesh (b): depth")
+        check(np.array_equal(m_pile, region_pileup(ds.reads, *MESH_PILEUP)),
+              "mesh (b): region pileup")
+        log(f"mesh (b) flagstat, depth(1024), pileup {MESH_PILEUP}: "
+            f"{e2e['mesh_reductions_s']}s, each equal to the unmeshed "
+            f"result")
+
+        # (c) the resident sort
+        t0 = time.perf_counter()
+        m_perm = mb.sort_permutation()
+        e2e["mesh_sort_permutation_s"] = round(time.perf_counter() - t0, 4)
+        cols = ds.reads.device_columns()
+        want = torch.sort(coordinate_key(cols["refid"], cols["pos"]),
+                          stable=True).indices.cpu().numpy()
+        check(np.array_equal(m_perm, want) and np.array_equal(m_perm,
+                                                              perm_want),
+              "mesh (c): the resident sort's permutation")
+        exch = tracing.REGISTRY.counter("device.mesh.exchange_bytes").total()
+        check(exch > 0, "mesh (c): no exchange booked")
+        log(f"mesh (c) resident_coordinate_sort: "
+            f"{e2e['mesh_sort_permutation_s']}s, equal to torch.sort"
+            f"(stable=True) of the unmeshed keys; exchange {exch} bytes")
+
+        # (d) the sorted write from the meshed batch
+        out = os.path.join(work, "mesh_sorted.bam")
+        t0 = time.perf_counter()
+        st.write(mds, out, port.BaiWriteOption.ENABLE, sort=True)
+        e2e["mesh_sort_write_s"] = round(time.perf_counter() - t0, 4)
+        for ext in ("", ".bai"):
+            with open(out + ext, "rb") as a, open(dst + ext, "rb") as b:
+                check(a.read() == b.read(),
+                      f"mesh (d): sorted BAM{ext} differs from the main "
+                      "path's")
+        log(f"mesh (d) sorted BAM + BAI: {e2e['mesh_sort_write_s']}s, "
+            f"byte-identical to the main path's")
+        del mds, mb, cols, shards
+
+        # (e) the sharded sorts of u64 keys
+        rng = np.random.default_rng(args.seed + 16)
+        keysets = {
+            "uniform": rng.integers(0, 1 << 62, MESH_KEYS, dtype=np.uint64),
+            "skewed": np.where(
+                rng.random(MESH_KEYS) < 0.9, np.uint64(42),
+                rng.integers(0, 1 << 60, MESH_KEYS, dtype=np.uint64))}
+        flat = SS.make_mesh(MESH_SHARDS)
+        grid = np.empty((2, MESH_SHARDS // 2), dtype=object)
+        for i, d in enumerate(flat.devices.flat):
+            grid.flat[i] = d
+        grid = M.Mesh(grid, ("dcn", "shards"))
+        for kind, keys in keysets.items():
+            want = np.argsort(keys, kind="stable")
+            for how, fn in (
+                    ("flat", lambda k: SS.sharded_coordinate_sort(k, flat)),
+                    ("2x4", lambda k: SS.hierarchical_coordinate_sort(
+                        k, grid))):
+                before = tracing.REGISTRY.counter(
+                    "device.mesh.exchange_bytes").total()
+                t0 = time.perf_counter()
+                got_keys, got = fn(keys)
+                secs = time.perf_counter() - t0
+                moved = tracing.REGISTRY.counter(
+                    "device.mesh.exchange_bytes").total() - before
+                check(np.array_equal(got, want)
+                      and np.array_equal(got_keys, keys[want]),
+                      f"mesh (e): {how} sort of {kind} keys")
+                check(moved > 0, f"mesh (e): {how} {kind}: no exchange")
+                e2e[f"mesh_sort_{how}_{kind}_s"] = round(secs, 4)
+        log(f"mesh (e) sharded sorts of {MESH_KEYS} u64 keys: " + ", ".join(
+            f"{k[10:-2]} {v}s" for k, v in e2e.items()
+            if k.startswith("mesh_sort_") and "permutation" not in k
+            and "write" not in k) + "; each equal to a stable sort")
+
+        # (f) markdup on dups.bam, on and off the mesh
+        dups = os.path.join(work, "dups.bam")
+        marked = {}
+        for leg, storage in (("mesh", port.ReadsStorage.make_default()
+                              .split_size(args.split_size)
+                              .mesh(MESH_SHARDS)),
+                             ("single", port.ReadsStorage.make_default()
+                              .split_size(args.split_size))):
+            t0 = time.perf_counter()
+            d = storage.read(dups)
+            check((d.reads.mesh is not None) == (leg == "mesh"),
+                  f"mesh (f): the {leg} read's mesh")
+            d2, stats = d.pipeline("sort", "markdup")
+            e2e[f"mesh_markdup_{leg}_s"] = round(time.perf_counter() - t0, 4)
+            marked[leg] = (np.asarray(d2.reads.flag),
+                           stats["markdup"]["duplicates"])
+            del d, d2
+        check(np.array_equal(marked["mesh"][0], marked["single"][0])
+              and marked["mesh"][1] == marked["single"][1] > 0,
+              "mesh (f): markdup on the mesh differs from it off the mesh")
+        log(f"mesh (f) markdup on dups.bam: {marked['mesh'][1]} duplicates "
+            f"on and off the mesh, flags equal; read + sort + markdup "
+            f"{e2e['mesh_markdup_mesh_s']}s on the mesh, "
+            f"{e2e['mesh_markdup_single_s']}s off it")
+
+        # (g) the global mesh of this one process
+        gm = global_mesh()
+        check(gm.shape == {"dcn": 1, "shards": MESH_SHARDS},
+              f"mesh (g): global_mesh shape {gm.shape}")
+        parts = [torch.full((4,), float(i + 1), device=d)
+                 for i, d in enumerate(gm.local_devices)]
+        total = float(MESH_SHARDS * (MESH_SHARDS + 1) // 2)
+        layered = M.psum(M.psum(parts, gm, "shards"), gm, "dcn")
+        both = M.psum(parts, gm, ("dcn", "shards"))
+        check(all(bool((t == total).all()) for t in layered + both),
+              "mesh (g): psum over both axes")
+        log(f"mesh (g) global_mesh: shape {gm.shape}, psum over both axes "
+            f"{total}")
+        log("mesh dcn: not run: the cross-process dcn axis needs one "
+            "process per card (NCCL puts no two ranks on one GPU), and this "
+            "machine has one card")
+    finally:
+        os.environ.pop(M.FORCE_ENV, None)
+        M.reset_mesh()
+    return {"inflate": books.get("inflate", 0),
+            "parse": books.get("parse", 0)}, e2e
+
+
 def run(args) -> dict:
     import torch
 
@@ -5448,6 +5659,7 @@ def run(args) -> dict:
     from disq_tpu_torch.native import _load as load_host_library
 
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     t0 = time.perf_counter()
@@ -5762,8 +5974,8 @@ def run(args) -> dict:
     kernels += write_kernels
     log(f"phase device write: {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
-    service, svc_e2e = service_legs(torch, port, args, g, perm_want, info,
-                                    ds, src, work, dev, head)
+    service, svc_e2e, b3_service_plain = service_legs(
+        torch, port, args, g, perm_want, info, ds, src, work, dev, head)
     log(f"phase device service: {time.perf_counter() - t0:.3f}s")
     t0 = time.perf_counter()
     traced = trace_leg(torch, port, args, src, work)
@@ -5790,10 +6002,18 @@ def run(args) -> dict:
     t0 = time.perf_counter()
     served, serve_e2e = serve_legs(torch, port, args, g, perm_want, work)
     log(f"phase serve: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    meshed, mesh_e2e = mesh_legs(torch, port, args, g, perm_want, fstat, ds,
+                                 src, dst, work, n_splits)
+    log(f"phase mesh: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
     by_name = {k["name"]: k for k in kernels}
+    t0 = time.perf_counter()
+    b3_service_plain()
+    log(f"joined the service chunk's B3 plain sample: waited "
+        f"{time.perf_counter() - t0:.3f}s")
     for name, entry in service.items():
         by_name[name]["service"] = entry
     by_name["inflate"]["launches_on_resumed_read"] = resumed["inflate"]
@@ -5822,6 +6042,8 @@ def run(args) -> dict:
             leg: books.get(name, 0) for leg, books in sched.items()}
     for name, entry in served.items():
         by_name[name].update(entry)
+    for name in ("inflate", "parse"):
+        by_name[name]["launches_on_mesh"] = meshed[name]
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
@@ -5829,11 +6051,13 @@ def run(args) -> dict:
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
            **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
            **traversal_e2e, **variants_e2e, **planes_e2e, **sched_e2e,
-           **serve_e2e,
+           **serve_e2e, **mesh_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
     shutil.rmtree(work, ignore_errors=True)
+    log(f"whole run: {time.perf_counter() - t_run:.1f}s from the CUDA "
+        "context, kernel builds included")
     return {"card": card, "kernels": kernels,
             "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                        "count": torch.cuda.device_count()}}

@@ -364,15 +364,18 @@ class ReadsDataset:
         when it is off (``runtime/introspect.py``)."""
         return _introspect_address()
 
-    def flagstat(self) -> dict:
+    def flagstat(self, mesh=None, axis: str = "shards") -> dict:
         """Per-category read counts; a device-backed dataset reduces its
-        device flag column."""
+        device flag column (over its shards when it is on a mesh). With
+        ``mesh`` the flag column is split over that mesh's ``axis`` and
+        the counts are a ``psum`` of the shards'."""
         from disq_tpu_torch.ops.flagstat import flagstat_counts
         from disq_tpu_torch.runtime.columnar import ColumnarBatch
 
-        if isinstance(self.reads, ColumnarBatch):
+        if mesh is None and isinstance(self.reads, ColumnarBatch):
             return self.reads.flagstat()
-        return flagstat_counts(np.asarray(self.reads.flag))
+        return flagstat_counts(np.asarray(self.reads.flag), mesh=mesh,
+                               axis=axis)
 
     def coordinate_sorted(self, keep_resident: bool = False
                           ) -> "ReadsDataset":
@@ -388,21 +391,33 @@ class ReadsDataset:
                                 self.reads, keep_resident=keep_resident),
                             device=self.device)
 
-    def device_columns(self) -> dict:
+    def device_columns(self, sharding=None) -> dict:
         """The 8 fixed columns as int32 tensors on the dataset's device.
         A device-backed batch returns its own columns (no transfer); a
-        host batch uploads each column once."""
+        host batch uploads each column once. ``sharding``
+        (``runtime/mesh.batch_sharding(mesh)`` or ``replicated(mesh)``)
+        places each column on that mesh: a list of per-shard tensors."""
         from disq_tpu_torch.bam.columnar import FIXED_COLUMNS
         from disq_tpu_torch.runtime.columnar import ColumnarBatch
         from disq_tpu_torch.runtime.device_pipeline import upload
         from disq_tpu_torch.util import resolve_device
 
-        if isinstance(self.reads, ColumnarBatch) and self.reads.device_backed:
+        if (sharding is None and isinstance(self.reads, ColumnarBatch)
+                and self.reads.device_backed):
             return self.reads.device_columns()
-        device = resolve_device(self.device)
-        return {name: upload(np.asarray(getattr(self.reads, name),
+        if sharding is not None:
+            from disq_tpu_torch.runtime.mesh import mesh_put
+
+            device = sharding.mesh.local_devices[0]
+        else:
+            device = resolve_device(self.device)
+        cols = {name: upload(np.asarray(getattr(self.reads, name),
                                         dtype=np.int32), device)
                 for name in FIXED_COLUMNS}
+        if sharding is None:
+            return cols
+        return {name: mesh_put(col, sharding.mesh, sharding.batch)
+                for name, col in cols.items()}
 
     def depth(self, window: int = 1024) -> dict:
         """Windowed coverage depth of the mapped records per reference
@@ -532,8 +547,22 @@ class ReadsStorage(_PlaneKnobs):
 
     def resident_decode(self, enable: bool = True) -> "ReadsStorage":
         """Take the device route on the CPU too (its kernels' plain
-        versions); on ``cuda`` it is always taken."""
+        versions); on ``cuda`` it is always taken. Env equivalent:
+        ``DISQ_TPU_TORCH_RESIDENT_DECODE``."""
         self._resident_decode = enable
+        self._options = self._options.with_resident_decode(enable)
+        return self
+
+    def mesh(self, devices: int = 0) -> "ReadsStorage":
+        """Arm the mesh (``runtime/mesh.py``): a device-route BAM read
+        parses each split once per shard of a ``batch`` axis (kernel B2
+        on each shard's slice of the records), and the batch's flagstat,
+        depth, pileup, read-group stats and coordinate sort reduce over
+        the shards with the mesh's ``psum`` and ``all_to_all``.
+        ``devices=0`` takes every local device, ``n`` the first n
+        (power-of-two floor); one device keeps the single-device path.
+        Env equivalent: ``DISQ_TPU_TORCH_MESH``."""
+        self._options = self._options.with_mesh(devices)
         return self
 
     def device_deflate(self, enable: bool = True) -> "ReadsStorage":
@@ -737,6 +766,14 @@ class VariantsStorage(_PlaneKnobs):
         """Take the device inflate route on the CPU too (its kernels'
         plain versions); on ``cuda`` it is always taken."""
         self._resident_decode = enable
+        self._options = self._options.with_resident_decode(enable)
+        return self
+
+    def mesh(self, devices: int = 0) -> "VariantsStorage":
+        """See ``ReadsStorage.mesh``. Only the BAM read shards over the
+        mesh, as in the reference; the knob is taken here so option sets
+        stay interchangeable across storages."""
+        self._options = self._options.with_mesh(devices)
         return self
 
     def device_deflate(self, enable: bool = True) -> "VariantsStorage":

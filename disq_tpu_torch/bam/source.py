@@ -144,7 +144,7 @@ class BamSource:
                                 device=device)
         with trace_phase("bam.read.splits"):
             batches = self.read_split_batches(fs, path, header,
-                                              first_voffset, ctx)
+                                              first_voffset, ctx=ctx)
             batch = ColumnarBatch.concat(batches)
         if debug_enabled():
             check_read_batch(batch, n_ref=header.n_ref)
@@ -158,15 +158,18 @@ class BamSource:
 
     def read_split_batches(self, fs: FileSystemWrapper, path: str,
                            header: SamHeader, first_voffset: int,
-                           ctx) -> List:
-        """One batch per split, in split order, through the shard
-        executor (resumable under the storage's read ledger); each
-        shard gets its own retrier and corrupt-block books
-        (``ctx.for_shard``). Under the shard scheduler, the batches of
-        the splits this process won."""
+                           split_size: Optional[int] = None,
+                           ctx=None) -> List:
+        """One batch per split (``split_size`` bytes, the source's own
+        unless given), in split order, through the shard executor
+        (resumable under the storage's read ledger); each shard gets its
+        own retrier and corrupt-block books (``ctx.for_shard``; the
+        storage's error context unless given). Under the shard
+        scheduler, the batches of the splits this process won."""
         from disq_tpu_torch.runtime.counters import ShardCounters
         from disq_tpu_torch.runtime.errors import (
             DisqOptions,
+            context_for_storage,
             deadline_fallback_for,
         )
         from disq_tpu_torch.runtime.executor import (
@@ -182,7 +185,9 @@ class BamSource:
         # notes its corrupt blocks, and the decode books the winner's
         fetch = self._fetch_attempt if opts.hedge_quantile is not None \
             else self._fetch_range
-        splits = compute_path_splits(fs, path, self.split_size)
+        if ctx is None:
+            ctx = context_for_storage(self._storage, path)
+        splits = compute_path_splits(fs, path, split_size or self.split_size)
         sbi = ctx.retrier.call(self._try_load_sbi, fs, path, what="sbi")
         bounds = self._split_boundaries(fs, path, header, first_voffset,
                                         splits, sbi, ctx)
@@ -530,9 +535,14 @@ class BamSource:
         try:
             offsets = scan_record_offsets(record_bytes)
             if device is not None:
+                # the mesh (runtime/mesh.py): with the knob armed each
+                # shard parses its slice of the records and the batch
+                # carries the mesh; two attribute reads when off
+                from disq_tpu_torch.runtime.mesh import mesh_for_storage
+
                 return ColumnarBatch.from_blob(
                     record_bytes, offsets, dev_blob, n_ref=header.n_ref,
-                    origin=lo_u), stats
+                    origin=lo_u, mesh=mesh_for_storage(self._storage)), stats
             return decode_records(record_bytes, offsets,
                                   n_ref=header.n_ref), stats
         except ValueError as e:

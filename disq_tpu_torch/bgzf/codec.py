@@ -85,15 +85,22 @@ def _block_arrays(data, blocks: Sequence[BgzfBlock], base: int):
 
 
 def inflate_blocks(data: bytes, blocks: Sequence[BgzfBlock], base: int = 0,
-                   verify_crc: bool = True) -> np.ndarray:
+                   verify_crc: bool = True, as_array: bool = True,
+                   keep_device: bool = False):
     """Host route: inflate many blocks of a staged buffer into one uint8
-    array. ``base`` is the file offset of ``data[0]``."""
+    array (``bytes`` when ``as_array`` is false). ``base`` is the file
+    offset of ``data[0]``. ``keep_device`` returns ``(blob, None)``: the
+    host route leaves nothing on a device."""
     if not blocks:
-        return np.empty(0, dtype=np.uint8)
-    from disq_tpu_torch.runtime.tracing import span
+        out = np.empty(0, dtype=np.uint8)
+    else:
+        from disq_tpu_torch.runtime.tracing import span
 
-    with span("codec.inflate.batch", blocks=len(blocks)):
-        return _inflate_blocks(data, blocks, base, verify_crc)
+        with span("codec.inflate.batch", blocks=len(blocks)):
+            out = _inflate_blocks(data, blocks, base, verify_crc)
+    if not as_array:
+        out = out.tobytes()
+    return (out, None) if keep_device else out
 
 
 def _inflate_blocks(data, blocks, base, verify_crc) -> np.ndarray:
@@ -112,27 +119,60 @@ def _inflate_blocks(data, blocks, base, verify_crc) -> np.ndarray:
 
 def inflate_blocks_device(data: bytes, blocks: Sequence[BgzfBlock],
                           base: int, device, verify_crc: bool = True,
-                          keep_device: bool = False):
+                          keep_device: bool = False, as_array: bool = True,
+                          to_columnar=None):
     """Device route: returns ``(host blob, device blob)``, the same
     decoded bytes on both sides, or ``(host blob, None)`` unless
     ``keep_device``: a caller that reads only the host bytes (the text
     formats) keeps no device copy, and the legacy and service routes
-    upload nothing. When the kernel flags blocks (nonzero status) or
-    their CRCs do not match, raises ``FlaggedBlocksError`` (a
+    upload nothing. The host blob is a uint8 array (``bytes`` when
+    ``as_array`` is false). When the kernel flags blocks (nonzero status)
+    or their CRCs do not match, raises ``FlaggedBlocksError`` (a
     ``ValueError``) with the first one's message, every bad block, and
     the batch's output, which the caller's salvage path keeps for the
-    good blocks."""
+    good blocks.
+
+    ``to_columnar`` (``{"n_ref": …, "lo_u": …, "end_u": …}``) returns a
+    device-backed ``ColumnarBatch`` of the records in ``[lo_u, end_u)``
+    of the decoded bytes instead, parsed (kernel B2) where the inflate
+    left them."""
     import torch
 
+    if to_columnar is not None:
+        return _to_columnar(data, blocks, base, device, verify_crc,
+                            to_columnar)
     if not blocks:
         empty = np.empty(0, dtype=np.uint8)
-        return empty, (torch.empty(0, dtype=torch.uint8, device=device)
-                       if keep_device else None)
-    from disq_tpu_torch.runtime.tracing import span
+        out = (empty, (torch.empty(0, dtype=torch.uint8, device=device)
+                       if keep_device else None))
+    else:
+        from disq_tpu_torch.runtime.tracing import span
 
-    with span("codec.inflate.batch", blocks=len(blocks)):
-        return _inflate_blocks_device(data, blocks, base, device, verify_crc,
-                                      keep_device)
+        with span("codec.inflate.batch", blocks=len(blocks)):
+            out = _inflate_blocks_device(data, blocks, base, device,
+                                         verify_crc, keep_device)
+    if not as_array:
+        out = (out[0].tobytes(), out[1])
+    return out
+
+
+def _to_columnar(data, blocks, base, device, verify_crc, spec):
+    """``inflate_blocks_device(..., to_columnar=spec)``."""
+    from disq_tpu_torch.bam.codec import scan_record_offsets
+    from disq_tpu_torch.bam.columnar import ReadBatch
+    from disq_tpu_torch.runtime.columnar import ColumnarBatch
+
+    if not blocks:
+        return ColumnarBatch.from_host(ReadBatch.empty())
+    blob, blob_dev = inflate_blocks_device(data, blocks, base, device,
+                                           verify_crc, keep_device=True)
+    lo_u = int(spec.get("lo_u", 0))
+    end_u = spec.get("end_u")
+    end_u = len(blob) if end_u is None else int(end_u)
+    records = blob[lo_u:end_u]
+    return ColumnarBatch.from_blob(records, scan_record_offsets(records),
+                                   blob_dev, n_ref=spec.get("n_ref"),
+                                   origin=lo_u)
 
 
 def _inflate_blocks_device(data, blocks, base, device, verify_crc,

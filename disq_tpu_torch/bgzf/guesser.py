@@ -83,6 +83,16 @@ class BgzfBlockGuesser:
                 return offset + int(cand)
         return None
 
+    def blocks_in_split(self, start: int, end: int) -> List[BgzfBlock]:
+        """All blocks whose start lies in ``[start, end)``: the first
+        owner rule of a split (a block straddling ``end`` belongs to this
+        split)."""
+        first = self.guess_block_start(start)
+        if first is None or first >= end:
+            return []
+        return walk_blocks_collect(self.fs, self.path, first, end,
+                                   self.length)[0]
+
 
 def _walk_buffer(buf: bytes, stop: int) -> tuple[list, int]:
     """Walk complete blocks in ``buf`` whose start is ``< stop``:

@@ -840,6 +840,15 @@ def read_stored_blocks(container_blocks: bytes):
     return out
 
 
+def decode_container_records(container_blocks: bytes,
+                             ref_fetch=None) -> ReadBatch:
+    """Decode the block section of one data container into a
+    ``ReadBatch`` on the host: ``read_stored_blocks`` (CRC-checked),
+    each block decompressed, then ``records_from_blocks``."""
+    blocks = [b.decompress() for b in read_stored_blocks(container_blocks)]
+    return records_from_blocks(blocks, ref_fetch)
+
+
 def records_from_blocks(decoded_blocks: Sequence,
                         ref_fetch=None) -> ReadBatch:
     """Decoded blocks of one data container (compression header, then

@@ -420,18 +420,129 @@ def inflate_payloads_device(data: np.ndarray, pay_off: np.ndarray,
     return blob, out_off
 
 
-def host_inflate(payload, expect: int) -> bytes:
-    """Host zlib of one raw-DEFLATE payload (the service's route for a
-    lane the kernel flagged): a decode failure or a length other than
-    ``expect`` raises ``ValueError``."""
+def host_inflate(p, expect: Optional[int] = None) -> bytes:
+    """Host zlib of one raw-DEFLATE payload (the route of a lane the
+    kernel flagged): a decode failure, or a length other than ``expect``
+    when it is given, raises ``ValueError``."""
     try:
-        out = zlib.decompress(payload, wbits=-15, bufsize=max(1, expect))
+        out = zlib.decompress(p, wbits=-15,
+                              bufsize=max(1, expect or 65536))
     except zlib.error as e:
         raise ValueError(f"corrupt DEFLATE stream: {e}") from e
-    if len(out) != expect:
+    if expect is not None and len(out) != expect:
         raise ValueError(f"device inflate failed: ISIZE {expect} != "
                          f"{len(out)}")
     return out
+
+
+class DeviceBlobHandle:
+    """The decoded blob of an ``inflate_payloads_simd(keep_device=True)``
+    call, kept on the device: the kernel's output chunks (one per
+    launch) and the per-block offsets. ``assemble()`` gives the one
+    contiguous uint8 blob the parse reads in place (``ColumnarBatch.
+    from_blob``) and releases the handle; B1 already wrote every block
+    at its offset, so there is nothing to compact."""
+
+    def __init__(self, n_blocks: int, offsets: np.ndarray) -> None:
+        self.chunks: List[torch.Tensor] = []
+        self.offsets = offsets
+        self.n_blocks = n_blocks
+        self._released = False
+
+    def add_chunk(self, words: torch.Tensor) -> int:
+        """Retain one launch's device output; returns its index."""
+        self.chunks.append(words)
+        return len(self.chunks) - 1
+
+    def assemble(self) -> Optional[torch.Tensor]:
+        """The device blob covering every block, or None when nothing
+        stayed on the device. Releases the handle either way."""
+        if self._released or not self.chunks:
+            self.release()
+            return None
+        blob = self.chunks[0] if len(self.chunks) == 1 \
+            else torch.cat(self.chunks)
+        self.release()
+        return blob
+
+    def release(self) -> None:
+        self._released = True
+        self.chunks = []
+
+
+def assemble_blob(results: Sequence):
+    """Per-payload results (uint8 arrays or bytes) joined into one uint8
+    blob and its ``(n + 1,)`` int64 offsets."""
+    offsets = np.zeros(len(results) + 1, dtype=np.int64)
+    for i, r in enumerate(results):
+        offsets[i + 1] = offsets[i] + len(r)
+    blob = np.empty(int(offsets[-1]), dtype=np.uint8)
+    for i, r in enumerate(results):
+        blob[offsets[i]: offsets[i + 1]] = (
+            r if isinstance(r, np.ndarray) else np.frombuffer(r, np.uint8))
+    return blob, offsets
+
+
+def inflate_payloads_simd(payloads: Sequence,
+                          usizes: Optional[Sequence[int]] = None,
+                          as_array: bool = False, keep_device: bool = False,
+                          device=None):
+    """Inflate raw-DEFLATE payloads in one launch of kernel B1 (its plain
+    version on the CPU) on ``device`` (``cuda`` unless given).
+
+    Returns the bytes of each payload, or with ``as_array`` one uint8
+    blob and its ``(n + 1,)`` offsets. Without ``usizes`` each payload
+    decodes into a 64 KiB slot and keeps its own length. A lane the
+    kernel flags is inflated again on the host, which raises
+    ``ValueError`` for a corrupt stream (the framework's corrupt-input
+    contract). ``keep_device`` (with ``as_array`` and ``usizes``) adds a
+    ``DeviceBlobHandle`` over the blob the kernel left on the device."""
+    from disq_tpu_torch.util import resolve_device
+
+    keep_device = keep_device and as_array and usizes is not None
+    n = len(payloads)
+    if n == 0:
+        if as_array:
+            empty = np.empty(0, np.uint8), np.zeros(1, np.int64)
+            return (*empty, None) if keep_device else empty
+        return []
+    dev = resolve_device(device)
+    known = usizes is not None
+    expects = [int(u) for u in usizes] if known else [65536] * n
+    handle = launch_payloads([bytes(p) for p in payloads], expects, dev)
+    blob_dev = handle.outputs[0]
+    with span("device.transfer", direction="d2h"):
+        blob, out_len, status, out_off = fetch_payloads(handle)
+    ok = (status == OK) | ((status == ISIZE_MISMATCH) & (not known))
+    flagged = np.nonzero(~ok)[0]
+    counters.add_stats(last_stats, device_lanes=n - len(flagged),
+                       host_fallback=len(flagged))
+    if len(flagged):
+        counters.book_host_fallback("flagged", len(flagged))
+    results: List[Any] = []
+    patches = {}
+    for i in range(n):
+        if ok[i]:
+            lo = int(out_off[i])
+            results.append(blob[lo: lo + int(out_len[i])])
+        else:
+            val = host_inflate(payloads[i], expects[i] if known else None)
+            patches[i] = val
+            results.append(np.frombuffer(val, dtype=np.uint8))
+    if not as_array:
+        return [r.tobytes() for r in results]
+    if not known:
+        return assemble_blob(results)
+    for i, val in patches.items():
+        blob[out_off[i]: out_off[i + 1]] = np.frombuffer(val, np.uint8)
+    if not keep_device:
+        return blob, out_off
+    for i, val in patches.items():
+        blob_dev[int(out_off[i]): int(out_off[i + 1])] = \
+            torch.from_numpy(np.frombuffer(val, np.uint8).copy()).to(dev)
+    dev_handle = DeviceBlobHandle(n, out_off)
+    dev_handle.add_chunk(blob_dev)
+    return blob, out_off, dev_handle
 
 
 # -- staging arenas and the launch / fetch split ----------------------------

@@ -1,9 +1,9 @@
 """Region pileup: per-base coverage over one reference interval, the
 base-granularity form of ``ops/depth.py``'s windowed depth.
 
-Counterpart of ``disq_tpu/ops/pileup.py`` (the single-device path; the
-mesh's ``_depth_psum`` waits for multi-GPU). The same difference array
-summed by a cumulative sum (``ops/depth.py::_depth_global``), at one
+Counterpart of ``disq_tpu/ops/pileup.py``. The same difference array
+summed by a cumulative sum (``ops/depth.py::_depth_global``, or
+``_depth_psum`` over the shards of a batch on a mesh), at one
 window per base over the queried region: depth at base b counts the
 mapped alignments whose reference span covers b. Mapped records only
 (``flag & 0x4`` clear, as ``window_depth``); secondary, supplementary
@@ -83,6 +83,11 @@ def region_pileup(batch, refid: int, start: int, end: int,
         # clamp onto the region's base space [0, length - 1]
         b_lo = np.clip(pos[sel] - start, 0, length - 1).astype(np.int64)
         b_hi = np.clip(ends[sel] - 1 - start, 0, length - 1).astype(np.int64)
+        mesh = getattr(batch, "mesh", None)
+        if mesh is not None:
+            from disq_tpu_torch.ops.depth import _depth_psum
+
+            return _depth_psum(b_lo, b_hi, length, mesh)
         lo, hi = upload(b_lo, device), upload(b_hi, device)
         with device_span("device.kernel", kernel="depth",
                          records=len(b_lo)) as fence:

@@ -31,6 +31,11 @@ from disq_tpu_torch.ops.rans_simd import (
 
 __all__ = ["rans0_decode_device", "rans0_decode_legacy", "rans0_decode_plain"]
 
+# the rANS coder's constants: the lower bound of a renormalized state and
+# the frequency table's precision (frequencies sum to 1 << TF_SHIFT)
+RANS_LOW = 1 << 23
+TF_SHIFT = 12
+
 # cumulative dispatch diagnostics, as ops/rans_simd.last_stats
 last_stats = {"device_lanes": 0, "host_big": 0, "host_fallback": 0}
 

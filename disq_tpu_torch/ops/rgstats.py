@@ -1,8 +1,7 @@
 """Per-read-group statistics: reads, duplicates, duplicate rate and the
 MAPQ histogram of each ``RG``, reduced on the batch's device.
 
-Counterpart of ``disq_tpu/ops/rgstats.py`` (the single-device path; the
-mesh's ``_rg_psum_kernel`` waits for multi-GPU). The ``RG:Z`` tag is a
+Counterpart of ``disq_tpu/ops/rgstats.py``. The ``RG:Z`` tag is a
 ragged attribute, so the id column is resolved on the host: an exact
 per-record walk of the BAM tag region over the record blob (a
 device-backed batch, no host record parse) or the host tag column, with
@@ -10,8 +9,9 @@ a vectorized ``RGZ`` pre-scan so a file without RG tags skips the walk.
 The dense ids go up once (4 bytes per record) and the reduction (one
 ``index_add_`` over ``rg * 256 + mapq`` and one over the duplicate bit)
 runs as torch ops against the resident mapq and flag columns; only the
-histogram rows come back. A host batch bincounts in numpy; the integers
-are the same.
+histogram rows come back; a batch on a mesh reduces shard by shard and
+``psum``s the rows (``_rg_psum_kernel``). A host batch bincounts in
+numpy; the integers are the same.
 """
 
 from __future__ import annotations
@@ -122,20 +122,47 @@ def rg_reduce(rg: torch.Tensor, mapq: torch.Tensor, flag: torch.Tensor,
     return hist, dups
 
 
+def _rg_psum_kernel(rg, mapq, flag, n_rg: int, mesh
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mesh form: each shard reduces its slice of the batch-sharded
+    columns (``rg_reduce``) and a ``psum`` over the ``batch`` axis merges
+    the histograms."""
+    from disq_tpu_torch.runtime.mesh import MESH_AXIS, psum
+
+    parts = [rg_reduce(r, m, f, n_rg) for r, m, f in zip(rg, mapq, flag)]
+    return (psum([p[0] for p in parts], mesh, MESH_AXIS)[0],
+            psum([p[1] for p in parts], mesh, MESH_AXIS)[0])
+
+
 def _reduce_resident(batch, ids: np.ndarray, n_rg: int
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """The reduction against the resident mapq and flag columns: the
-    ids go up, only the histogram rows come back."""
+    ids go up, only the histogram rows come back. A batch on a mesh
+    reduces shard by shard (``_rg_psum_kernel``)."""
     from disq_tpu_torch.runtime import counters
     from disq_tpu_torch.runtime.device_pipeline import upload
     from disq_tpu_torch.runtime.tracing import device_span
 
-    dev = batch.device_columns()
     n = int(batch.count)
-    rg = upload(ids.astype(np.int64), batch.device)
-    with device_span("device.kernel", kernel="rgstats", records=n) as fence:
-        hist, dups = fence.sync(rg_reduce(rg, dev["mapq"], dev["flag"],
-                                          n_rg))
+    mesh = batch.mesh
+    if mesh is not None:
+        cols = batch.shard_columns()
+        rg, base = [], 0
+        for m in cols["mapq"]:
+            rg.append(upload(ids[base: base + m.numel()].astype(np.int64),
+                             m.device))
+            base += m.numel()
+        with device_span("device.kernel", kernel="rgstats", records=n,
+                         devices=len(rg)) as fence:
+            hist, dups = fence.sync(_rg_psum_kernel(
+                rg, cols["mapq"], cols["flag"], n_rg, mesh))
+    else:
+        dev = batch.device_columns()
+        rg = upload(ids.astype(np.int64), batch.device)
+        with device_span("device.kernel", kernel="rgstats",
+                         records=n) as fence:
+            hist, dups = fence.sync(rg_reduce(rg, dev["mapq"], dev["flag"],
+                                              n_rg))
     h, d = hist.cpu().numpy(), dups.cpu().numpy()
     if hist.is_cuda:
         counters.book_transfer("d2h", h.nbytes + d.nbytes)

@@ -28,6 +28,13 @@ device:
   pending order and device, and parses the blob again with the parse
   kernel on that device when loaded (raising if it is absent); a host
   batch spills its ``ReadBatch``.
+- **Mesh** (``runtime/mesh.py``): a batch built with a mesh holds each
+  fixed column as a batch-sharded set, one tensor per shard
+  (``shard_columns()``); ``mesh`` names it. ``flagstat()`` and
+  ``sort_permutation()`` reduce over the shards (``psum``, the sharded
+  sort's ``all_to_all``), and ``permuted``, ``filter`` and ``concat`` of
+  same-mesh batches stay sharded (``mesh_put``). Column access and
+  ``device_columns()`` join the shards.
 - **Telemetry** (the reference's names): ``columnar.batch.build`` /
   ``fetch`` / ``compact`` spans, the ``columnar.batch.materializations``
   counter (host parses of the records), the
@@ -57,8 +64,23 @@ from disq_tpu_torch.runtime.tracing import (
     track_hbm,
 )
 
+# The 12 fields the parse kernel emits (``ops/parse._FIELD_ORDER``); the
+# 8 ``ReadBatch`` fixed columns are a subset with narrower dtypes.
+PARSE_FIELDS = (
+    "block_size", "refid", "pos", "l_read_name", "mapq", "bin",
+    "n_cigar", "flag", "l_seq", "next_refid", "next_pos", "tlen",
+)
+
 _stats_lock = threading.Lock()
 _resident_live_bytes = 0
+_device_batches_built = 0
+
+
+def device_batches_built() -> int:
+    """Device-backed batches built in this process: 0 while the device
+    route is off (the overhead guard's witness)."""
+    with _stats_lock:
+        return _device_batches_built
 
 
 def _note_resident(delta: int) -> None:
@@ -139,6 +161,9 @@ class ColumnarBatch:
         self._consumed: Dict[str, int] = {}
         self._resident = 0   # bytes of device columns this batch holds
         self._released = False
+        # the mesh the device columns are sharded over (each a list of
+        # per-shard tensors), or None for single-device columns
+        self._mesh = None
 
     # -- construction -------------------------------------------------------
 
@@ -158,13 +183,15 @@ class ColumnarBatch:
         device_blob: torch.Tensor,
         n_ref: Optional[int] = None,
         origin: int = 0,
+        mesh=None,
     ) -> "ColumnarBatch":
         """Parse the records at ``offsets`` into columns on
         ``device_blob``'s device, in place from ``device_blob`` (the
         inflate kernel's output, rebased by ``origin``); ``blob`` is its
-        host copy, kept for the ragged columns. Raises ``ValueError``
-        like the host parser on a corrupt record, and
-        ``DeviceParseFault`` when only the device check flags one."""
+        host copy, kept for the ragged columns. With ``mesh`` each shard
+        parses its slice of the records and the columns are sharded.
+        Raises ``ValueError`` like the host parser on a corrupt record,
+        and ``DeviceParseFault`` when only the device check flags one."""
         from disq_tpu_torch.runtime.device_pipeline import (
             parse_columns_resident,
             upload,
@@ -180,9 +207,21 @@ class ColumnarBatch:
         self._n_ref = n_ref
         with span("columnar.batch.build", records=n,
                   bytes=int(self._offsets[-1])):
-            cols = parse_columns_resident(device_blob, self._offsets, origin)
-        rec_len = upload(np.diff(self._offsets), device_blob.device)
-        if record_check(cols, rec_len, n_ref):
+            cols = parse_columns_resident(device_blob, self._offsets, origin,
+                                          mesh=mesh)
+        rec_len = np.diff(self._offsets)
+        if mesh is None:
+            bad = record_check(cols, upload(rec_len, device_blob.device),
+                               n_ref)
+        else:
+            from disq_tpu_torch.runtime.mesh import shard_bounds
+
+            bad = False
+            for i, (lo, hi) in enumerate(shard_bounds(n, len(cols["pos"]))):
+                part = {k: v[i] for k, v in cols.items()}
+                bad = bad or (hi > lo and record_check(
+                    part, upload(rec_len[lo:hi], part["pos"].device), n_ref))
+        if bad:
             # the host parser is the authority on the error message
             from disq_tpu_torch.bam.codec import decode_records
 
@@ -190,15 +229,19 @@ class ColumnarBatch:
             raise DeviceParseFault(
                 "device record check flagged a record that the host "
                 "parser accepts")
+        self._mesh = mesh
         self._set_dev({k: cols[k] for k in FIXED_COLUMNS})
         return self
 
     def _set_dev(self, dev: Dict[str, torch.Tensor]) -> None:
-        """Hold ``dev`` as this batch's device columns, booked as
-        resident."""
+        """Hold ``dev`` as this batch's device columns (each a tensor, or
+        a list of per-shard tensors on a mesh), booked as resident."""
+        global _device_batches_built
         self._dev = dev
         self._resident = sum(t.numel() * t.element_size()
-                             for t in dev.values())
+                             for v in dev.values() for t in _parts(v))
+        with _stats_lock:
+            _device_batches_built += 1
         _note_resident(self._resident)
 
     # -- identity -----------------------------------------------------------
@@ -209,7 +252,14 @@ class ColumnarBatch:
 
     @property
     def device(self) -> Optional[torch.device]:
-        return None if self._dev is None else self._dev["flag"].device
+        """The device of the columns (of the first shard on a mesh)."""
+        return None if self._dev is None else _parts(self._dev["flag"])[0].device
+
+    @property
+    def mesh(self):
+        """The mesh the device columns are sharded over, or None
+        (single-device columns, or a host-backed batch)."""
+        return self._mesh if self._dev is not None else None
 
     @property
     def count(self) -> int:
@@ -219,10 +269,22 @@ class ColumnarBatch:
         return self._n
 
     def device_columns(self) -> Dict[str, torch.Tensor]:
-        """The fixed columns as device int32 tensors (no copy)."""
+        """The fixed columns as device int32 tensors (no copy; a sharded
+        column is joined on its first shard's device)."""
         if self._dev is None:
             raise ValueError("host-backed batch has no device columns")
-        return dict(self._dev)
+        if self._mesh is None:
+            return dict(self._dev)
+        from disq_tpu_torch.runtime.mesh import mesh_gather
+
+        return {k: mesh_gather(v) for k, v in self._dev.items()}
+
+    def shard_columns(self) -> Dict[str, List[torch.Tensor]]:
+        """The fixed columns as per-shard tensors (one shard when the
+        batch has no mesh)."""
+        if self._dev is None:
+            raise ValueError("host-backed batch has no device columns")
+        return {k: _parts(v) for k, v in self._dev.items()}
 
     # -- lazy column access -------------------------------------------------
 
@@ -241,11 +303,12 @@ class ColumnarBatch:
                     return getattr(self._ragged_source(), name)
                 raise RuntimeError(
                     f"column {name!r} of a released ColumnarBatch")
-            col = self._dev[name]
+            parts = _parts(self._dev[name])
             with span("columnar.batch.fetch", column=name,
-                      bytes=col.numel() * col.element_size()):
-                raw = col.cpu().numpy()
-            if col.is_cuda:
+                      bytes=sum(t.numel() * t.element_size()
+                                for t in parts)):
+                raw = np.concatenate([t.cpu().numpy() for t in parts])
+            if parts[0].is_cuda:
                 counters.book_transfer("d2h", raw.nbytes)
             arr = raw.astype(_COL_DTYPE[name])
             self._cache[name] = arr
@@ -325,11 +388,18 @@ class ColumnarBatch:
 
     def _gathered(self, indices: np.ndarray) -> Dict[str, torch.Tensor]:
         """The fixed columns gathered by ``indices`` on their device (one
-        index upload)."""
+        index upload); on a mesh, gathered on the first shard's device
+        and placed back batch-sharded (``mesh_put``)."""
         from disq_tpu_torch.runtime.device_pipeline import upload
 
         idx = upload(np.asarray(indices, dtype=np.int64), self.device)
-        return {name: torch.index_select(self._dev[name], 0, idx)
+        if self._mesh is None:
+            return {name: torch.index_select(self._dev[name], 0, idx)
+                    for name in FIXED_COLUMNS}
+        from disq_tpu_torch.runtime.mesh import mesh_gather, mesh_put
+
+        return {name: mesh_put(torch.index_select(
+                    mesh_gather(self._dev[name]), 0, idx), self._mesh)
                 for name in FIXED_COLUMNS}
 
     def permuted(self, order: np.ndarray) -> "ColumnarBatch":
@@ -346,6 +416,7 @@ class ColumnarBatch:
         out = ColumnarBatch()
         out._n = self._n
         out._n_ref = self._n_ref
+        out._mesh = self._mesh
         out._set_dev(self._gathered(order))
         with self._lock:
             out._blob, out._blob_parts = self._blob, self._blob_parts
@@ -371,6 +442,7 @@ class ColumnarBatch:
             out = ColumnarBatch()
             out._n = len(keep)
             out._n_ref = self._n_ref
+            out._mesh = self._mesh
             out._set_dev(self._gathered(keep))
             out._blob, out._offsets = segment_gather(self._host_blob(),
                                                      self._offsets, src)
@@ -406,10 +478,18 @@ class ColumnarBatch:
             if self._dev is not None:
                 from disq_tpu_torch.runtime.device_pipeline import upload
 
-                flag = self._dev["flag"]
-                at = upload(idx.astype(np.int64), flag.device)
-                self._dev["flag"] = flag.index_put(
-                    (at,), flag.index_select(0, at) | bits)
+                parts, base = [], 0
+                for flag in _parts(self._dev["flag"]):
+                    m = flag.numel()
+                    local = idx[(idx >= base) & (idx < base + m)] - base
+                    if len(local):
+                        at = upload(local.astype(np.int64), flag.device)
+                        flag = flag.index_put(
+                            (at,), flag.index_select(0, at) | bits)
+                    parts.append(flag)
+                    base += m
+                self._dev["flag"] = parts if self._mesh is not None \
+                    else parts[0]
             elif self._rb is not None:
                 self._rb.flag[idx] |= np.uint16(bits)
             # the host-side views are stale now
@@ -464,11 +544,16 @@ class ColumnarBatch:
 
     def flagstat(self) -> Dict[str, int]:
         """flagstat over the device flag column: 12 counts cross d2h."""
-        from disq_tpu_torch.ops.flagstat import flagstat_counts
+        from disq_tpu_torch.ops.flagstat import (
+            flagstat_counts, flagstat_resident_sharded)
 
         if self._dev is None:
             return flagstat_counts(np.asarray(self.flag))
-        out = flagstat_counts(self._dev["flag"])
+        if self._mesh is not None:
+            out = flagstat_resident_sharded(self._dev["flag"], self._n,
+                                            self._mesh)
+        else:
+            out = flagstat_counts(self._dev["flag"])
         self._consume_on_device("flag", 4 * self._n)
         return out
 
@@ -481,6 +566,13 @@ class ColumnarBatch:
 
             return np.argsort(coordinate_keys(self.refid, self.pos),
                               kind="stable")
+        if self._mesh is not None:
+            from disq_tpu_torch.sort.sharded import resident_coordinate_sort
+
+            order = resident_coordinate_sort(
+                self._dev["refid"], self._dev["pos"], self._n, self._mesh)
+            self._consume_on_device("sort_keys", 8 * self._n)
+            return order
         with device_span("device.kernel", kernel="coordinate_keys",
                          records=self._n) as fence:
             key = coordinate_key(self._dev["refid"], self._dev["pos"])
@@ -497,9 +589,10 @@ class ColumnarBatch:
     @classmethod
     def concat(cls, batches: Sequence) -> "ReadBatch | ColumnarBatch":
         """Concatenate shards: all device-backed ⇒ the fixed columns
-        concatenate on the device and host blobs join lazily; otherwise
-        everything materializes into one host ``ReadBatch``. Consuming:
-        device-backed inputs are released into the result."""
+        concatenate on the device and host blobs join lazily (batches of
+        one mesh stay sharded over it); otherwise everything materializes
+        into one host ``ReadBatch``. Consuming: device-backed inputs are
+        released into the result."""
         batches = [b for b in batches if len(b)]
         if not batches:
             return ReadBatch.empty()
@@ -510,8 +603,21 @@ class ColumnarBatch:
             self = cls()
             self._n = sum(b._n for b in batches)
             self._n_ref = batches[0]._n_ref
-            self._set_dev({name: torch.cat([b._dev[name] for b in batches])
-                           for name in FIXED_COLUMNS})
+            mesh = batches[0]._mesh
+            if mesh is not None and all(b._mesh is mesh for b in batches):
+                from disq_tpu_torch.runtime.mesh import mesh_put
+
+                self._mesh = mesh
+                self._set_dev({name: mesh_put(
+                    [p for b in batches for p in b._dev[name]], mesh)
+                    for name in FIXED_COLUMNS})
+            else:
+                from disq_tpu_torch.runtime.mesh import mesh_gather
+
+                dev = batches[0].device
+                self._set_dev({name: torch.cat([
+                    mesh_gather(_parts(b._dev[name]), dev)
+                    for b in batches]) for name in FIXED_COLUMNS})
             parts: List[np.ndarray] = []
             for b in batches:
                 parts.extend(b._blob_parts if b._blob_parts is not None
@@ -565,6 +671,11 @@ class ColumnarBatch:
                 self._resident = 0
 
 
+def _parts(col) -> List[torch.Tensor]:
+    """A device column as its list of per-shard tensors."""
+    return col if isinstance(col, list) else [col]
+
+
 def _rebuild_from_blob(blob: np.ndarray, offsets: np.ndarray,
                        n_ref: Optional[int], order: Optional[np.ndarray],
                        device: str) -> ColumnarBatch:
@@ -602,9 +713,18 @@ def concat_batches(batches: Sequence) -> "ReadBatch | ColumnarBatch":
 
 def resident_decode_enabled(storage) -> bool:
     """True when reads through ``storage`` take the device route: always
-    on ``cuda``; elsewhere only when ``resident_decode`` was asked for."""
-    return storage._resolved_device().type == "cuda" or \
-        bool(getattr(storage, "_resident_decode", False))
+    on ``cuda``; elsewhere when ``resident_decode`` was asked for, by the
+    storage's ``.resident_decode()``, ``DisqOptions.resident_decode`` or
+    the ``DISQ_TPU_TORCH_RESIDENT_DECODE`` env knob."""
+    if storage._resolved_device().type == "cuda" or \
+            getattr(storage, "_resident_decode", False):
+        return True
+    opts = getattr(storage, "_options", None)
+    if opts is not None and getattr(opts, "resident_decode", False):
+        return True
+    from disq_tpu_torch.runtime.debug import env_flag
+
+    return env_flag("DISQ_TPU_TORCH_RESIDENT_DECODE")
 
 
 def device_route(storage) -> Optional[torch.device]:

@@ -1,8 +1,8 @@
 """Cross-shard device service: one dispatcher thread owns the card's
 queue and feeds kernels B1, B3 and W2 with lanes coalesced across shards.
 
-The counterpart of ``disq_tpu/runtime/device_service.py`` (without its
-per-device mesh sub-queues). Executor decode stages submit their split's
+The counterpart of ``disq_tpu/runtime/device_service.py``. Executor
+decode stages submit their split's
 BGZF payloads (``submit_inflate``) or order-0 rANS streams
 (``submit_rans``), and write-pipeline deflate stages their shard's block
 payloads (``submit_deflate``); each gets a ``Submission`` back. The
@@ -12,6 +12,15 @@ of at most ``LANES``, flushing a queue when it holds ``LANES`` lanes
 (``timeout``; ``DISQ_TPU_TORCH_SERVICE_FLUSH_MS``, default 2) or at
 ``close()`` (``drain``), oldest lane first across the queues. It keeps
 ``_WINDOW`` launches in flight.
+
+Mesh (``runtime/mesh.py``): when the mesh knob is armed at service
+start, each codec keeps one sub-queue per mesh device
+(``mesh.service_devices``) and the one dispatcher feeds them all: a
+submission's lanes go to the least-loaded device, each launch runs on
+that device's engine and stream, ``device.lane_fill`` is labelled with
+the device's index, and the window of launches in flight scales with the
+device count. With the mesh off the device list is ``[None]``, the
+service's own device, and one queue per codec as before.
 
 On a card the dispatcher enters the service's own ``torch.cuda.Stream``:
 each chunk is staged into a pinned arena, copied up and launched on that
@@ -350,17 +359,27 @@ class DeviceDecodeService:
         self.flush_timeout_s = flush_timeout_s
         # outstanding host-fallback lanes, waited out at close
         self._fallback_pending = 0
-        self._engines = {
-            "inflate": _InflateEngine(self.device, self._host_map),
-            "rans": _RansEngine(self.device, self._host_map),
-            "deflate": _DeflateEngine(self.device, self._host_map),
-        }
+        # dispatch targets, snapshotted once: [None] (the service's own
+        # device) unless the mesh knob was armed before service start,
+        # then one sub-queue per mesh device (module docstring)
+        from disq_tpu_torch.runtime.mesh import service_devices
+
+        self._devices = service_devices(self.device)
+        targets = [self.device if d is None else torch.device(d)
+                   for d in self._devices]
+        self._engines = [{
+            "inflate": _InflateEngine(t, self._host_map),
+            "rans": _RansEngine(t, self._host_map),
+            "deflate": _DeflateEngine(t, self._host_map),
+        } for t in targets]
         self._cond = threading.Condition()
-        self._queues: Dict[str, Deque[_Lane]] = {k: deque() for k in _KINDS}
-        self._inflight: Deque[Tuple[str, Any, List[_Lane]]] = deque()
+        self._queues: Dict[str, List[Deque[_Lane]]] = {
+            k: [deque() for _ in targets] for k in _KINDS}
+        self._inflight: Deque[Tuple[str, int, Any, List[_Lane]]] = deque()
         self._closed = False
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
+        self._window = _WINDOW * len(targets)
+        self._streams = [(t, torch.cuda.Stream(t) if t.type == "cuda"
+                          else None) for t in targets]
         self._thread = threading.Thread(
             target=self._run, name="disq-device-dispatch", daemon=True)
         self._thread.start()
@@ -439,8 +458,12 @@ class DeviceDecodeService:
         with self._cond:
             if self._closed:
                 raise RuntimeError("device service is closed")
-            self._queues[kind].extend(lanes)
-            depth = sum(len(q) for q in self._queues.values())
+            qs = self._queues[kind]
+            # the least-loaded device (one queue per codec when mesh-off)
+            i = min(range(len(qs)), key=lambda j: sum(
+                len(self._queues[k][j]) for k in _KINDS))
+            qs[i].extend(lanes)
+            depth = self._depth_locked()
             if sub._pending <= 0:
                 sub._event.set()
             self._cond.notify_all()
@@ -491,14 +514,24 @@ class DeviceDecodeService:
 
     # -- dispatcher ---------------------------------------------------------
 
+    def _depth_locked(self) -> int:
+        return sum(len(q) for qs in self._queues.values() for q in qs)
+
+    def _on(self, dev_i: int):
+        """Device and stream context of ``dev_i``'s launches (nothing on
+        the CPU)."""
+        import contextlib
+
+        target, stream = self._streams[dev_i]
+        stack = contextlib.ExitStack()
+        if stream is not None:
+            stack.enter_context(torch.cuda.device(target))
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
     def _run(self) -> None:
         try:
-            if self._stream is None:
-                self._loop()
-            else:
-                with torch.cuda.device(self.device), \
-                        torch.cuda.stream(self._stream):
-                    self._loop()
+            self._loop()
         except BaseException as e:  # noqa: BLE001 — fail pending, not hang
             self._abort_all(e)
 
@@ -517,17 +550,18 @@ class DeviceDecodeService:
                 if entry is not None:
                     self._inflight.append(entry)
             if self._inflight and (chunk is None
-                                   or len(self._inflight) >= _WINDOW):
+                                   or len(self._inflight) >= self._window):
                 self._materialize(self._inflight.popleft())
 
     def _take_chunk_locked(self):
         now = time.perf_counter()
         # oldest lane first across the queues: a burst of full chunks on
         # one codec must not starve another's lanes past their deadline
-        ready = sorted((k for k, q in self._queues.items() if q),
-                       key=lambda k: self._queues[k][0].ts)
-        for kind in ready:
-            q = self._queues[kind]
+        ready = sorted(((k, i) for k, qs in self._queues.items()
+                        for i, q in enumerate(qs) if q),
+                       key=lambda ki: self._queues[ki[0]][ki[1]][0].ts)
+        for kind, dev_i in ready:
+            q = self._queues[kind][dev_i]
             if len(q) >= LANES:
                 lanes = [q.popleft() for _ in range(LANES)]
                 reason = "full"
@@ -537,24 +571,31 @@ class DeviceDecodeService:
                 reason = "drain" if self._closed else "timeout"
             else:
                 continue
-            return kind, lanes, reason
+            return kind, dev_i, lanes, reason
         return None
 
     def _wait_s_locked(self) -> Optional[float]:
         now = time.perf_counter()
         waits = [self.flush_timeout_s - (now - q[0].ts)
-                 for q in self._queues.values() if q]
+                 for qs in self._queues.values() for q in qs if q]
         if not waits:
             return None  # nothing queued: sleep until a notify
         return max(1e-3, min(waits))
 
-    def _launch(self, kind: str, lanes: List[_Lane], reason: str):
+    def _launch(self, kind: str, dev_i: int, lanes: List[_Lane],
+                reason: str):
         _counter("device.batch.flush").inc(reason=reason)
         _flightrec.record_event("device_flush", codec=kind,
                                 reason=reason, lanes=len(lanes))
-        _observe_gauge("device.lane_fill", len(lanes) / LANES)
+        # mesh-off keeps the unlabelled gauge; a device list labels the
+        # fill per device so one device's partial chunks stay visible
+        if self._devices[dev_i] is None:
+            _observe_gauge("device.lane_fill", len(lanes) / LANES)
+        else:
+            _observe_gauge("device.lane_fill", len(lanes) / LANES,
+                           device=str(dev_i))
         with self._cond:
-            depth = sum(len(q) for q in self._queues.values())
+            depth = self._depth_locked()
         _observe_gauge("device.queue_depth", depth)
         _record_span("device.service.wait",
                      time.perf_counter() - min(l.ts for l in lanes),
@@ -570,7 +611,8 @@ class DeviceDecodeService:
             _counter("device.batch.requests").inc(requests=str(len(owners)))
         t_launch = time.perf_counter()
         try:
-            handle = self._engines[kind].launch(lanes)
+            with self._on(dev_i):
+                handle = self._engines[dev_i][kind].launch(lanes)
         except BaseException as e:  # noqa: BLE001 — the owners, not the loop
             for lane in lanes:
                 lane.sub.fail(lane.index, e)
@@ -584,12 +626,13 @@ class DeviceDecodeService:
                     _record_span("device.batch.share", max(0.0, wait) + share,
                                  kind=kind, lanes=len(own),
                                  batch_lanes=len(lanes))
-        return kind, handle, lanes
+        return kind, dev_i, handle, lanes
 
     def _materialize(self, entry) -> None:
-        kind, handle, lanes = entry
+        kind, dev_i, handle, lanes = entry
         try:
-            self._engines[kind].finalize(handle, lanes)
+            with self._on(dev_i):
+                self._engines[dev_i][kind].finalize(handle, lanes)
         except BaseException as e:  # noqa: BLE001 — the owners, not the loop
             for lane in lanes:
                 lane.sub.fail(lane.index, e)
@@ -597,12 +640,14 @@ class DeviceDecodeService:
     def _abort_all(self, exc: BaseException) -> None:
         with self._cond:
             self._closed = True
-            pending = [l for q in self._queues.values() for l in q]
-            for q in self._queues.values():
-                q.clear()
+            pending = [l for qs in self._queues.values() for q in qs
+                       for l in q]
+            for qs in self._queues.values():
+                for q in qs:
+                    q.clear()
             inflight = list(self._inflight)
             self._inflight.clear()
-        for _kind, _handle, lanes in inflight:
+        for _kind, _dev_i, _handle, lanes in inflight:
             pending.extend(lanes)
         for lane in pending:
             lane.sub.fail(lane.index, exc)

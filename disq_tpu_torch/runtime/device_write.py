@@ -139,6 +139,11 @@ class ResidentShardEncoder:
         self._hbm = self._blob_u8.nbytes
         track_hbm(self._hbm)
 
+    @property
+    def count(self) -> int:
+        """Records of the (sorted) batch this encoder gathers from."""
+        return len(self._perm_off) - 1
+
     def encode_shard(self, lo: int, hi: int) -> EncodedShard:
         """Records [lo, hi) of the sorted batch gathered into one payload
         on the device (kernel W1); only their source starts and

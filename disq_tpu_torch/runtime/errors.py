@@ -146,6 +146,14 @@ class DisqOptions:
     ``DISQ_TPU_TORCH_SCHED`` and ``DISQ_TPU_TORCH_SCHED_{LEASE_N,LEASE_S,
     STEAL,WEIGHT,FAILOVER}``; the env wins for the tuning knobs, so a
     subprocess worker takes its launcher's settings.
+
+    ``resident_decode`` takes the device route (the kernels, or their
+    plain versions on the CPU) off ``cuda``, where it is always on (env
+    ``DISQ_TPU_TORCH_RESIDENT_DECODE``). ``mesh`` shards the resident
+    parse, sort and reductions over a ``batch`` axis of local devices
+    (``runtime/mesh.py``): None (the default) builds no mesh, 0 takes
+    every local device, ``n`` the first n, floored to a power of two
+    (one device is the off path; env ``DISQ_TPU_TORCH_MESH``).
     """
 
     error_policy: ErrorPolicy = ErrorPolicy.STRICT
@@ -157,7 +165,9 @@ class DisqOptions:
     writer_workers: int = 1
     writer_prefetch_shards: Optional[int] = None
     read_ledger: Optional[str] = None
+    resident_decode: bool = False
     device_deflate: bool = False
+    mesh: Optional[int] = None
     span_log: Optional[str] = None
     read_filter: Optional[str] = None
     http_cache_blocks: Optional[int] = None
@@ -287,8 +297,18 @@ class DisqOptions:
                        sched_failover_dir=(str(failover_dir)
                                            if failover_dir else None))
 
+    def with_resident_decode(self, enable: bool = True) -> "DisqOptions":
+        return replace(self, resident_decode=bool(enable))
+
     def with_device_deflate(self, enable: bool = True) -> "DisqOptions":
         return replace(self, device_deflate=bool(enable))
+
+    def with_mesh(self, devices: int = 0) -> "DisqOptions":
+        """Arm the mesh: 0 = every local device, n = the first n
+        (power-of-two floor; one device keeps the single-device path)."""
+        if devices < 0:
+            raise ValueError(f"mesh devices must be >= 0, got {devices}")
+        return replace(self, mesh=int(devices))
 
     def with_http_cache_blocks(self, n: int) -> "DisqOptions":
         if n < 1:

@@ -70,7 +70,7 @@ from disq_tpu_torch.runtime.errors import (
     ShardRetrier,
     is_transient,
 )
-from disq_tpu_torch.runtime.manifest import retry_shard
+from disq_tpu_torch.runtime.manifest import STAGE_RETRIES, retry_shard
 from disq_tpu_torch.runtime.tracing import observe_gauge, record_span, span
 
 # an emit wait shorter than this is no stall worth a span
@@ -118,12 +118,27 @@ class ShardResult:
 
 @dataclass
 class ExecutorStats:
-    """The size of one executor and the shards it ran."""
+    """The size of one executor, the shards it ran and their stage
+    seconds (cumulative across runs on the same executor)."""
 
     workers: int = 0
     window: int = 0
     shards: int = 0
+    fetch_seconds: float = 0.0
+    decode_seconds: float = 0.0
+    emit_stall_seconds: float = 0.0
     max_in_flight: int = 0
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "workers": self.workers,
+            "window": self.window,
+            "shards": self.shards,
+            "fetch_seconds": round(self.fetch_seconds, 6),
+            "decode_seconds": round(self.decode_seconds, 6),
+            "emit_stall_seconds": round(self.emit_stall_seconds, 6),
+            "max_in_flight": self.max_in_flight,
+        }
 
 
 class _BoundedStagePipeline:
@@ -326,7 +341,10 @@ class ShardPipelineExecutor:
                         ) -> Iterator[ShardResult]:
         try:
             for task in tasks:
-                yield self._run_one_inline(task, token)
+                res = self._run_one_inline(task, token)
+                self.stats.fetch_seconds += res.fetch_seconds
+                self.stats.decode_seconds += res.decode_seconds
+                yield res
         except GeneratorExit:
             raise  # the consumer stopped early: no abort
         except BaseException as e:
@@ -440,6 +458,7 @@ class ShardPipelineExecutor:
             observe_gauge("executor.in_flight", depth)
 
         def on_stall(stall: float, task: ShardTask) -> None:
+            self.stats.emit_stall_seconds += stall
             if stall > _STALL_SPAN_S:
                 record_span("executor.emit.stall", stall,
                             shard=task.shard_id)
@@ -457,6 +476,8 @@ class ShardPipelineExecutor:
         def adapt() -> Iterator[ShardResult]:
             try:
                 for idx, value, secs in inner:
+                    self.stats.fetch_seconds += secs[0]
+                    self.stats.decode_seconds += secs[1]
                     yield ShardResult(tasks[idx].shard_id, value, secs[0],
                                       secs[1])
             finally:
@@ -580,18 +601,45 @@ class WriteShardTask:
 
 @dataclass
 class WriteShardResult:
-    """The stage step's return value."""
+    """The stage step's return value and the shard's per-step wall
+    time."""
 
     shard_id: int
     value: Any
+    encode_seconds: float = 0.0
+    deflate_seconds: float = 0.0
+    stage_seconds: float = 0.0
+
+    @property
+    def wall_seconds(self) -> float:
+        return self.encode_seconds + self.deflate_seconds + self.stage_seconds
 
 
 @dataclass
 class WriterStats:
+    """The size of one write pipeline, the shards it wrote and their step
+    seconds (cumulative across runs on the same pipeline)."""
+
     workers: int = 0
     window: int = 0
     shards: int = 0
+    encode_seconds: float = 0.0
+    deflate_seconds: float = 0.0
+    stage_seconds: float = 0.0
+    emit_stall_seconds: float = 0.0
     max_in_flight: int = 0
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "workers": self.workers,
+            "window": self.window,
+            "shards": self.shards,
+            "encode_seconds": round(self.encode_seconds, 6),
+            "deflate_seconds": round(self.deflate_seconds, 6),
+            "stage_seconds": round(self.stage_seconds, 6),
+            "emit_stall_seconds": round(self.emit_stall_seconds, 6),
+            "max_in_flight": self.max_in_flight,
+        }
 
 
 class ShardWritePipeline:
@@ -661,14 +709,17 @@ class ShardWritePipeline:
         try:
             for task in tasks:
                 payload = None
+                secs = {}
                 for step, _p in self._STEPS:
                     _check_abort(health, token)
                     if health is not None:
                         health.beat(token, step, task.shard_id)
+                    t0 = time.perf_counter()
                     payload = getattr(self, f"_{step}")(task, payload)
+                    secs[step] = time.perf_counter() - t0
                     if health is not None:
                         health.clear(token, step, task.shard_id)
-                yield WriteShardResult(task.shard_id, payload)
+                yield self._result(task.shard_id, payload, secs)
         except GeneratorExit:
             raise  # the consumer stopped early: no abort
         except BaseException as e:
@@ -689,6 +740,7 @@ class ShardWritePipeline:
             observe_gauge("writer.in_flight", depth)
 
         def on_stall(stall: float, task: WriteShardTask) -> None:
+            self.stats.emit_stall_seconds += stall
             if stall > _STALL_SPAN_S:
                 record_span("writer.emit.stall", stall, shard=task.shard_id)
 
@@ -700,8 +752,20 @@ class ShardWritePipeline:
             stage_names=steps,
             health=self._health if token is not None else None,
             health_token=token)
-        for idx, value, _secs in core.run(tasks):
-            yield WriteShardResult(tasks[idx].shard_id, value)
+        for idx, value, secs in core.run(tasks):
+            yield self._result(tasks[idx].shard_id, value,
+                               dict(zip(steps, secs)))
+
+    def _result(self, shard_id: int, value: Any,
+                secs: Dict[str, float]) -> WriteShardResult:
+        """One shard's result, its step seconds added to the stats."""
+        res = WriteShardResult(shard_id, value, secs.get("encode", 0.0),
+                               secs.get("deflate", 0.0),
+                               secs.get("stage", 0.0))
+        self.stats.encode_seconds += res.encode_seconds
+        self.stats.deflate_seconds += res.deflate_seconds
+        self.stats.stage_seconds += res.stage_seconds
+        return res
 
 
 def writer_for_storage(storage) -> ShardWritePipeline:
@@ -743,14 +807,16 @@ def write_retrier_for_storage(storage, path: Optional[str] = None
                         breaker=breaker)
 
 
-def _checkpointed(task: WriteShardTask, manifest, stage_name: str
-                  ) -> WriteShardTask:
-    """``task`` with each step under ``retry_shard`` and its stage result
-    recorded in ``manifest`` as it lands."""
+def _checkpointed(task: WriteShardTask, manifest, stage_name: str,
+                  retries: int = STAGE_RETRIES) -> WriteShardTask:
+    """``task`` with each step under ``retry_shard`` (``retries`` extra
+    attempts) and its stage result recorded in ``manifest`` as it
+    lands."""
     k = task.shard_id
 
     def retried(fn):
-        return None if fn is None else retry_shard(fn, stage_name, k)
+        return None if fn is None else retry_shard(fn, stage_name, k,
+                                                   retries)
 
     stage = retried(task.stage)
 
@@ -766,13 +832,15 @@ def _checkpointed(task: WriteShardTask, manifest, stage_name: str
 def run_write_stage(pipeline: ShardWritePipeline, n_shards: int,
                     make_task: Callable[[int], WriteShardTask],
                     manifest=None, stage_name: str = "write.parts",
+                    retries: int = STAGE_RETRIES,
                     storage=None, path: Optional[str] = None, fs=None
                     ) -> List[Any]:
     """Run one write stage's shards through ``pipeline``; returns each
     shard's stage result in shard order. With a ``StageManifest``,
     recorded shards are skipped (their recorded info is returned), each
-    step of a fresh shard runs under ``manifest.retry_shard`` (a shard
-    that still fails raises ``RuntimeError`` naming it), and each fresh
+    step of a fresh shard runs under ``manifest.retry_shard`` with
+    ``retries`` extra attempts (a shard that still fails raises
+    ``RuntimeError`` naming it), and each fresh
     shard is recorded when its stage step lands, on the stage worker, in
     completion order: a crash while a straggler holds up the ordered
     emit keeps every shard already staged.
@@ -788,7 +856,7 @@ def run_write_stage(pipeline: ShardWritePipeline, n_shards: int,
         if scheduler.write_leasing_armed(storage):
             return scheduler.scheduled_write_stage(
                 storage, path, pipeline, n_shards, make_task, manifest,
-                stage_name=stage_name, fs=fs)
+                stage_name=stage_name, retries=retries, fs=fs)
     infos: List[Any] = [None] * n_shards
     pending: List[int] = []
     for k in range(n_shards):
@@ -800,7 +868,7 @@ def run_write_stage(pipeline: ShardWritePipeline, n_shards: int,
     for k in pending:
         task = make_task(k)
         if manifest is not None:
-            task = _checkpointed(task, manifest, stage_name)
+            task = _checkpointed(task, manifest, stage_name, retries)
         tasks.append(task)
     for res in pipeline.map_ordered(tasks):
         infos[res.shard_id] = res.value

@@ -1197,7 +1197,7 @@ def write_leasing_armed(storage) -> bool:
 def scheduled_write_stage(storage, path: str, pipeline, n_shards: int,
                           make_task, manifest,
                           stage_name: str = "write.parts",
-                          fs=None) -> List[Any]:
+                          retries: int = 1, fs=None) -> List[Any]:
     """``run_write_stage`` behind the scheduler: the stage's shards lease
     through the coordinator (run key ``...#write``, ``dir=write``), the
     shared ``StageManifest`` the durable side. Each shard is marked as
@@ -1215,7 +1215,8 @@ def scheduled_write_stage(storage, path: str, pipeline, n_shards: int,
     client = client_for_storage(storage, direction="write")
     if client is None:
         return run_write_stage(pipeline, n_shards, make_task,
-                               manifest=manifest, stage_name=stage_name)
+                               manifest=manifest, stage_name=stage_name,
+                               retries=retries)
     # several processes mark into one file: merge on flush, flushes
     # batched behind a short interval
     manifest.mark_shared(flush_interval_s=0.05)
@@ -1246,7 +1247,8 @@ def scheduled_write_stage(storage, path: str, pipeline, n_shards: int,
             idle = min(_IDLE_SLEEP_MAX_S, idle * 1.7)
             continue
         idle = _IDLE_SLEEP_MIN_S
-        fresh = [_checkpointed(tasks[k], manifest, stage_name) for k in ids
+        fresh = [_checkpointed(tasks[k], manifest, stage_name, retries)
+                 for k in ids
                  if not manifest.is_done(stage_name, k)]
         for _res in pipeline.map_ordered(fresh):
             pass  # the infos come from the manifest below

@@ -3,9 +3,12 @@
 SAM coordinate order: ascending refID (unmapped refID −1 LAST), then
 ascending pos; ties keep input order (stable). A device-backed batch
 sorts its device refid/pos columns with one stable ``torch.sort`` of
-the int64 key; a host batch uses numpy's stable argsort of the same
-key. Ragged columns are reordered on the host by one segment gather,
-unless the device write path keeps the sorted batch resident.
+the int64 key (over its shards with ``sort/sharded.py`` when it is on a
+mesh); a host batch takes the permutation from
+``sharded_coordinate_sort`` when more than one local device exists
+(``runtime/mesh.local_devices``), else numpy's stable argsort of the
+same key. Ragged columns are reordered on the host by one segment
+gather, unless the device write path keeps the sorted batch resident.
 """
 
 from __future__ import annotations
@@ -27,9 +30,13 @@ def coordinate_keys(refid: np.ndarray, pos: np.ndarray) -> np.ndarray:
     )
 
 
-def coordinate_sort_batch(batch, keep_resident: bool = False):
+def coordinate_sort_batch(batch, use_mesh: bool = True,
+                          keep_resident: bool = False):
     """Sort a batch (``ReadBatch`` or ``ColumnarBatch``) into coordinate
-    order, single device.
+    order. With ``use_mesh`` and more than one local device (of ``cuda``,
+    or of the CPU where CUDA is absent), a host batch's permutation comes
+    from the sharded sort over them; a failure there raises, it never
+    falls back to the host argsort.
 
     ``keep_resident`` (the device write path) returns
     ``batch.permuted(order)`` for a batch with an encode source instead
@@ -47,7 +54,22 @@ def coordinate_sort_batch(batch, keep_resident: bool = False):
             return batch.take(order)
         resident_src = batch if keep_resident else None
         batch = batch.to_read_batch()
-    order = np.argsort(coordinate_keys(batch.refid, batch.pos), kind="stable")
+    keys = coordinate_keys(batch.refid, batch.pos)
+    order = None
+    if use_mesh and batch.count > 0:
+        import torch
+
+        from disq_tpu_torch.runtime.mesh import local_devices
+
+        devs = local_devices(None if torch.cuda.is_available() else "cpu")
+        if len(devs) > 1:
+            from disq_tpu_torch.sort.sharded import (
+                make_mesh, sharded_coordinate_sort)
+
+            _, order = sharded_coordinate_sort(
+                keys, make_mesh(len(devs), device=devs[0]))
+    if order is None:
+        order = np.argsort(keys, kind="stable")
     if resident_src is not None and resident_src.encode_source() is not None:
         return resident_src.permuted(order)
     return batch.take(order)

@@ -122,7 +122,7 @@ def _split_digests(storage, path):
     fs, p = resolve_path(path)
     header, fv = read_header(fs, p)
     batches = src.read_split_batches(fs, p, header, fv,
-                                     context_for_storage(storage, p))
+                                     ctx=context_for_storage(storage, p))
     return {str(c.shard_id): _digest(b)
             for c, b in zip(src._last_counters, batches)}
 
@@ -583,7 +583,7 @@ st = (ReadsStorage.make_default(device="cpu").split_size({split})
 fs, p = resolve_path({path!r})
 header, fv = read_header(fs, p)
 BamSource(st).read_split_batches(fs, p, header, fv,
-                                 context_for_storage(st, p))
+                                 ctx=context_for_storage(st, p))
 os._exit(3)  # not reached: the wedge outlives the kill
 """
 
@@ -605,7 +605,7 @@ src = BamSource(st)
 fs, p = resolve_path({path!r})
 header, fv = read_header(fs, p)
 batches = src.read_split_batches(fs, p, header, fv,
-                                 context_for_storage(st, p))
+                                 ctx=context_for_storage(st, p))
 digests = {{}}
 for c, b in zip(src._last_counters, batches):
     b = as_read_batch(b)
@@ -925,7 +925,7 @@ src = BamSource(st)
 fs, p = resolve_path({path!r})
 header, fv = read_header(fs, p)
 batches = src.read_split_batches(fs, p, header, fv,
-                                 context_for_storage(st, p))
+                                 ctx=context_for_storage(st, p))
 digests = {{}}
 for c, b in zip(src._last_counters, batches):
     b = as_read_batch(b)
