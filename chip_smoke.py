@@ -87,6 +87,12 @@ through their public entry points on ``cuda``:
     # pileup, filtered-count; then through a router over two replica
     # processes on the card (this script with --serve-replica)
     fleet = serve_fleet([replica1, replica2], datasets={"bam": ...})
+    torch_chaos_soak.main(["--iterations", "8", "--records", "5000",
+                           "--seed", "23", "--executor-workers", "4",
+                           "--writer-workers", "4", "--watchdog",
+                           "--hedge", "--breaker",
+                           "--resident", "--ops", "--device-write",
+                           "--kill", "--serve"])                  # chaos
 
 The CRAM holds the sorted reads before chr1:230,000,000 (``CRAM_CUT``,
 a cut of depth) and is written with ``DISQ_TPU_TORCH_CRAM_RANS_O1=0``, so its
@@ -110,9 +116,10 @@ CRAM read's ``ds.counters`` against the file's containers; then the
 rest of the configured read and write: the 8-shard BAM + BAI with the
 SBI byte-identical to the write without it, every SBI offset on a record
 start found by a host walk of the output, and the re-read planned by the
-SBI alone; the directory of 8 BAMs and of 4 CRAMs (the first 200,000
-sorted records: a cut of depth), each part re-read equal to its slice;
-a manifest-resumed write (shard 3 fails in a wrapper of the sink's
+SBI alone; the directory of 8 BAMs (the first 500,000 reads) and of 4
+CRAMs (the first 50,000 sorted records: cuts of depth), each part
+re-read equal to its slice; a manifest-resumed write of the first
+500,000 sorted records (shard 3 fails in a wrapper of the sink's
 per-shard step; the resume runs shards 3-7 and writes the uninterrupted
 write's BAM, BAI and SBI byte for byte); ledger-resumed BAM and CRAM
 reads (split 4 of the BAM and split 1 of the CRAM head copy fail their
@@ -122,11 +129,11 @@ once, and its records and counters equal the uninterrupted read's);
 depth against a numpy difference array of the generator; filter and
 permuted device-backed and equal to the host batch's; device_columns
 with no transfer; the device write path (records gathered by W1 and
-literal-Huffman coded by W2) at the main path's one shard and at 8
-shards with 4 writer workers, each output inflating with zlib to the
-zlib-6 write's stream, its BAI and SBI mapping (virtual offset to
-uncompressed offset) to the zlib-6 write's, its re-read equal to the
-generator, W1 and W2 held against their plain versions on the whole shard
+literal-Huffman coded by W2) of the main path's first 500,000 reads (a
+cut of depth) at one shard and at 8 shards with 4 writer workers, each
+output inflating with zlib to the zlib-6 write's stream of those reads,
+its BAI and SBI mapping (virtual offset to uncompressed offset) to the
+zlib-6 write's, its re-read equal to the generator, W1 and W2 held against their plain versions on the whole shard
 (W2 also on edge lanes under 15-bit codes, an incompressible one taking
 the host route), and the write's stages replayed one by one. It shows from
 the launch counts (zeroed just before each path, read just after) that
@@ -261,6 +268,22 @@ uniform and 90 % one key, equal to a stable sort; (f) markdup on
 ``dups.bam`` through the mesh equal to it off the mesh; (g)
 ``global_mesh()`` of shape (1, 8) with ``psum`` over both axes. The
 cross-process ``dcn`` leg needs two cards, and this phase says so.
+The chaos phase imports ``scripts/torch_chaos_soak.py`` and runs it in
+this process on the card (``chaos_legs``): 8 seeded fault schedules
+(transient, truncated, stalled and slow range reads, and in 4 policy
+iterations one flipped bit in a random BGZF block) over a 5,000-record
+BAM at 4 executor and 4 writer workers with the watchdog and hedged
+fetches, each read through B1 and B2 on every split: strict raises
+``CorruptBlockError`` at the flipped block, skip and quarantine lose
+that block alone (at most 20 records), recover equals the host route's
+read, B2's columns equal the host parse, every write-back equals a host
+zlib-6 write byte for byte, the watchdog flags the injected write
+stall, and every hedge launched is booked won; then the breaker, the
+resident read, the operator chain (F1), the device write (W1, W2), the
+crash-resume with its postmortem bundle, and the serving storm (B1 and
+F1), each against the host route on the CPU. It checks that all four
+policies were drawn and that B1, B2, F1, W1 and W2 launched in this
+process.
 Any failed phase exits non-zero.
 The last lines of standard output are the card's name and power limit,
 one JSON line of per-kernel numbers, and ``{"ok": true, "device": ...}``.
@@ -296,6 +319,15 @@ SCALAR_OPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 MAX_PAYLOAD = 0xFF00
 INFLATE_OPS_PER_BYTE = 10   # per decoded byte: bit reads, table walk, store
 WRITE_SHARDS = 8            # write shards of the parallel-write leg
+# cuts of depth of the write options phase: the directory of BAM parts
+# holds the main path's first reads, the CRAM parts and the
+# manifest-resumed write the first sorted ones
+MULTI_RECORDS = 500_000
+CRAM_PARTS_RECORDS = 50_000
+RESUME_RECORDS = 500_000
+# the device write phase's cut of depth: its two writes hold the main
+# path's first reads, each held against zlib-6 writes of the same reads
+DEVICE_WRITE_RECORDS = 500_000
 
 
 class PhaseError(Exception):
@@ -1777,12 +1809,16 @@ def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
     e2e.update(sbi_write_s=round(write_s, 4), sbi_reread_s=round(reread_s, 4))
 
     # -- multi write --------------------------------------------------------
+    mb = min(MULTI_RECORDS, n)
+    bounds = np.linspace(0, mb, WRITE_SHARDS + 1).astype(np.int64)
+    multi_head = port.ReadsDataset(ds.header, ds.reads.slice(0, mb))
     t0 = time.perf_counter()
     bam_dir = os.path.join(work, "parts_bam")
     (storage().num_shards(WRITE_SHARDS).writer_workers(4)
-     .write(ds, bam_dir, port.FileCardinalityWriteOption.MULTIPLE,
+     .write(multi_head, bam_dir, port.FileCardinalityWriteOption.MULTIPLE,
             port.ReadsFormatWriteOption.BAM))
     multi_s = time.perf_counter() - t0
+    del multi_head
     names = sorted(os.listdir(bam_dir))
     check(names == [f"part-r-{k:05d}.bam" for k in range(WRITE_SHARDS)],
           f"multi write: parts {names}")
@@ -1804,7 +1840,7 @@ def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
           f"multi re-read launches {snap['launches']}")
     launches["multi_bam_reads"] = snap["launches"]
 
-    m = min(200_000, n)
+    m = min(CRAM_PARTS_RECORDS, n)
     os.environ["DISQ_TPU_TORCH_CRAM_RANS_O1"] = "0"
     try:
         head = port.ReadsDataset(sorted_ds.header,
@@ -1838,7 +1874,8 @@ def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
     check(snap["launches"].get("rans_simd", 0) == 4,
           f"cram part reads launches {snap['launches']}")
     launches["multi_cram_reads"] = snap["launches"]
-    log(f"multi write: BAM {WRITE_SHARDS} parts {multi_s:.3f}s, each "
+    log(f"multi write: BAM {WRITE_SHARDS} parts of the first {mb} "
+        f"records {multi_s:.3f}s, each "
         f"re-read equal to its slice and every block inflating with zlib "
         f"({multi_read_s:.3f}s); CRAM 4 parts of the first {m} sorted "
         f"records {cram_multi_s:.3f}s, each re-read equal to its slice")
@@ -1846,6 +1883,15 @@ def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
                multi_cram_write_s=round(cram_multi_s, 4))
 
     # -- write resume -------------------------------------------------------
+    # the first RESUME_RECORDS sorted records, written once uninterrupted
+    # with the same options but the manifest
+    mr = min(RESUME_RECORDS, n)
+    resume_head = port.ReadsDataset(sorted_ds.header,
+                                    sorted_ds.reads.slice(0, mr))
+    uninterrupted = os.path.join(work, "resume_ref.bam")
+    storage().num_shards(WRITE_SHARDS).write(
+        resume_head, uninterrupted, port.BaiWriteOption.ENABLE,
+        port.SbiWriteOption.ENABLE)
     out = os.path.join(work, "resumed.bam")
     manifest = os.path.join(work, "write.manifest")
     opts = (port.StageManifestWriteOption(manifest),
@@ -1864,7 +1910,7 @@ def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
     try:
         t0 = time.perf_counter()
         try:
-            storage().num_shards(WRITE_SHARDS).write(sorted_ds, out, *opts)
+            storage().num_shards(WRITE_SHARDS).write(resume_head, out, *opts)
         except RuntimeError as e:
             check("shard 3" in str(e), f"write resume: {e}")
         else:
@@ -1878,19 +1924,22 @@ def configured_write_legs(torch, port, args, g, perm_want, info, ds, work):
         fail[0] = False
         ran.clear()
         t0 = time.perf_counter()
-        storage().num_shards(WRITE_SHARDS).write(sorted_ds, out, *opts)
+        storage().num_shards(WRITE_SHARDS).write(resume_head, out, *opts)
         resume_s = time.perf_counter() - t0
     finally:
         BamSink._encode_shard = encode_shard
     check(ran == list(range(3, WRITE_SHARDS)), f"write resume: ran {ran}")
     check(not os.path.exists(manifest) and not os.path.exists(out + ".parts"),
           "write resume: manifest or staging left behind")
+    del resume_head
     for ext in ("", ".bai", ".sbi"):
-        with open(out + ext, "rb") as a, open(sbi_out + ext, "rb") as b:
+        with open(out + ext, "rb") as a, \
+                open(uninterrupted + ext, "rb") as b:
             check(a.read() == b.read(),
                   f"write resume: {ext or '.bam'} differs from the "
                   f"uninterrupted write")
-    log(f"write resume: shard 3 failed after {crash_s:.3f}s (manifest and "
+    log(f"write resume: the first {mr} sorted records; shard 3 failed "
+        f"after {crash_s:.3f}s (manifest and "
         f"3 staged parts kept); the resume ran shards {ran} in "
         f"{resume_s:.3f}s; BAM, BAI and SBI byte-identical to the "
         f"uninterrupted write")
@@ -2202,10 +2251,11 @@ def w2_fetched_against_plain(torch, dev, payload, off, ln, tab, body_h,
 
 def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     """The device write path (``.device_deflate()``) on the resident
-    dataset: (a) the main path's sorted write (1 shard, BAI), (b) the
-    same at 8 shards, 4 writer workers, BAI + SBI. Each output decompresses
-    to the default zlib-6 write's stream, its BAI (and SBI) map to the
-    default write's, and it re-reads to the generator's sorted records.
+    dataset's first ``DEVICE_WRITE_RECORDS`` reads: (a) the sorted write
+    (1 shard, BAI), (b) the same at 8 shards, 4 writer workers, BAI + SBI.
+    Each output decompresses to the zlib-6 write's stream of the same
+    reads, its BAI (and SBI) map to that write's, and it re-reads to the
+    generator's sorted records.
     Then W1 and W2 at (a)'s shapes against their plain versions, and (a)'s
     stages replayed one by one. Returns (W1 and W2 kernel entries, e2e
     fields)."""
@@ -2223,7 +2273,7 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     from disq_tpu_torch.runtime.device_pipeline import upload
     from disq_tpu_torch.runtime.device_write import ResidentShardEncoder
 
-    n, split = args.records, args.split_size
+    split = args.split_size
     check(all(v == 0 for v in DF.device_stats.values()),
           f"a default write ran device deflate work: {DF.device_stats}")
 
@@ -2233,6 +2283,21 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     legs = {"a": (1, 1, os.path.join(work, "sorted.bam"), False),
             "b": (WRITE_SHARDS, 4, os.path.join(work, "sorted_sbi.bam"),
                   True)}
+    n = min(DEVICE_WRITE_RECORDS, args.records)
+    if n < args.records:
+        # the first n reads, still device-backed, and the zlib-6 writes
+        # of them that the device writes are held against
+        ds = port.ReadsDataset(ds.header, ds.reads.filter(
+            np.arange(args.records) < n))
+        check(ds.reads.device_backed, "the head is not device-backed")
+        perm_want = np.argsort(coordinate_keys(g["refid"][:n], g["pos"][:n]),
+                               kind="stable")
+        for leg, (shards, workers, _, sbi) in list(legs.items()):
+            default_path = os.path.join(work, f"zlib6_{leg}.bam")
+            storage().num_shards(shards).writer_workers(workers).write(
+                ds, default_path, port.BaiWriteOption.ENABLE,
+                *([port.SbiWriteOption.ENABLE] if sbi else []), sort=True)
+            legs[leg] = (shards, workers, default_path, sbi)
     seconds, sizes, books = {}, {}, {}
     for leg, (shards, workers, default_path, sbi) in legs.items():
         out = os.path.join(work, f"device_{leg}.bam")
@@ -2281,8 +2346,9 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
         back = storage().read(out)
         equal_to_generator(torch, back, g, perm_want, f"device write ({leg})")
         del back
-        log(f"device write ({leg}): {shards} shards, {workers} writer "
-            f"workers, {seconds[leg]:.3f}s, {sizes[leg][0]} bytes against "
+        log(f"device write ({leg}): the first {n} reads, {shards} shards, "
+            f"{workers} writer workers, {seconds[leg]:.3f}s, "
+            f"{sizes[leg][0]} bytes against "
             f"{sizes[leg][1]} for zlib-6; stream, "
             f"{' and '.join(e[1:].upper() for e in exts)} map to the zlib-6 "
             f"write's; re-read equal to the generator; counters "
@@ -2509,7 +2575,8 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
          "expanded_lanes_plain": len(plain_flagged), "geometry": w2_geom},
     ]
     del k_pay, enc, shard, sorted_ds
-    e2e = {"device_write_s": round(seconds["a"], 4),
+    e2e = {"device_write_records": n,
+           "device_write_s": round(seconds["a"], 4),
            "device_write_w4_s": round(seconds["b"], 4),
            "device_write_bytes": sizes["a"][0],
            "zlib6_write_bytes": sizes["a"][1],
@@ -5641,6 +5708,123 @@ def mesh_legs(torch, port, args, g, perm_want, fstat, ds, src, dst, work,
             "parse": books.get("parse", 0)}, e2e
 
 
+# -- the chaos soak ----------------------------------------------------------
+
+# The master seed: the lowest whose first 8 iterations draw all four
+# policies, flip the DEFLATE payload (+20) under skip and quarantine, and
+# the block header (+1) and the payload under strict. A header flip under
+# skip or quarantine sends the boundary guesses of the splits around it
+# through the salvage walk, whose ~400 small reads a walk each draw the
+# hedge's slow tail: 30-230 s of injected sleep an iteration at 5,000
+# records, in the reference's soak as in this one (tier-1 runs such
+# seeds on the CPU at 200 records).
+CHAOS_SEED = 23
+CHAOS_ITERATIONS = 8
+CHAOS_RECORDS = 5_000
+# The steal, coordinator-failover and fleet legs run on the CPU in tier-1
+# only: their child processes take 46 s on the card at this size (the
+# steal leg's straggler, slowed 0.6 s a read, does not even plan its
+# splits within the leg's 120 s), more than the phase can hold.
+CHAOS_LEGS = ("breaker", "resident", "ops", "device-write", "kill", "serve")
+# the kernels the phase must launch in this process, and the leg that
+# launches each for sure
+CHAOS_KERNELS = {"inflate": "main", "parse": "main",
+                 "read_filter": "ops", "record_gather": "device-write",
+                 "deflate": "device-write"}
+
+
+def chaos_legs(torch, work) -> tuple:
+    """The port's chaos soak (``scripts/torch_chaos_soak.py``) imported
+    and run in this process on the card: ``CHAOS_ITERATIONS`` seeded
+    fault schedules at 4 executor and 4 writer workers with the watchdog
+    and hedged fetches (strict raises at the flipped block, skip and
+    quarantine lose one block, recover equals the host route's read,
+    every write-back byte-identical to a host-route write), then every
+    leg in ``CHAOS_LEGS``, each held against the host route on the CPU.
+    Returns the kernel launches of the phase (in all and per leg) and
+    the e2e fields."""
+    import importlib.util
+
+    from disq_tpu_torch.runtime import counters
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_chaos_soak", os.path.join(HERE, "scripts",
+                                         "torch_chaos_soak.py"))
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    chaos_dir = os.path.join(work, "chaos")
+    os.makedirs(chaos_dir, exist_ok=True)
+    argv = ["--iterations", str(CHAOS_ITERATIONS),
+            "--records", str(CHAOS_RECORDS), "--seed", str(CHAOS_SEED),
+            "--work-dir", chaos_dir, "--executor-workers", "4",
+            "--writer-workers", "4", "--watchdog", "--hedge"]
+    argv += [f"--{leg}" for leg in CHAOS_LEGS]
+    counters.reset()
+    t0 = time.perf_counter()
+    rc = soak.main(argv)
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+    total = counters.snapshot()["launches"]
+    res = soak.RESULTS
+    legs_s = {k: round(v, 4) for k, v in res["legs"].items()}
+    log(f"chaos: {CHAOS_ITERATIONS} iterations of {CHAOS_RECORDS} records "
+        f"at seed {CHAOS_SEED}, {len(res['failures'])} mismatches, "
+        f"{phase_s:.3f}s, legs {json.dumps(legs_s)}, launches "
+        f"{json.dumps(res['launches'])}, in all {json.dumps(total)}")
+    check(rc == 0, f"chaos: {len(res['failures'])} mismatches: "
+          f"{res['failures'][:3]}")
+    check(res["device"] == "cuda", f"chaos ran on {res['device']}")
+    policies = res["policies"]
+    log(f"chaos seeds: {json.dumps({str(k): v for k, v in policies.items()})}")
+    check(set(policies.values()) == {"strict", "skip", "quarantine",
+                                     "recover"},
+          f"chaos: policies drawn {sorted(set(policies.values()))}")
+    for name, leg in CHAOS_KERNELS.items():
+        check(total.get(name, 0) > 0 and
+              res["launches"].get(leg, {}).get(name, 0) > 0,
+              f"chaos: {name} not launched on the {leg} leg "
+              f"({json.dumps(res['launches'])})")
+    launches = {name: {"total": total.get(name, 0),
+                       **{leg: books[name]
+                          for leg, books in res["launches"].items()
+                          if name in books}}
+                for name in CHAOS_KERNELS}
+    return launches, {"chaos_s": round(phase_s, 4), "chaos_legs_s": legs_s}
+
+
+def run_phase() -> int:
+    """``--phase chaos``: one phase alone on the card, a probe (the
+    kernels built, the host library loaded, the phase's lines printed,
+    no result line)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAILED: CUDA is not available", file=sys.stderr, flush=True)
+        return 1
+    sys.path.insert(0, HERE)
+    from disq_tpu_torch.native import _load as load_host_library
+    from disq_tpu_torch.ops import cuda_build
+
+    log(f"card: {card_line()}")
+    torch.zeros(1, device="cuda")
+    load_host_library()
+    cuda_build.build(list(CHAOS_KERNELS))
+    work = os.path.join(HERE, ".smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        t0 = time.perf_counter()
+        launches, e2e = chaos_legs(torch, work)
+        log(f"phase chaos: {time.perf_counter() - t0:.3f}s; launches "
+            f"{json.dumps(launches)}; {json.dumps(e2e)}")
+    except PhaseError as e:
+        print(f"FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
 def run(args) -> dict:
     import torch
 
@@ -6006,6 +6190,9 @@ def run(args) -> dict:
     meshed, mesh_e2e = mesh_legs(torch, port, args, g, perm_want, fstat, ds,
                                  src, dst, work, n_splits)
     log(f"phase mesh: {time.perf_counter() - t0:.3f}s")
+    t0 = time.perf_counter()
+    chaos, chaos_e2e = chaos_legs(torch, work)
+    log(f"phase chaos: {time.perf_counter() - t0:.3f}s")
     spans["cram_read"] = cram_e2e.pop("spans")
     log(f"spans: {json.dumps(spans)}")
     log(f"hbm: {json.dumps(hbm)}")
@@ -6044,6 +6231,8 @@ def run(args) -> dict:
         by_name[name].update(entry)
     for name in ("inflate", "parse"):
         by_name[name]["launches_on_mesh"] = meshed[name]
+    for name, books in chaos.items():
+        by_name[name]["launches_on_chaos"] = books
     e2e = {"records": n, "decoded_bytes": info["decoded_bytes"],
            "read_s": round(read_s, 4), "sort_write_s": round(write_s, 4),
            "read_records_per_s": round(n / read_s, 1),
@@ -6051,7 +6240,7 @@ def run(args) -> dict:
            "splits": n_splits, **legs_e2e, **cram_e2e, **write_e2e,
            **resume_e2e, **ops_e2e, **dw_e2e, **svc_e2e, **operators_e2e,
            **traversal_e2e, **variants_e2e, **planes_e2e, **sched_e2e,
-           **serve_e2e, **mesh_e2e,
+           **serve_e2e, **mesh_e2e, **chaos_e2e,
            "traced_read": traced, **hbm,
            "build_s": {k: round(v, 3) for k, v in build_s.items()}}
     log(f"e2e: {json.dumps(e2e)}")
@@ -6072,11 +6261,15 @@ def main(argv=None) -> int:
     ap.add_argument("--sched-worker", help=argparse.SUPPRESS)
     # a fleet replica of the serve phase (a JSON spec): see serve_replica
     ap.add_argument("--serve-replica", help=argparse.SUPPRESS)
+    ap.add_argument("--phase", choices=("chaos",),
+                    help="run only this phase, as a probe (no result line)")
     args = ap.parse_args(argv)
     if args.sched_worker:
         return sched_worker(json.loads(args.sched_worker))
     if args.serve_replica:
         return serve_replica(json.loads(args.serve_replica))
+    if args.phase:
+        return run_phase()
     try:
         res = run(args)
     except PhaseError as e:

@@ -336,31 +336,38 @@ class BamSink:
     def _merge(self, fs, header, path, temp_dir, n_shards, infos, frag_cache,
                write_bai, write_sbi) -> None:
         """The single-file commit: header block, parts and terminator
-        concatenated, the index fragments merged."""
+        concatenated, the index fragments merged. Every durable write of
+        the merge runs under the transient retry budget the staged parts
+        get (an atomic create makes a retried write or concat safe)."""
         def frags(key):
             if frag_cache is not None:
                 return [frag_cache[k][key] for k in range(n_shards)]
             return [pickle.loads(fs.read_all(i[key])) for i in infos]
 
+        merge = write_retrier_for_storage(self._storage, path)
         header_comp = compress_to_bgzf(header.to_bam_bytes(),
                                        with_terminator=False,
                                        device=self._device)
         header_path = os.path.join(temp_dir, "_header")
-        fs.write_all(header_path, header_comp)
+        merge.call(fs.write_all, header_path, header_comp, what="bam.merge")
         term_path = os.path.join(temp_dir, "_terminator")
-        fs.write_all(term_path, BGZF_EOF_MARKER)
-        fs.concat([header_path] + [i["part"] for i in infos] + [term_path],
-                  path)
+        merge.call(fs.write_all, term_path, BGZF_EOF_MARKER,
+                    what="bam.merge")
+        merge.call(fs.concat,
+                    [header_path] + [i["part"] for i in infos] + [term_path],
+                    path, what="bam.merge")
         starts = np.zeros(n_shards + 1, dtype=np.int64)
         np.cumsum([i["len"] for i in infos], out=starts[1:])
         starts = [int(s) for s in starts[:-1] + len(header_comp)]
         if write_sbi:
             merged = SbiIndex.merge(frags("sbi"), starts,
                                     fs.get_file_length(path))
-            fs.write_all(path + ".sbi", merged.to_bytes())
+            merge.call(fs.write_all, path + ".sbi", merged.to_bytes(),
+                        what="bam.merge")
         if write_bai:
             merged = merge_bai_fragments(frags("bai"), starts)
-            fs.write_all(path + ".bai", merged.to_bytes())
+            merge.call(fs.write_all, path + ".bai", merged.to_bytes(),
+                        what="bam.merge")
 
 
 class BamSinkMultiple:

@@ -171,17 +171,23 @@ class CramSink:
             part_paths = [i["part"] for i in infos]
             part_lens = [i["len"] for i in infos]
             frags = [i["crai"] for i in infos]
+            # every durable write of the merge under the parts' retry budget
+            merge = write_retrier_for_storage(self._storage, path)
             prefix_path = os.path.join(temp_dir, "_prefix")
-            fs.write_all(prefix_path, prefix)
+            merge.call(fs.write_all, prefix_path, prefix,
+                        what="cram.merge")
             eof_path = os.path.join(temp_dir, "_eof")
-            fs.write_all(eof_path, EOF_CONTAINER)
-            fs.concat([prefix_path] + part_paths + [eof_path], path)
+            merge.call(fs.write_all, eof_path, EOF_CONTAINER,
+                        what="cram.merge")
+            merge.call(fs.concat, [prefix_path] + part_paths + [eof_path],
+                        path, what="cram.merge")
             if write_crai:
                 part_starts = np.zeros(len(part_lens), dtype=np.int64)
                 np.cumsum(part_lens[:-1], out=part_starts[1:])
                 part_starts += len(prefix)
                 merged = CraiIndex.merge(frags, list(part_starts))
-                fs.write_all(path + ".crai", merged.to_bytes())
+                merge.call(fs.write_all, path + ".crai",
+                            merged.to_bytes(), what="cram.merge")
         finally:
             fs.delete(temp_dir, recursive=True)
 

@@ -3,7 +3,9 @@
 - importing ``disq_tpu_torch`` (every module of it, the resilience and
   observability planes included) pulls in neither ``jax`` nor any
   ``disq_tpu`` module, and no source file of the port, ``chip_smoke.py``
-  or the port's scripts (``scripts/torch_*.py``) names one in an import;
+  or the port's scripts (``scripts/torch_*.py``) names one in an import,
+  nor starts a line with such an import in a string of child-process
+  code;
 - with no CUDA, an entry point that was not asked for the CPU raises;
 - importing the kernel modules builds nothing, and a build without
   ``nvcc`` raises instead of falling back;
@@ -14,6 +16,7 @@
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -97,6 +100,32 @@ def test_no_source_imports_jax_or_the_reference(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, node.lineno)
+
+
+IMPORT_LINE = re.compile(r"^\s*(from|import)\s+(jax|disq_tpu)(\.|\s|$)")
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_line_imports_jax_or_the_reference(path):
+    """The line-level twin of the AST check: it also sees the code of a
+    child process held in a string literal (the chaos soak's children,
+    ``chip_smoke.py``'s workers)."""
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            assert not IMPORT_LINE.match(line), (path, lineno, line)
+
+
+def test_import_line_pattern_catches_child_code():
+    for line in ("import jax", "    from disq_tpu import ReadsStorage",
+                 "from disq_tpu.fsw import FaultSpec", "import jax.numpy",
+                 "import disq_tpu"):
+        assert IMPORT_LINE.match(line), line
+    for line in ("import disq_tpu_torch", "from disq_tpu_torch import x",
+                 "import jaxlib_free", "# import jax in a comment"):
+        assert not IMPORT_LINE.match(line), line
+    assert os.path.join(REPO, "scripts", "torch_chaos_soak.py") in \
+        _port_sources()
 
 
 @pytest.mark.parametrize("ext", ["bam", "cram"])

@@ -29,7 +29,11 @@ held against ``disq_tpu`` on the same input, on the CPU:
   (``run_device_pipeline``, ``decode_container_records``,
   ``inflate_payloads_simd``, ``blocks_in_split``, the stage seconds of
   the executors, ``retries=``, ``split_size=``, ``as_array=``,
-  ``to_columnar=`` …) equal the reference's on the same input.
+  ``to_columnar=`` …) equal the reference's on the same input;
+- C-P10: a transient fault on any durable write of the single-file
+  BAM and CRAM merge (header, terminator, concat, index) is retried
+  under the parts' budget, as the reference's merge is, and the file
+  equals a fault-free write's.
 """
 
 import ast
@@ -854,3 +858,60 @@ def test_cp8_lesser_names_equal_reference(fixture_bam):
     assert flagstat_resident(flag, ds.count()) == want
     enc = ResidentShardEncoder(ds.reads, "cpu")
     assert enc.count == ds.count() == 50
+
+
+@pytest.mark.parametrize("fmt,target", [
+    ("bam", "_header"), ("bam", "_terminator"), ("bam", "out.bam"),
+    ("bam", ".bai"), ("bam", ".sbi"), ("cram", "_prefix"),
+    ("cram", "_eof"), ("cram", "out.cram"), ("cram", ".crai")])
+def test_cp10_merge_writes_retry_transient_faults(fixture_bam, tmp_path,
+                                                  fmt, target):
+    """Two transient faults on one merge write (``concat`` for the
+    output's own name; the parts are staged in a directory of their own,
+    so no part write matches): the reference's merge retries them, and so
+    must the port's, writing the fault-free bytes."""
+    from disq_tpu.fsw import FaultInjectingFileSystemWrapper as RefFaultFS
+    from disq_tpu.fsw import FaultSpec as RefFaultSpec
+    from disq_tpu.fsw import PosixFileSystemWrapper as RefPosix
+    from disq_tpu.runtime.errors import DisqOptions as RefOptions
+    from disq_tpu_torch.fsw import FaultSpec, PosixFileSystemWrapper
+
+    path, _ = fixture_bam
+    opts = (P.BaiWriteOption.ENABLE, P.SbiWriteOption.ENABLE) \
+        if fmt == "bam" else (P.CraiWriteOption.ENABLE,)
+    ref_opts = (R.BaiWriteOption.ENABLE, R.SbiWriteOption.ENABLE) \
+        if fmt == "bam" else (R.CraiWriteOption.ENABLE,)
+    exts = ("", ".bai", ".sbi") if fmt == "bam" else ("", ".crai")
+    out = f"out.{fmt}"
+    kw = {"sort": True} if fmt == "bam" else {}
+
+    def spec(cls):
+        return cls(kind="transient", op="write", path_substr=target,
+                   probability=1.0, times=2)
+
+    port_fs = FaultInjectingFileSystemWrapper(PosixFileSystemWrapper(),
+                                              [spec(FaultSpec)])
+    filesystem.register_filesystem("fault", port_fs)
+    ref_fs.register_filesystem("fault", RefFaultFS(
+        RefPosix(), [spec(RefFaultSpec)]))
+    st = P.ReadsStorage.make_default(device="cpu").num_shards(2).options(
+        P.DisqOptions(max_retries=4, retry_backoff_s=0.0))
+    ds = st.read(path)
+    st.write(ds, "fault://" + str(tmp_path / "port" / out), *opts,
+             P.TempPartsDirectoryWriteOption(str(tmp_path / "port_parts")),
+             **kw)
+    assert [i.path for i in port_fs.injected] == \
+        [port_fs.injected[0].path] * 2
+    assert target in port_fs.injected[0].path
+    assert "part-" not in port_fs.injected[0].path
+    st.write(ds, str(tmp_path / "clean" / out), *opts, **kw)
+    rst = R.ReadsStorage.make_default().num_shards(2).options(
+        RefOptions(max_retries=4, retry_backoff_s=0.0))
+    rst.write(rst.read(path), "fault://" + str(tmp_path / "ref" / out),
+              *ref_opts,
+              R.TempPartsDirectoryWriteOption(str(tmp_path / "ref_parts")),
+              **kw)
+    for ext in exts:
+        got = open(tmp_path / "port" / (out + ext), "rb").read()
+        assert got == open(tmp_path / "clean" / (out + ext), "rb").read()
+        assert got == open(tmp_path / "ref" / (out + ext), "rb").read()
