@@ -11,8 +11,8 @@ in every block, so ``voffset(u) = (block_comp_start[u // 65280] << 16)
 | (u % 65280)``.
 
 Shards run through the write pipeline (``runtime/executor.py``):
-encode (slice and record encode) → deflate (BGZF blocks, virtual
-offsets, index fragments) → stage (the part's write, retried on
+encode (slice and record encode) → deflate (BGZF blocks and virtual
+offsets, then index fragments) → stage (the part's write, retried on
 transient faults), then the merge in shard order. With ``writer_workers
 > 1`` the steps of different shards overlap; the bytes are the same at
 any width.
@@ -62,7 +62,7 @@ from disq_tpu_torch.runtime.executor import (
     write_retrier_for_storage,
     writer_for_storage,
 )
-from disq_tpu_torch.runtime.tracing import trace_phase, wrap_span
+from disq_tpu_torch.runtime.tracing import span, trace_phase, wrap_span
 from disq_tpu_torch.util import shard_bounds
 
 SBI_GRANULARITY = 4096  # htsjdk SBIIndexWriter default
@@ -216,25 +216,32 @@ class BamSink:
         part = batch.slice(lo, hi)
         return (part,) + encode_records_with_offsets(part)
 
-    def _deflate_shard(self, header, write_bai, write_sbi, payload):
-        """BGZF deflate, the records' virtual offsets, and the part's
-        SBI and BAI fragments (part-local offsets). A shard encoded on
-        the device deflates there from its payload."""
+    def _deflate_shard(self, header, write_bai, write_sbi, k, payload):
+        """BGZF deflate and the records' virtual offsets (a
+        ``bam.write.compress`` span), then the part's SBI and BAI
+        fragments (part-local offsets; a ``bam.write.index`` span when
+        either is asked for) of shard ``k``. A shard encoded on the
+        device deflates there from its payload."""
         part, blob, rec_offs = payload
-        if hasattr(blob, "deflate"):  # runtime/device_write.EncodedShard
-            comp, csizes = blob.deflate()
-            voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
-        else:
-            comp, voffs, end_voffs = bgzf_compress_with_voffsets(
-                blob, rec_offs, device=self._device)
+        with span("bam.write.compress", shard=k):
+            if hasattr(blob, "deflate"):  # runtime/device_write.EncodedShard
+                comp, csizes = blob.deflate()
+                voffs, end_voffs = voffsets_from_csizes(csizes, rec_offs)
+            else:
+                comp, voffs, end_voffs = bgzf_compress_with_voffsets(
+                    blob, rec_offs, device=self._device)
         sbi_frag = bai_frag = None
-        if write_sbi:
-            sbi_frag = SbiIndex.build(
-                voffs, int(end_voffs[-1]) if part.count else 0, 0,
-                granularity=SBI_GRANULARITY)
-        if write_bai:
-            bai_frag = build_bai(part.refid, part.pos, part.alignment_ends(),
-                                 part.flag, voffs, end_voffs, header.n_ref)
+        if not (write_sbi or write_bai):
+            return comp, sbi_frag, bai_frag
+        with span("bam.write.index", shard=k):
+            if write_sbi:
+                sbi_frag = SbiIndex.build(
+                    voffs, int(end_voffs[-1]) if part.count else 0, 0,
+                    granularity=SBI_GRANULARITY)
+            if write_bai:
+                bai_frag = build_bai(part.refid, part.pos,
+                                     part.alignment_ends(), part.flag, voffs,
+                                     end_voffs, header.n_ref)
         return comp, sbi_frag, bai_frag
 
     def _stage_shard(self, fs, temp_dir, k, frag_cache, payload) -> dict:
@@ -294,7 +301,7 @@ class BamSink:
             deflate=wrap_span(
                 "bam.write.deflate",
                 lambda p: self._deflate_shard(header, write_bai, write_sbi,
-                                              p), shard=k),
+                                              k, p), shard=k),
             stage=wrap_span(
                 "bam.write.stage",
                 lambda p: self._stage_shard(fs, temp_dir, k, frag_cache, p),

@@ -8,8 +8,10 @@ Two inflate routes share this module's block framing:
   bytes go to the device once and the hand-written inflate kernel
   (``ops/inflate_simd.py``) writes every block straight to its final
   offset in one decoded device blob. The blob comes back to the host
-  once for the CRC check and the record scan, and stays on the device
-  for the parse kernel. On ``cuda`` this is the read path's default.
+  once for the CRC check (a ``codec.inflate.crc`` span inside the
+  batch's ``codec.inflate.batch``) and the record scan, and stays on
+  the device for the parse kernel. On ``cuda`` this is the read path's
+  default.
   ``DISQ_TPU_TORCH_DEVICE_INFLATE=legacy`` takes kernel B4
   (``ops/inflate.py``) instead, as the reference's ``legacy`` knob does:
   one 65,536-byte row per block, which comes back to the host, where
@@ -210,8 +212,10 @@ def _inflate_blocks_device(data, blocks, base, device, verify_crc,
         else:
             blob = blob_dev.numpy()
     bad = set(flagged.bad) if flagged is not None else set()
-    crc_bad = (_crc_failures(data, blocks, base, blob, out_off, bad)
-               if verify_crc else [])
+    crc_bad = []
+    if verify_crc:
+        with span("codec.inflate.crc", blocks=len(blocks)):
+            crc_bad = _crc_failures(data, blocks, base, blob, out_off, bad)
     if bad or crc_bad:
         raise FlaggedBlocksError(
             str(flagged) if flagged is not None

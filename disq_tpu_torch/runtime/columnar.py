@@ -35,9 +35,10 @@ device:
   sort's ``all_to_all``), and ``permuted``, ``filter`` and ``concat`` of
   same-mesh batches stay sharded (``mesh_put``). Column access and
   ``device_columns()`` join the shards.
-- **Telemetry** (the reference's names): ``columnar.batch.build`` /
-  ``fetch`` / ``compact`` spans, the ``columnar.batch.materializations``
-  counter (host parses of the records), the
+- **Telemetry** (the reference's names, and one of the port's own):
+  ``columnar.batch.build`` / ``fetch`` / ``compact`` spans, the
+  ``columnar.batch.materializations`` counter (host parses of the
+  records, each under a ``columnar.batch.materialize`` span), the
   ``columnar.batch.resident_bytes`` gauge and ``track_hbm`` of the fixed
   columns. ``release()`` books the d2h the lazy fetch skipped (fixed
   columns never fetched, and what a device consumer used in place:
@@ -348,10 +349,11 @@ class ColumnarBatch:
                 if self._ragged_rb is None:
                     from disq_tpu_torch.bam.codec import decode_records
 
-                    rb = decode_records(self._host_blob(), self._offsets,
-                                        n_ref=self._n_ref)
-                    if self._order is not None:
-                        rb = rb.take(self._order)
+                    with span("columnar.batch.materialize", records=self._n):
+                        rb = decode_records(self._host_blob(), self._offsets,
+                                            n_ref=self._n_ref)
+                        if self._order is not None:
+                            rb = rb.take(self._order)
                     self._ragged_rb = rb
                     counter("columnar.batch.materializations").inc()
         return self._ragged_rb

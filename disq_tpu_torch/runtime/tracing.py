@@ -8,8 +8,9 @@ timelines, the counterpart of ``disq_tpu/runtime/tracing.py``.
   ``disq_tpu_`` series names (a scraper reads either package), and as a
   dict by ``telemetry_snapshot()`` / ``telemetry_summary()``.
 - **Span timeline**: ``span(name, shard=…)`` emits ``{ts, dur, name,
-  labels}`` events with a process-wide ``RUN_ID`` into a bounded ring
-  (64k events; overflow drops the oldest and counts
+  labels}`` events with a process-wide ``RUN_ID`` and the emitting
+  thread's native id (``tid``, the id the profiler's CPU rows carry)
+  into a bounded ring (64k events; overflow drops the oldest and counts
   ``telemetry.dropped_spans``) and an optional JSONL sink
   (``DISQ_TPU_TORCH_TRACE_JSONL``, ``start_span_log(path)`` or
   ``DisqOptions.span_log``), the input of ``scripts/trace_report.py``.
@@ -27,10 +28,14 @@ timelines, the counterpart of ``disq_tpu/runtime/tracing.py``.
   ``torch.profiler.record_function`` range; ``start_trace(dir)`` (or
   ``DISQ_TPU_TORCH_TRACE_DIR``, started at the first phase) runs a
   ``torch.profiler.profile`` that ``stop_trace()`` (or process exit)
-  exports as a Chrome trace into ``dir``.
+  exports as a Chrome trace into ``dir``, with the ring's spans of the
+  capture added on the profiler's clock (one row per thread), so a
+  kernel or an idle stretch of the card sits under the host spans that
+  were open then.
 
-The port emits only names the reference emits, with the same kind, so
-the README's metric table documents both packages.
+The port emits the reference's names with the reference's kinds, so the
+README's metric table documents both packages; the few spans only the
+port has are listed in the README's second table (``port-metrics``).
 """
 
 from __future__ import annotations
@@ -728,7 +733,8 @@ def _emit_span(name: str, ts: float, dur: float,
     global _span_writes
     REGISTRY.histogram(name).observe(dur)
     rec = {"ts": round(ts, 6), "dur": round(dur, 6), "name": name,
-           "run": RUN_ID, "labels": labels}
+           "run": RUN_ID, "tid": threading.get_native_id(),
+           "labels": labels}
     ctx = _trace_var.get()
     if ctx is not None:
         rec["trace"] = ctx.trace_id
@@ -969,6 +975,7 @@ def export_chrome_trace(path: str,
 _lock = threading.Lock()
 _profiler = None              # the running torch.profiler.profile, or None
 _profiler_dir: Optional[str] = None
+_profiler_anchor: Optional[Tuple[float, int]] = None  # (perf_counter, time_ns)
 _phase_env_resolved = False
 _trace_dir: Optional[str] = None
 
@@ -986,8 +993,11 @@ def _resolve_phase_env() -> None:
 def start_trace(trace_dir: str) -> None:
     """Begin a ``torch.profiler`` capture (host ops, and the card's
     kernels and copies when CUDA is available); ``stop_trace()`` or
-    process exit writes it into ``trace_dir`` as a Chrome trace."""
-    global _profiler, _profiler_dir
+    process exit writes it into ``trace_dir`` as a Chrome trace. The
+    capture's start is sampled on both clocks at once, the spans'
+    (``time.perf_counter``) and the profiler's (the epoch's), which is
+    what places the spans in the exported file."""
+    global _profiler, _profiler_dir, _profiler_anchor
     import torch
 
     with _lock:
@@ -999,23 +1009,63 @@ def start_trace(trace_dir: str) -> None:
         prof = torch.profiler.profile(activities=acts)
         prof.__enter__()
         _profiler, _profiler_dir = prof, trace_dir
+        _profiler_anchor = (time.perf_counter(), time.time_ns())
         atexit.register(stop_trace)
 
 
 def stop_trace() -> Optional[str]:
-    """End the capture and export it: returns the Chrome trace's path
+    """End the capture and export it with the spans of the capture
+    merged in (``merge_spans``): returns the Chrome trace's path
     (``<dir>/trace-<run id>.json``), or None when none was running."""
-    global _profiler, _profiler_dir
+    global _profiler, _profiler_dir, _profiler_anchor
     with _lock:
-        prof, trace_dir = _profiler, _profiler_dir
-        _profiler = _profiler_dir = None
+        prof, trace_dir, anchor = _profiler, _profiler_dir, _profiler_anchor
+        _profiler = _profiler_dir = _profiler_anchor = None
     if prof is None:
         return None
+    end = time.perf_counter()
     prof.__exit__(None, None, None)
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, f"trace-{RUN_ID}.json")
     prof.export_chrome_trace(path)
+    merge_spans(path, anchor, end)
     return path
+
+
+# The spans' process row in a merged capture: above every Linux pid
+# (pid_max is at most 2**22) and the profiler's device rows (0, 1, ...).
+_SPAN_ROW_PID = 1 << 22
+
+
+def merge_spans(path: str, anchor: Tuple[float, int], end: float) -> int:
+    """Add the ring's spans that lie in ``[anchor, end]`` (seconds of
+    ``time.perf_counter``) to the profiler's Chrome trace at ``path`` as
+    complete events on its clock, on their own process row with one row
+    per thread (``tid``, the profiler's CPU rows' ids). ``anchor`` is
+    ``(perf_counter, time_ns)`` sampled together; the profiler's events
+    are microseconds after the file's ``baseTimeNanoseconds``. Returns
+    the number of spans added."""
+    perf0, ns0 = anchor
+    with open(path) as f:
+        doc = json.load(f)
+    shift_us = (ns0 - doc.get("baseTimeNanoseconds", 0)) / 1e3 - perf0 * 1e6
+    events = doc.setdefault("traceEvents", [])
+    kept = [s for s in spans()
+            if perf0 <= s["ts"] and s["ts"] + s["dur"] <= end]
+    events.extend({"ph": "X", "cat": "host_span", "name": s["name"],
+                   "pid": _SPAN_ROW_PID, "tid": s["tid"],
+                   "ts": round(s["ts"] * 1e6 + shift_us, 3),
+                   "dur": round(s["dur"] * 1e6, 3), "args": s["labels"]}
+                  for s in kept)
+    events.append({"ph": "M", "name": "process_name", "pid": _SPAN_ROW_PID,
+                   "tid": 0, "args": {"name": "disq_tpu_torch spans"}})
+    events.extend({"ph": "M", "name": "thread_name", "pid": _SPAN_ROW_PID,
+                   "tid": tid, "args": {"name": f"spans of thread {tid}"}}
+                  for tid in sorted({s["tid"] for s in kept}))
+    with open(path, "w") as f:
+        # default=str: label values may be numpy scalars
+        json.dump(doc, f, default=str)
+    return len(kept)
 
 
 @contextlib.contextmanager

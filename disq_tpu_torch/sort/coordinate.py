@@ -13,9 +13,12 @@ gather, unless the device write path keeps the sorted batch resident.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from disq_tpu_torch.bam.columnar import ReadBatch
+from disq_tpu_torch.runtime.tracing import record_span
 
 # Key layout: refid in the high 32 bits with unmapped (−1) remapped
 # ABOVE all real refs, pos+1 in the low 32 — monotone in coordinate
@@ -42,20 +45,36 @@ def coordinate_sort_batch(batch, use_mesh: bool = True,
     ``batch.permuted(order)`` for a batch with an encode source instead
     of materializing host records: the fixed columns are permuted on the
     device and the record bytes stay where the device write gathers
-    them from (``runtime/device_write.py``)."""
+    them from (``runtime/device_write.py``).
+
+    One ``sort.coordinate`` span covers the call: the permutation, the
+    gather of the sorted records and a host parse of the records it
+    triggers (``columnar.batch.materialize``); its ``route`` says where
+    the permutation came from (``device``, ``mesh`` or ``host``)."""
+    t0 = time.perf_counter()
+    out, route = _sort_batch(batch, use_mesh, keep_resident)
+    record_span("sort.coordinate", time.perf_counter() - t0,
+                records=int(batch.count), route=route)
+    return out
+
+
+def _sort_batch(batch, use_mesh, keep_resident):
+    """``coordinate_sort_batch``'s work: (sorted batch, route)."""
     from disq_tpu_torch.runtime.columnar import ColumnarBatch
 
     resident_src = None
     if isinstance(batch, ColumnarBatch):
         if batch.device_backed and batch.count > 0:
+            route = "mesh" if batch.mesh is not None else "device"
             order = batch.sort_permutation()
             if keep_resident and batch.encode_source() is not None:
-                return batch.permuted(order)
-            return batch.take(order)
+                return batch.permuted(order), route
+            return batch.take(order), route
         resident_src = batch if keep_resident else None
         batch = batch.to_read_batch()
     keys = coordinate_keys(batch.refid, batch.pos)
     order = None
+    route = "host"
     if use_mesh and batch.count > 0:
         import torch
 
@@ -68,8 +87,9 @@ def coordinate_sort_batch(batch, use_mesh: bool = True,
 
             _, order = sharded_coordinate_sort(
                 keys, make_mesh(len(devs), device=devs[0]))
+            route = "mesh"
     if order is None:
         order = np.argsort(keys, kind="stable")
     if resident_src is not None and resident_src.encode_source() is not None:
-        return resident_src.permuted(order)
-    return batch.take(order)
+        return resident_src.permuted(order), route
+    return batch.take(order), route

@@ -1,25 +1,24 @@
 """The metric-name lint (``scripts/check_metrics.py``) over the port:
 every metric and span name literal in ``disq_tpu_torch/`` follows the
-dotted taxonomy and the README's metric table lists exactly the names
-the port books, with no exclusion (the mesh's four ``device.mesh.*``
-series included)."""
+dotted taxonomy and the README's metric tables (the main one and the
+port's own, ``port-metrics``) list exactly the names the port books,
+with no exclusion (the mesh's four ``device.mesh.*`` series
+included)."""
 
 import os
-import sys
 
 import pytest
+
+from port_metric_tables import lint_module, read_both_tables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture()
 def lint(monkeypatch):
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    try:
-        import check_metrics as cm
-    finally:
-        sys.path.pop(0)
+    cm = lint_module()
     monkeypatch.setattr(cm, "CODE_ROOT", os.path.join(REPO, "disq_tpu_torch"))
+    read_both_tables(cm, monkeypatch)
     return cm
 
 

@@ -4,15 +4,17 @@ its call sites) against the reference's, on the same inputs.
 - the same registry calls give the same Prometheus text, snapshot,
   summary, percentiles and Chrome trace events;
 - a BAM read (oracle fixture, several splits) emits the reference's
-  non-device span names, as many of each, with the same shard and
+  span names (less ``device.*`` and the port's own, the README's
+  ``port-metrics`` table), as many of each, with the same shard and
   virtual-offset labels, at 1 and 4 executor workers;
 - a resident read booked as the reference books it:
   ``device.d2h_avoided_bytes`` after flagstat and release, ``track_hbm``
   back where it started once the batch is released;
 - the CRAM read's per-split ``cram.split.fetch`` / ``decode`` spans;
-- every name the port emits is in the README's metric table with the
+- every name the port emits is in the README's metric tables with the
   same kind (``scripts/check_metrics.py``'s own scan, pointed at the
-  port), and ``scripts/trace_report.py`` renders a port span log;
+  port), the reference emits all but the port table's, and none of
+  those; ``scripts/trace_report.py`` renders a port span log;
 - ``telemetry_report()`` has the reference's keys; the counters module
   books into the registry; a ``torch.profiler`` capture is exported.
 """
@@ -32,6 +34,7 @@ import disq_tpu_torch as P
 from disq_tpu_torch.runtime import counters
 from disq_tpu_torch.runtime import tracing as PT
 from disq_tpu_torch.util import shutdown_shared_host_pool
+from port_metric_tables import lint_module, port_table, read_both_tables
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -100,6 +103,7 @@ def test_emitted_spans_equal_reference_but_run_ids():
         for s in T.spans():
             s = dict(s)
             assert s.pop("run") == T.RUN_ID
+            s.pop("tid", None)  # the port's only: the emitting thread
             s.pop("ts")
             s.pop("dur") if s["name"] == "bam.split.decode" else None
             out.append(s)
@@ -109,8 +113,10 @@ def test_emitted_spans_equal_reference_but_run_ids():
 
 
 def _span_names(T):
+    own = port_table()
     return collections.Counter(s["name"] for s in T.spans()
-                               if not s["name"].startswith("device."))
+                               if not s["name"].startswith("device.")
+                               and s["name"] not in own)
 
 
 def _fetch_labels(T):
@@ -206,12 +212,9 @@ def test_cram_read_emits_split_spans(bam, tmp_path):
 
 
 def test_port_metric_names_are_documented(monkeypatch):
-    sys.path.insert(0, os.path.join(REPO, "scripts"))
-    try:
-        import check_metrics as cm
-    finally:
-        sys.path.pop(0)
+    cm = lint_module()
     monkeypatch.setattr(cm, "CODE_ROOT", os.path.join(REPO, "disq_tpu_torch"))
+    read_both_tables(cm, monkeypatch)
     kinds, sites = cm.scan_code()
     documented = cm.scan_readme_kinds()
     assert len(kinds) > 40
@@ -219,10 +222,14 @@ def test_port_metric_names_are_documented(monkeypatch):
         assert len(k) == 1, (name, k, sites[name])
         assert name in documented, (name, sites[name])
         assert cm._DOC_KIND[documented[name].lower()] == next(iter(k)), name
-    # the reference emits every one of them too
+    # the reference emits every one of them too, but the port table's,
+    # which are the port's alone
+    own = port_table(cm)
+    assert own and own <= set(kinds)
     monkeypatch.setattr(cm, "CODE_ROOT", os.path.join(REPO, "disq_tpu"))
     ref_kinds, _ = cm.scan_code()
-    assert set(kinds) <= set(ref_kinds)
+    assert set(kinds) - own <= set(ref_kinds)
+    assert not own & set(ref_kinds)
 
 
 def test_trace_report_renders_a_port_span_log(bam, tmp_path):
