@@ -381,9 +381,10 @@ class ReadsDataset:
                           ) -> "ReadsDataset":
         """Coordinate-sort the dataset. ``keep_resident`` keeps a
         device-backed batch device-backed (fixed columns permuted on the
-        device, host records not materialized) for the device write
-        path; ``ReadsStorage.write(..., sort=True)`` arms it when
-        ``device_deflate`` is on."""
+        device, host records not materialized) for a sink that gathers
+        the sorted records from the read's blob;
+        ``ReadsStorage.write(..., sort=True)`` arms it for a BAM write
+        and whenever ``device_deflate`` is on."""
         from disq_tpu_torch.sort.coordinate import coordinate_sort_batch
 
         return ReadsDataset(header=self.header.with_sort_order("coordinate"),
@@ -634,18 +635,26 @@ class ReadsStorage(_PlaneKnobs):
 
     def write(self, dataset: ReadsDataset, path: str, *options: WriteOption,
               sort: bool = False) -> None:
-        from disq_tpu_torch.formats import sam_format_from_write_options
+        from disq_tpu_torch.formats import (
+            SamFormat,
+            sam_format_from_write_options,
+        )
 
         self._resolved_device()
+        fmt = sam_format_from_write_options(
+            path, _opt(options, ReadsFormatWriteOption, None))
         if sort:
             from disq_tpu_torch.bgzf.codec import device_deflate_enabled
 
+            # a BAM sink gathers a device-backed batch's sorted records
+            # from the read's blob, so the sort keeps the permutation
+            # rather than taking the records on the host; SAM and CRAM
+            # read the ragged columns anyway
             dataset = dataset.coordinate_sorted(
-                keep_resident=device_deflate_enabled(self))
+                keep_resident=fmt is SamFormat.BAM
+                or device_deflate_enabled(self))
         from disq_tpu_torch.runtime import flightrec
 
-        fmt = sam_format_from_write_options(
-            path, _opt(options, ReadsFormatWriteOption, None))
         cardinality = _opt(options, FileCardinalityWriteOption,
                            _infer_cardinality(path))
         try:

@@ -11,6 +11,11 @@ A two-pass vectorized design:
   cigar / seq / qual / tags) from segment gathers whose index arithmetic
   is derived from the fixed columns. No per-record Python loop.
 
+The encode of records a batch still holds as decoded bytes is their
+gather (``gather_records``): one memcpy per record, then the two bytes
+a decode and encode would normalize (the read name's NUL, an odd
+sequence's pad nibble) set as the encoder sets them.
+
 BAM record layout after the 4-byte ``block_size`` (SAM spec §4.2):
 refID i32 · pos i32 · l_read_name u8 · mapq u8 · bin u16 · n_cigar_op u16
 · flag u16 · l_seq i32 · next_refID i32 · next_pos i32 · tlen i32 (32 B
@@ -24,7 +29,12 @@ from typing import Optional
 
 import numpy as np
 
-from disq_tpu_torch.bam.columnar import ReadBatch
+from disq_tpu_torch.bam.columnar import (
+    ReadBatch,
+    alignment_ends,
+    reference_lengths,
+    segment_gather,
+)
 
 _FIXED = 32  # bytes after block_size
 
@@ -316,3 +326,94 @@ def _ragged_scatter(
     within = np.arange(len(flat) - int(offsets[0]), dtype=np.int64)
     within = within - (offsets[seg] - offsets[0])
     out[dst_starts[seg] + within] = flat[int(offsets[0]):]
+
+
+def _record_fields(buf: np.ndarray, offsets: np.ndarray) -> dict:
+    """``refid``, ``pos``, ``flag``, ``name_len`` (without the NUL),
+    ``n_cigar`` and ``l_seq`` of the records at ``offsets``; raises
+    ``ValueError`` where ``decode_records`` would (a record whose
+    sections do not fit it)."""
+    try:
+        from disq_tpu_torch.native import fixed_columns_native
+
+        return fixed_columns_native(buf, offsets)
+    except ImportError:
+        pass
+    starts = offsets[:-1]
+    fixed = buf[starts[:, None] + np.arange(4 + _FIXED)]
+    as_i32, as_u16 = fixed.view("<i4"), fixed.view("<u2")
+    l_read_name = fixed[:, 12].astype(np.int64)
+    n_cigar = as_u16[:, 8].astype(np.int64)
+    l_seq = as_i32[:, 5].astype(np.int64)
+    sections = (4 + _FIXED + l_read_name + 4 * n_cigar + (l_seq + 1) // 2
+                + l_seq)
+    bad = (l_read_name < 1) | (l_seq < 0) | (starts + sections > offsets[1:])
+    if bad.any():
+        raise ValueError(
+            f"record {int(np.nonzero(bad)[0][0])}: malformed sections")
+    return dict(refid=as_i32[:, 1].copy(), pos=as_i32[:, 2].copy(),
+                flag=as_u16[:, 9].copy(), name_len=l_read_name - 1,
+                n_cigar=n_cigar, l_seq=l_seq)
+
+
+class GatheredRecords:
+    """One shard's records as BAM record bytes: ``data`` (uint8) and the
+    ``(n+1,)`` shard-local record ``offsets``, with the fields the index
+    fragments read, parsed from those bytes: ``refid``, ``pos``,
+    ``flag`` and ``alignment_ends()`` (from the CIGAR words, gathered
+    only when asked for)."""
+
+    def __init__(self, data: np.ndarray, offsets: np.ndarray,
+                 fields: dict) -> None:
+        self.data = data
+        self.offsets = offsets
+        self._fields = fields
+        self.refid = fields["refid"]
+        self.pos = fields["pos"]
+        self.flag = fields["flag"]
+
+    @property
+    def count(self) -> int:
+        return len(self.offsets) - 1
+
+    def alignment_ends(self) -> np.ndarray:
+        """0-based exclusive end positions, as ``ReadBatch.
+        alignment_ends``: the CIGARs' bytes are one ragged segment per
+        record, between the name and the sequence."""
+        n = self.count
+        if n == 0:
+            return self.pos.copy()
+        f = self._fields
+        bounds = np.empty(2 * n, dtype=np.int64)
+        bounds[0::2] = self.offsets[:-1] + 4 + _FIXED + f["name_len"] + 1
+        bounds[1::2] = bounds[0::2] + 4 * f["n_cigar"]
+        words, word_off = segment_gather(
+            self.data, bounds, np.arange(0, 2 * n, 2, dtype=np.int64))
+        return alignment_ends(self.pos, reference_lengths(
+            words.view("<u4"), word_off // 4))
+
+
+def gather_records(blob: np.ndarray, offsets: np.ndarray,
+                   order: Optional[np.ndarray], lo: int,
+                   hi: int) -> GatheredRecords:
+    """Records ``[lo, hi)`` of a decoded record blob, taken in ``order``
+    (the blob's record ``order[i]`` is record ``i``; None: blob order),
+    as the bytes ``encode_records`` writes for them after
+    ``decode_records``: one memcpy per record (``segment_gather``), then
+    each read name's last byte set to NUL and each odd-length
+    sequence's pad nibble to 0, the two bytes the decode drops and the
+    encode writes. Raises ``ValueError`` where ``decode_records`` would."""
+    rows = np.arange(lo, hi, dtype=np.int64) if order is None \
+        else order[lo:hi]
+    data, rec_off = segment_gather(np.asarray(blob, dtype=np.uint8),
+                                   np.asarray(offsets, dtype=np.int64), rows)
+    fields = _record_fields(data, rec_off)
+    if len(rec_off) > 1:
+        name = rec_off[:-1] + 4 + _FIXED
+        data[name + fields["name_len"]] = 0
+        odd = np.nonzero(fields["l_seq"] & 1)[0]
+        if len(odd):
+            data[name[odd] + fields["name_len"][odd] + 1
+                 + 4 * fields["n_cigar"][odd]
+                 + (fields["l_seq"][odd] - 1) // 2] &= np.uint8(0xF0)
+    return GatheredRecords(data, rec_off, fields)

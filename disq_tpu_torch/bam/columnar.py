@@ -182,18 +182,29 @@ class ReadBatch:
 
     def reference_lengths(self) -> np.ndarray:
         """Reference-consumed length per record: ops M/D/N/=/X."""
-        op = (self.cigars & 0xF).astype(np.int64)
-        ln = (self.cigars >> 4).astype(np.int64)
-        contrib = np.where(np.isin(op, (0, 2, 3, 7, 8)), ln, 0)
-        sums = np.add.reduceat(
-            np.concatenate([contrib, [0]]),
-            np.minimum(self.cigar_offsets[:-1], len(contrib)),
-        ) if self.count else np.zeros(0, np.int64)
-        # reduceat gives the next element's value for an empty segment
-        empty = np.diff(self.cigar_offsets) == 0
-        return np.where(empty, 0, sums)
+        return reference_lengths(self.cigars, self.cigar_offsets)
 
     def alignment_ends(self) -> np.ndarray:
         """0-based exclusive end positions (pos + reflen, min 1)."""
-        reflen = self.reference_lengths()
-        return self.pos + np.maximum(reflen, 1).astype(np.int32)
+        return alignment_ends(self.pos, self.reference_lengths())
+
+
+def reference_lengths(cigars: np.ndarray,
+                      cigar_offsets: np.ndarray) -> np.ndarray:
+    """Reference-consumed length of each record whose CIGAR op words are
+    ``cigars[cigar_offsets[i]:cigar_offsets[i + 1]]``: ops M/D/N/=/X."""
+    op = (cigars & 0xF).astype(np.int64)
+    ln = (cigars >> 4).astype(np.int64)
+    contrib = np.where(np.isin(op, (0, 2, 3, 7, 8)), ln, 0)
+    sums = np.add.reduceat(
+        np.concatenate([contrib, [0]]),
+        np.minimum(cigar_offsets[:-1], len(contrib)),
+    ) if len(cigar_offsets) > 1 else np.zeros(0, np.int64)
+    # reduceat gives the next element's value for an empty segment
+    empty = np.diff(cigar_offsets) == 0
+    return np.where(empty, 0, sums)
+
+
+def alignment_ends(pos: np.ndarray, reflen: np.ndarray) -> np.ndarray:
+    """0-based exclusive end positions (pos + reflen, min 1)."""
+    return pos + np.maximum(reflen, 1).astype(np.int32)

@@ -11,11 +11,19 @@ in every block, so ``voffset(u) = (block_comp_start[u // 65280] << 16)
 | (u % 65280)``.
 
 Shards run through the write pipeline (``runtime/executor.py``):
-encode (slice and record encode) → deflate (BGZF blocks and virtual
-offsets, then index fragments) → stage (the part's write, retried on
-transient faults), then the merge in shard order. With ``writer_workers
-> 1`` the steps of different shards overlap; the bytes are the same at
-any width.
+encode → deflate (BGZF blocks and virtual offsets, then index
+fragments) → stage (the part's write, retried on transient faults),
+then the merge in shard order. With ``writer_workers > 1`` the steps of
+different shards overlap; the bytes are the same at any width.
+
+A shard's encode takes one of two routes, counted per shard by
+``bam.write.shards{route}``. A batch that still holds the read's
+decoded record blob (a device-backed ``ColumnarBatch``, sorted with
+``permuted``: ``encode_source()``) gathers the shard's record bytes from
+it in the batch's order (``bam/codec.gather_records``, route
+``gathered``), and the index fragments read the fields they need from
+those bytes. Any other batch is sliced and its records encoded (route
+``encoded``). Both routes write the same bytes.
 
 With a ``StageManifestWriteOption`` the write resumes: each staged
 shard is recorded in the manifest (with its index fragments pickled
@@ -30,10 +38,11 @@ it. The manifest goes at the commit point, before the staging dir.
 With ``DisqOptions.device_deflate`` armed every deflate (parts, header
 block, directory parts) runs the device coder on the storage's device
 (``ops/deflate.py``), and a sorted batch with an encode source gathers
-each shard's records on the device too (``runtime/device_write.py``):
-then the index fragments read host columns only when an index is asked
-for (``_LazySlice``). The knob is part of the stage manifest's params,
-so flipping it between a crash and the resume starts the staging afresh.
+each shard's records on the device too (``runtime/device_write.py``,
+route ``gathered``): then the index fragments read host columns only
+when an index is asked for (``_LazySlice``). The knob is part of the
+stage manifest's params, so flipping it between a crash and the resume
+starts the staging afresh.
 """
 
 from __future__ import annotations
@@ -45,7 +54,11 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from disq_tpu_torch.bam.codec import encode_records, encode_records_with_offsets
+from disq_tpu_torch.bam.codec import (
+    encode_records,
+    encode_records_with_offsets,
+    gather_records,
+)
 from disq_tpu_torch.bam.header import SamHeader
 from disq_tpu_torch.bgzf.block import BGZF_EOF_MARKER, BGZF_MAX_PAYLOAD
 from disq_tpu_torch.bgzf.codec import (
@@ -62,7 +75,12 @@ from disq_tpu_torch.runtime.executor import (
     write_retrier_for_storage,
     writer_for_storage,
 )
-from disq_tpu_torch.runtime.tracing import span, trace_phase, wrap_span
+from disq_tpu_torch.runtime.tracing import (
+    counter,
+    span,
+    trace_phase,
+    wrap_span,
+)
 from disq_tpu_torch.util import shard_bounds
 
 SBI_GRANULARITY = 4096  # htsjdk SBIIndexWriter default
@@ -77,6 +95,22 @@ def _batch_digest(batch) -> int:
                 batch.tags):
         crc = zlib.crc32(np.ascontiguousarray(col).tobytes(), crc)
     return crc
+
+
+def gathered_shard(batch, lo: int, hi: int):
+    """Records ``[lo, hi)`` of ``batch`` gathered from its decoded record
+    blob (``bam/codec.gather_records``), or None when the batch holds no
+    blob (no ``encode_source()``)."""
+    source = getattr(batch, "encode_source", None)
+    source = source() if source is not None else None
+    if source is None:
+        return None
+    blob, offsets, order = source
+    return gather_records(blob, offsets, order, lo, hi)
+
+
+def _count_shard(route: str) -> None:
+    counter("bam.write.shards").inc(route=route)
 
 
 def voffsets_from_csizes(csizes: np.ndarray, record_offsets: np.ndarray
@@ -206,14 +240,21 @@ class BamSink:
     # -- the steps of one shard (encode → deflate → stage) ------------------
 
     def _encode_shard(self, batch, bounds, k, resident=None):
-        """Slice shard ``k`` and encode its records: on the host, or, with
-        the device write path's encoder, as a W1 gather on the device
-        (the payload stays there for the deflate)."""
+        """Shard ``k``'s record bytes: with the device write path's
+        encoder, a W1 gather on the device (the payload stays there for
+        the deflate); from the batch's decoded record blob, a host
+        gather; else the slice's records encoded on the host."""
         lo, hi = int(bounds[k]), int(bounds[k + 1])
         if resident is not None:
             enc = resident.encode_shard(lo, hi)
+            _count_shard("gathered")
             return _LazySlice(batch, lo, hi), enc, enc.record_offsets
+        part = gathered_shard(batch, lo, hi)
+        if part is not None:
+            _count_shard("gathered")
+            return part, part.data, part.offsets
         part = batch.slice(lo, hi)
+        _count_shard("encoded")
         return (part,) + encode_records_with_offsets(part)
 
     def _deflate_shard(self, header, write_bai, write_sbi, k, payload):
@@ -394,8 +435,13 @@ class BamSinkMultiple:
 
         def make_task(k):
             def encode():
-                part = batch.slice(int(bounds[k]), int(bounds[k + 1]))
-                return header_bytes + encode_records(part)
+                lo, hi = int(bounds[k]), int(bounds[k + 1])
+                part = gathered_shard(batch, lo, hi)
+                if part is not None:
+                    _count_shard("gathered")
+                    return header_bytes + part.data.tobytes()
+                _count_shard("encoded")
+                return header_bytes + encode_records(batch.slice(lo, hi))
 
             def stage(data):
                 part_path = os.path.join(path, f"part-r-{k:05d}.bam")

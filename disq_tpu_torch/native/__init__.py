@@ -250,35 +250,45 @@ def inflate_blocks_native(data, block_off, hdr_len, csize, usize,
     return out
 
 
+def fixed_columns_native(buf, offsets: np.ndarray) -> dict:
+    """Pass 2's fixed part in C: the 8 fixed columns and each record's
+    ``name_len`` (without the NUL), ``n_cigar``, ``l_seq`` and
+    ``tag_len``. Raises ``ValueError`` on a record whose sections do not
+    fit it (or whose ``l_read_name`` or ``l_seq`` is impossible)."""
+    lib = _load()
+    arr = _as_u8(buf)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    n = len(offsets) - 1
+    c_u8, c_i32, c_i64, c_u16 = (ctypes.c_uint8, ctypes.c_int32,
+                                 ctypes.c_int64, ctypes.c_uint16)
+    cols = dict(
+        refid=np.empty(n, np.int32), pos=np.empty(n, np.int32),
+        mapq=np.empty(n, np.uint8), bin=np.empty(n, np.uint16),
+        flag=np.empty(n, np.uint16), next_refid=np.empty(n, np.int32),
+        next_pos=np.empty(n, np.int32), tlen=np.empty(n, np.int32),
+        name_len=np.empty(n, np.int64), n_cigar=np.empty(n, np.int64),
+        l_seq=np.empty(n, np.int64), tag_len=np.empty(n, np.int64),
+    )
+    ctype = {np.dtype(np.int32): c_i32, np.dtype(np.uint8): c_u8,
+             np.dtype(np.uint16): c_u16, np.dtype(np.int64): c_i64}
+    rc = lib.disq_bam_fixed_columns(
+        _ptr(arr, c_u8), len(arr), _ptr(offsets, c_i64), n,
+        *(_ptr(a, ctype[a.dtype]) for a in cols.values()))
+    if rc != 0:
+        raise ValueError(f"record {-(rc + 1)}: malformed sections")
+    return cols
+
+
 def decode_records_native(buf, offsets: np.ndarray) -> dict:
     """Full pass-2 decode in C: returns the dict of ReadBatch columns."""
     lib = _load()
     arr = _as_u8(buf)
     offsets = np.ascontiguousarray(offsets, dtype=np.int64)
     n = len(offsets) - 1
-    c_u8, c_i32, c_i64 = ctypes.c_uint8, ctypes.c_int32, ctypes.c_int64
-    c_u16, c_u32 = ctypes.c_uint16, ctypes.c_uint32
-    refid = np.empty(n, np.int32)
-    pos = np.empty(n, np.int32)
-    mapq = np.empty(n, np.uint8)
-    bin_ = np.empty(n, np.uint16)
-    flag = np.empty(n, np.uint16)
-    next_refid = np.empty(n, np.int32)
-    next_pos = np.empty(n, np.int32)
-    tlen = np.empty(n, np.int32)
-    name_len = np.empty(n, np.int64)
-    n_cigar = np.empty(n, np.int64)
-    l_seq = np.empty(n, np.int64)
-    tag_len = np.empty(n, np.int64)
-    rc = lib.disq_bam_fixed_columns(
-        _ptr(arr, c_u8), len(arr), _ptr(offsets, c_i64), n,
-        _ptr(refid, c_i32), _ptr(pos, c_i32), _ptr(mapq, c_u8),
-        _ptr(bin_, c_u16), _ptr(flag, c_u16), _ptr(next_refid, c_i32),
-        _ptr(next_pos, c_i32), _ptr(tlen, c_i32), _ptr(name_len, c_i64),
-        _ptr(n_cigar, c_i64), _ptr(l_seq, c_i64), _ptr(tag_len, c_i64),
-    )
-    if rc != 0:
-        raise ValueError(f"record {-(rc + 1)}: malformed sections")
+    c_u8, c_i64, c_u32 = ctypes.c_uint8, ctypes.c_int64, ctypes.c_uint32
+    fixed = fixed_columns_native(arr, offsets)
+    name_len, n_cigar, l_seq, tag_len = (
+        fixed.pop(k) for k in ("name_len", "n_cigar", "l_seq", "tag_len"))
 
     def cum(lens):
         off = np.zeros(n + 1, dtype=np.int64)
@@ -303,8 +313,7 @@ def decode_records_native(buf, offsets: np.ndarray) -> dict:
     if rc != 0:
         raise ValueError("ragged fill failed")
     return dict(
-        refid=refid, pos=pos, mapq=mapq, bin=bin_, flag=flag,
-        next_refid=next_refid, next_pos=next_pos, tlen=tlen,
+        **fixed,
         name_offsets=name_off, names=names,
         cigar_offsets=cigar_off, cigars=cigars,
         seq_offsets=seq_off, seqs=seqs, quals=quals,

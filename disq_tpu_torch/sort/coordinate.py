@@ -8,7 +8,9 @@ mesh); a host batch takes the permutation from
 ``sharded_coordinate_sort`` when more than one local device exists
 (``runtime/mesh.local_devices``), else numpy's stable argsort of the
 same key. Ragged columns are reordered on the host by one segment
-gather, unless the device write path keeps the sorted batch resident.
+gather, unless the write keeps the sorted batch resident: a BAM write,
+whose sink gathers each shard's record bytes from the read's blob, and
+any write with the device deflate.
 """
 
 from __future__ import annotations
@@ -41,16 +43,17 @@ def coordinate_sort_batch(batch, use_mesh: bool = True,
     from the sharded sort over them; a failure there raises, it never
     falls back to the host argsort.
 
-    ``keep_resident`` (the device write path) returns
+    ``keep_resident`` (a BAM write, the device write path) returns
     ``batch.permuted(order)`` for a batch with an encode source instead
     of materializing host records: the fixed columns are permuted on the
-    device and the record bytes stay where the device write gathers
-    them from (``runtime/device_write.py``).
+    device and the record bytes stay where the BAM sink gathers them
+    from (``bam/sink.py``, ``runtime/device_write.py``).
 
     One ``sort.coordinate`` span covers the call: the permutation, the
     gather of the sorted records and a host parse of the records it
-    triggers (``columnar.batch.materialize``); its ``route`` says where
-    the permutation came from (``device``, ``mesh`` or ``host``)."""
+    triggers (``columnar.batch.materialize``; none with
+    ``keep_resident``); its ``route`` says where the permutation came
+    from (``device``, ``mesh`` or ``host``)."""
     t0 = time.perf_counter()
     out, route = _sort_batch(batch, use_mesh, keep_resident)
     record_span("sort.coordinate", time.perf_counter() - t0,

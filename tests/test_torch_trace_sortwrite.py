@@ -4,8 +4,11 @@ card's kernels) sorted and written with its BAI.
 
 - one ``sort.coordinate`` per ``write(..., sort=True)``, on the caller's
   thread, with its ``records`` and ``route``;
-- one ``columnar.batch.materialize`` per ``columnar.batch.materializations``
-  increment, inside the sort;
+- the sorted BAM write parses no record on the host (its sink gathers
+  the records' bytes): no ``columnar.batch.materialize`` span and no
+  ``columnar.batch.materializations`` increment; a sorted SAM write,
+  which still takes the records on the host, emits one
+  ``columnar.batch.materialize`` per increment, inside the sort;
 - one ``bam.write.compress`` and one ``bam.write.index`` per shard,
   inside that shard's ``bam.write.deflate`` on the same thread;
 - one ``codec.inflate.crc`` inside each device-route
@@ -44,13 +47,11 @@ def _join_host_threads():
     shutdown_shared_host_pool()
 
 
-@pytest.fixture(scope="module")
-def job(tmp_path_factory):
-    """One read, coordinate sort and BAI write of 3,000 unsorted oracle
-    records (12 splits, 4 executor workers, 4 shards, 2 writers): the
-    spans it emitted, the materializations it counted, the caller's
-    thread id."""
-    d = tmp_path_factory.mktemp("sortwrite")
+def _run_job(d, out_name, *options):
+    """One read, coordinate sort and write of 3,000 unsorted oracle
+    records (12 splits, 4 executor workers, 4 shards, 2 writers) to
+    ``out_name`` in ``d``: the spans it emitted, the materializations it
+    counted, the caller's thread id."""
     src = d / "in.bam"
     src.write_bytes(make_bam_bytes(
         DEFAULT_REFS, synth_records(RECORDS, seed=3), blocksize=20000))
@@ -72,15 +73,29 @@ def job(tmp_path_factory):
         base = mat.total()
         ds = st.read(str(src))
         assert ds.reads.device_backed
-        st.write(ds, str(d / "out.bam"), P.BaiWriteOption.ENABLE, sort=True)
+        st.write(ds, str(d / out_name), *options, sort=True)
         spans = PT.spans()
     finally:
         mp.undo()
-    back = P.ReadsStorage.make_default(device="cpu").read(str(d / "out.bam"))
+    back = P.ReadsStorage.make_default(device="cpu").read(str(d / out_name))
     assert back.count() == RECORDS
     return {"spans": spans, "materializations": mat.total() - base,
             "caller": threading.get_native_id(),
             "device_route": device_route}
+
+
+@pytest.fixture(scope="module")
+def job(tmp_path_factory):
+    """The sorted BAM write with its BAI (``_run_job``)."""
+    return _run_job(tmp_path_factory.mktemp("sortwrite"), "out.bam",
+                    P.BaiWriteOption.ENABLE)
+
+
+@pytest.fixture(scope="module")
+def sam_job(tmp_path_factory):
+    """The same job written as SAM, whose sort takes the records on the
+    host."""
+    return _run_job(tmp_path_factory.mktemp("sortwrite_sam"), "out.sam")
 
 
 def _named(spans, name):
@@ -106,11 +121,16 @@ def test_one_sort_span_per_sorted_write(job):
     assert srt["tid"] == job["caller"]
 
 
-def test_one_materialize_span_per_materialization(job):
-    mats = _named(job["spans"], "columnar.batch.materialize")
-    assert job["materializations"] >= 1
-    assert len(mats) == job["materializations"]
-    (srt,) = _named(job["spans"], "sort.coordinate")
+def test_sorted_bam_write_materializes_nothing(job):
+    assert job["materializations"] == 0
+    assert _named(job["spans"], "columnar.batch.materialize") == []
+
+
+def test_one_materialize_span_per_materialization(sam_job):
+    mats = _named(sam_job["spans"], "columnar.batch.materialize")
+    assert sam_job["materializations"] >= 1
+    assert len(mats) == sam_job["materializations"]
+    (srt,) = _named(sam_job["spans"], "sort.coordinate")
     assert all(_inside(m, srt) for m in mats)
     assert [m["labels"] for m in mats] == [{"records": RECORDS}] * len(mats)
 
