@@ -13,7 +13,13 @@ Replaces htsjdk's ``CramCompressionRecord`` + ``Cram(Record)Codec`` +
 - write side emits single-reference slices (ref runs split into
   slices), detached mate info, absolute AP; the READ side additionally
   handles foreign shapes: multi-reference slices (refid -2 with a
-  per-record RI series) and AP-delta coding;
+  per-record RI series), AP-delta coding, mates attached within a slice
+  (CF 0x4 / NF: mate fields, mate flags and TLEN rebuilt from the
+  pair), unmapped reads as BA bases, and every read feature
+  (b B X I i D N S H P q Q; X through the SM substitution matrix);
+- a slice in the usual layout (every series on its own EXTERNAL block
+  or a single-symbol HUFFMAN constant) is read column by column
+  (``assemble.py``); any other layout record by record;
 - sequence via read features: M-runs that match the reference are
   *omitted* (reference-based compression — requires the reference at
   read time, like the reference's ``CRAMReferenceSource``); mismatching
@@ -39,6 +45,7 @@ from disq_tpu_torch.cram.io import Cursor, write_itf8, write_itf8_array
 from disq_tpu_torch.index.bai import bins_from_cigars
 from disq_tpu_torch.runtime.debug import env_flag
 from disq_tpu_torch.runtime.errors import MissingReferenceError
+from disq_tpu_torch.runtime.tracing import span
 
 # Encoding codec ids (CRAM 3.0 §12)
 E_EXTERNAL = 1
@@ -314,6 +321,25 @@ def enc_bytes_huffman(syms, lens) -> bytes:
     return _enc_raw(E_HUFFMAN, p)
 
 
+_SM_ROW = np.full(256, 4, np.int64)   # SM row of a reference base: N if other
+for _i, _c in enumerate(b"ACGT"):
+    _SM_ROW[_c] = _i
+    _SM_ROW[_c + 32] = _i
+
+
+def substitution_table(sm: bytes) -> np.ndarray:
+    """The SM preservation entry (CRAM 3.0 §10.6.3) as ``[row, code] ->
+    read base``: for each reference base (A, C, G, T, N) one byte holding
+    the 2-bit codes of the other four bases in that order, the first in
+    the top bits."""
+    out = np.full((5, 4), ord("N"), np.uint8)
+    for r, ref in enumerate(b"ACGTN"):
+        others = [b for b in b"ACGTN" if b != ref]
+        for k, base in enumerate(others):
+            out[r, (sm[r] >> (6 - 2 * k)) & 3] = base
+    return out
+
+
 @dataclass
 class CompressionHeader:
     rn_preserved: bool = True
@@ -325,6 +351,9 @@ class CompressionHeader:
     # encode-side: raw encoding bytes overriding the default EXTERNAL
     # wiring for a series (core bit codecs)
     enc_overrides: Dict[str, bytes] = field(default_factory=dict)
+    # read side: the SM matrix as ``[reference base row, code] -> base``
+    # (rows A C G T N); the writer emits no X feature and no SM
+    substitutions: Optional[np.ndarray] = None
 
     def to_bytes(self) -> bytes:
         # preservation map
@@ -397,7 +426,7 @@ class CompressionHeader:
                 else:
                     out.ref_required = v
             elif key == b"SM":
-                cur.bytes(5)
+                out.substitutions = substitution_table(cur.bytes(5))
             elif key == b"TD":
                 blob_len = cur.itf8()
                 blob = cur.bytes(blob_len)
@@ -852,7 +881,13 @@ def decode_container_records(container_blocks: bytes,
 def records_from_blocks(decoded_blocks: Sequence,
                         ref_fetch=None) -> ReadBatch:
     """Decoded blocks of one data container (compression header, then
-    per slice its header and ``n_blocks`` blocks) → ReadBatch."""
+    per slice its header and ``n_blocks`` blocks) → ReadBatch, under
+    the ``cram.records.assemble`` span."""
+    with span("cram.records.assemble", blocks=len(decoded_blocks)):
+        return _records(decoded_blocks, ref_fetch)
+
+
+def _records(decoded_blocks: Sequence, ref_fetch) -> ReadBatch:
     from disq_tpu_torch.cram.structure import (
         COMPRESSION_HEADER, CORE, EXTERNAL, MAPPED_SLICE, SliceHeader,
     )
@@ -881,230 +916,60 @@ def records_from_blocks(decoded_blocks: Sequence,
     return ReadBatch.concat(batches)
 
 
-_FIXED_SERIES = ("BF", "CF", "RL", "AP", "RG", "MF", "NS", "NP", "TS",
-                 "TL", "FN", "MQ")
+def _book(books: dict) -> None:
+    """The slice's read features by code and its mates by kind."""
+    from disq_tpu_torch.runtime.tracing import REGISTRY
 
-
-def _enc_cids(e: Encoding) -> List[int]:
-    """External block ids an encoding reads from (nested for LEN)."""
-    if e.codec == E_EXTERNAL:
-        return [e.params]
-    if e.codec == E_BYTE_ARRAY_STOP:
-        return [e.params[1]]
-    if e.codec == E_BYTE_ARRAY_LEN:
-        return _enc_cids(e.params[0]) + _enc_cids(e.params[1])
-    return []
-
-
-def _external_cids_excluding(comp, enc, exclude) -> List[int]:
-    """External block ids consumed by every encoding EXCEPT the named
-    series — the exclusivity scan both bulk fast paths share."""
-    used: List[int] = []
-    for k, e in enc.items():
-        if k not in exclude:
-            used += _enc_cids(e)
-    for e in comp.tag_enc.values():
-        used += _enc_cids(e)
-    return used
-
-
-def _bulk_fixed_series(rd, comp, enc, n, multi_ref):
-    """Pre-decode the fixed one-value-per-record series into plain
-    lists when each is EXTERNAL over its own block (shared or exotic
-    layouts fall back to the per-record loop — returns None). A stream
-    shorter than n values (e.g. a foreign file whose mate fields are
-    not one-per-record) also falls back, so the loop path reports the
-    real error."""
-    fixed = _FIXED_SERIES + (("RI",) if multi_ref else ())
-    if not all(s in enc and enc[s].codec == E_EXTERNAL for s in fixed):
-        return None
-    cids = [enc[s].params for s in fixed]
-    if len(set(cids)) != len(cids):
-        return None
-    if set(cids) & set(_external_cids_excluding(comp, enc, set(fixed))):
-        return None
-    if not all(cid in rd.cur for cid in cids):
-        return None
-    # RG and MF are consumed-and-discarded by the loop; their blocks
-    # are exclusive (checked above) and per-slice, so the fast path
-    # need not walk them at all
-    decoded = [s for s in fixed if s not in ("RG", "MF")]
-    curs = [rd.cur[enc[s].params] for s in decoded]
-    saved = [c.off for c in curs]
-    try:
-        return {s: c.itf8_bulk(n) for s, c in zip(decoded, curs)}
-    except IndexError:
-        # rewind every partially-consumed cursor so the loop path
-        # re-reads from the true positions and reports the real error
-        for c, o in zip(curs, saved):
-            c.off = o
-        return None
-
-
-def _bulk_split_names(rd, comp, enc, n) -> Optional[List[bytes]]:
-    """All n read names in one C-speed split when RN is a stop-byte
-    array over a block no other encoding reads; None → per-record
-    reads."""
-    if not comp.rn_preserved:
-        return None
-    rne = enc.get("RN")
-    if rne is None or rne.codec != E_BYTE_ARRAY_STOP:
-        return None
-    stop, cid = rne.params
-    if cid in _external_cids_excluding(comp, enc, ("RN",)):
-        return None
-    c = rd.cur.get(cid)
-    if c is None:
-        return None
-    segs = bytes(c.data[c.off:]).split(bytes([stop]))
-    if len(segs) < n + 1:
-        return None   # fewer names than records: loop path reports it
-    segs = segs[:n]
-    c.off += sum(len(s) for s in segs) + n
-    return segs
-
-
-def _bulk_feature_streams(rd, comp, enc, cols):
-    """Pre-slice the FC byte stream and pre-decode the FP delta stream
-    for all features of the slice (counts known from the bulk FN
-    column), when both are EXTERNAL over exclusive blocks. Returns
-    (fc_bytes, fp_deltas) or None → per-feature reads."""
-    fce, fpe = enc.get("FC"), enc.get("FP")
-    if (fce is None or fpe is None
-            or fce.codec != E_EXTERNAL or fpe.codec != E_EXTERNAL
-            or fce.params == fpe.params):
-        return None
-    used = _external_cids_excluding(comp, enc, ("FC", "FP"))
-    if fce.params in used or fpe.params in used:
-        return None
-    cfc, cfp = rd.cur.get(fce.params), rd.cur.get(fpe.params)
-    if cfc is None or cfp is None:
-        return None
-    total = int(sum(cols["FN"]))
-    if len(cfc.data) - cfc.off < total:
-        return None
-    saved = cfp.off
-    try:
-        fp_all = cfp.itf8_bulk(total)
-    except IndexError:
-        cfp.off = saved
-        return None
-    fc_all = bytes(cfc.data[cfc.off: cfc.off + total])
-    cfc.off += total
-    return fc_all, fp_all
-
-
-def _bulk_bb(rd, comp, enc, fstreams):
-    """All 'b'-feature payloads of the slice (count known from the bulk
-    FC stream) when BB is BYTE_ARRAY_LEN over two distinct exclusive
-    EXTERNAL blocks — our writer's and the usual layout. Returns the
-    payload list or None → per-feature reads."""
-    if fstreams is None:
-        return None
-    bbe = enc.get("BB")
-    if bbe is None or bbe.codec != E_BYTE_ARRAY_LEN:
-        return None
-    len_e, val_e = bbe.params
-    if (len_e.codec != E_EXTERNAL or val_e.codec != E_EXTERNAL
-            or len_e.params == val_e.params):
-        return None
-    used = _external_cids_excluding(comp, enc, ("BB",))
-    if len_e.params in used or val_e.params in used:
-        return None
-    cl, cv = rd.cur.get(len_e.params), rd.cur.get(val_e.params)
-    if cl is None or cv is None:
-        return None
-    count_b = fstreams[0].count(ord("b"))
-    saved = cl.off
-    try:
-        lens = cl.itf8_bulk(count_b)
-    except IndexError:
-        cl.off = saved
-        return None
-    total = sum(lens)
-    if any(ln < 0 for ln in lens) or len(cv.data) - cv.off < total:
-        cl.off = saved
-        return None
-    data = cv.data
-    off = cv.off
-    out = []
-    for ln in lens:
-        out.append(bytes(data[off: off + ln]))
-        off += ln
-    cv.off = off
-    return out
-
-
-def _bulk_tags(rd, comp, enc, cols):
-    """Per-tag-key value iterators for keys whose value series is the
-    interleaved (length, bytes) layout over one exclusive EXTERNAL
-    block — our writer's layout. Keys with any other layout simply stay
-    on per-record reads."""
-    from collections import Counter
-
-    keys = {k for line in comp.tag_lines for k in line}
-    if not keys:
-        return {}
-    counts: Dict[int, int] = {k: 0 for k in keys}
-    lines = comp.tag_lines
-    for tl, c_tl in Counter(cols["TL"]).items():
-        for k in lines[tl]:
-            counts[k] += c_tl
-    # one cid-occurrence count across every encoding: a same-cid
-    # BYTE_ARRAY_LEN tag contributes exactly its own 2 refs (len+val),
-    # so any count above 2 means the block is shared with something
-    cid_refs = Counter()
-    for e2 in enc.values():
-        cid_refs.update(_enc_cids(e2))
-    for e2 in comp.tag_enc.values():
-        cid_refs.update(_enc_cids(e2))
-    out: Dict[int, object] = {}
-    for k in keys:
-        e = comp.tag_enc.get(k)
-        if e is None or e.codec != E_BYTE_ARRAY_LEN:
-            continue
-        len_e, val_e = e.params
-        if (len_e.codec != E_EXTERNAL or val_e.codec != E_EXTERNAL
-                or len_e.params != val_e.params):
-            continue
-        cid = len_e.params
-        if cid_refs[cid] != 2:
-            continue
-        c = rd.cur.get(cid)
-        if c is None:
-            continue
-        try:
-            # len_prefixed_bulk commits the cursor only on full success
-            out[k] = iter(c.len_prefixed_bulk(counts[k]))
-        except IndexError:
-            pass
-    return out
-
-
-def _bulk_quals(rd, comp, enc, cols):
-    """The slice's whole QS byte stream in one read when every record
-    stores qualities and QS is EXTERNAL over an exclusive block.
-    Returns the bytes or None → per-record reads."""
-    qse = enc.get("QS")
-    if qse is None or qse.codec != E_EXTERNAL:
-        return None
-    if any((cf & CF_QS_STORED) == 0 for cf in cols["CF"]):
-        return None
-    if qse.params in _external_cids_excluding(comp, enc, ("QS",)):
-        return None
-    c = rd.cur.get(qse.params)
-    total_bases = int(sum(cols["RL"]))
-    if c is None or len(c.data) - c.off < total_bases:
-        return None
-    blob = bytes(c.data[c.off: c.off + total_bases])
-    c.off += total_bases
-    return blob
+    feats = REGISTRY.counter("cram.features")
+    for code, k in books["features"].items():
+        feats.inc(k, code=code)
+    mates = REGISTRY.counter("cram.mates")
+    for kind in ("attached", "detached"):
+        if books[kind]:
+            mates.inc(books[kind], kind=kind)
 
 
 def _decode_slice(
     slice_hdr, comp: CompressionHeader, blocks: Dict[int, bytes], core,
     ref_fetch,
 ) -> ReadBatch:
+    """One slice's records: column by column (``assemble.py``) in the
+    usual layout, else record by record."""
+    from disq_tpu_torch.cram.assemble import assemble_slice
+
+    got = assemble_slice(slice_hdr, comp, blocks, core, ref_fetch)
+    if got is None:
+        got = _decode_slice_records(slice_hdr, comp, blocks, core, ref_fetch)
+    batch, books = got
+    _book(books)
+    return batch
+
+
+def _reference_run(ref_fetch, refid: int, start0: int, n: int) -> bytes:
+    if ref_fetch is None:
+        raise MissingReferenceError(
+            "reference required to decode this CRAM slice "
+            "(set reference_source_path)"
+        )
+    rb = ref_fetch(refid, start0, n)
+    if rb is None or len(rb) < n:
+        raise MissingReferenceError(
+            f"reference contig for refid {refid} is "
+            f"missing or too short in the configured FASTA"
+        )
+    return rb[:n]
+
+
+def _decode_slice_records(
+    slice_hdr, comp: CompressionHeader, blocks: Dict[int, bytes], core,
+    ref_fetch,
+) -> Tuple[ReadBatch, dict]:
+    """The slice read record by record, in the CRAM 3.0 record layout,
+    through any encoding ``_Readers`` reads (CORE bit codecs included).
+    Unmapped records carry BA bases where the header declares BA (the
+    specification's layout), else read features (the port's own)."""
+    from disq_tpu_torch.cram.assemble import _mates
+
     rd = _Readers(blocks, core or b"")
     enc = comp.series_enc
     n = slice_hdr.n_records
@@ -1113,18 +978,22 @@ def _decode_slice(
     if multi_ref and "RI" not in enc:
         raise ValueError(
             "multi-reference CRAM slice without an RI series encoding")
+    spec_unmapped = "BA" in enc
+    sub = comp.substitutions
 
-    refid_l = np.full(n, refid, np.int32)
+    refid_l = np.full(n, refid, np.int64)
     prev_ap = slice_hdr.ref_start  # AP-delta seed (htsjdk convention)
-    pos_l = np.empty(n, np.int32)
-    mapq_l = np.empty(n, np.uint8)
-    flag_l = np.empty(n, np.uint16)
-    nref_l = np.empty(n, np.int32)
-    npos_l = np.empty(n, np.int32)
-    tlen_l = np.empty(n, np.int32)
-    bin_l = np.zeros(n, np.uint16)
-    # flat byte accumulators + per-record lengths (one frombuffer per
-    # column at the end instead of n tiny arrays + concatenate)
+    pos_l = np.empty(n, np.int64)
+    mapq_l = np.zeros(n, np.int64)
+    flag_l = np.empty(n, np.int64)
+    nref_l = np.full(n, -1, np.int64)
+    npos_l = np.full(n, -1, np.int64)
+    tlen_l = np.zeros(n, np.int64)
+    end_l = np.empty(n, np.int64)
+    ups: List[int] = []
+    downs: List[int] = []
+    feats: Dict[str, int] = {}
+    detached = 0
     names, seqs_l, quals_l, tags_l = (
         bytearray(), bytearray(), bytearray(), bytearray())
     name_lens: List[int] = []
@@ -1133,133 +1002,76 @@ def _decode_slice(
     seq_lens: List[int] = []
     tag_lens: List[int] = []
 
-    # Columnar fast path: when every fixed per-record series is
-    # EXTERNAL with its own block (the htslib/our-writer layout), pull
-    # each series' whole value stream in one fused walk and index
-    # arrays in the loop, instead of 12 read_int dispatches per record.
-    # The value order within each block is identical to the loop's
-    # consumption order because these series are one-value-per-record.
-    cols = _bulk_fixed_series(rd, comp, enc, n, multi_ref)
-    if cols is not None and comp.ap_delta:
-        ap_cum = slice_hdr.ref_start + np.cumsum(
-            np.asarray(cols["AP"], np.int64))
-        cols["AP"] = ap_cum.tolist()
-    rn_names = _bulk_split_names(rd, comp, enc, n) if cols is not None \
-        else None
-    fstreams = _bulk_feature_streams(rd, comp, enc, cols) \
-        if cols is not None else None
-    qs_blob = _bulk_quals(rd, comp, enc, cols) \
-        if cols is not None else None
-    bb_vals = _bulk_bb(rd, comp, enc, fstreams)
-    tag_bulk = _bulk_tags(rd, comp, enc, cols) if cols is not None else {}
-    fidx = 0
-    bidx = 0
-    qoff = 0
-
     for i in range(n):
-        if cols is not None:
-            flag = cols["BF"][i]
-            cf = cols["CF"][i]
-            rl = cols["RL"][i]
-            if multi_ref:
-                refid_l[i] = cols["RI"][i]
-            ap = cols["AP"][i]
-        else:
-            flag = rd.read_int(enc["BF"])
-            cf = rd.read_int(enc["CF"])
-            rl = rd.read_int(enc["RL"])
-            if multi_ref:
-                refid_l[i] = rd.read_int(enc["RI"])
-            ap = rd.read_int(enc["AP"])
-            if comp.ap_delta:
-                ap = prev_ap + ap
-                prev_ap = ap
-            rd.read_int(enc["RG"])
-        if rn_names is not None:
-            name = rn_names[i]
-        else:
-            name = rd.read_array(enc["RN"]) if comp.rn_preserved else b""
-        if not (cf & CF_DETACHED):
-            raise ValueError("only detached mate records supported")
-        if cols is not None:
-            ns, np_, ts = cols["NS"][i], cols["NP"][i], cols["TS"][i]
-            tl = cols["TL"][i]
-        else:
+        flag = rd.read_int(enc["BF"])
+        cf = rd.read_int(enc["CF"])
+        if multi_ref:
+            refid_l[i] = rd.read_int(enc["RI"])
+        rl = rd.read_int(enc["RL"])
+        ap = rd.read_int(enc["AP"])
+        if comp.ap_delta:
+            ap = prev_ap + ap
+            prev_ap = ap
+        rd.read_int(enc["RG"])
+        name = rd.read_array(enc["RN"]) if comp.rn_preserved else b""
+        if cf & CF_DETACHED:
             rd.read_int(enc["MF"])
-            ns = rd.read_int(enc["NS"])
-            np_ = rd.read_int(enc["NP"])
-            ts = rd.read_int(enc["TS"])
-            tl = rd.read_int(enc["TL"])
-        tag_entries = []
-        for key in comp.tag_lines[tl]:
-            it = tag_bulk.get(key)
-            val = next(it) if it is not None \
-                else rd.read_array(comp.tag_enc[key])
-            tag_entries.append((key, val))
-        # features (MQ follows them — CRAM 3.0 record layout)
-        fn = cols["FN"][i] if cols is not None else rd.read_int(enc["FN"])
-        # fast shape: exactly one whole-read 'b' feature at read
-        # position 1 (the dominant reference-less record) — equivalent
-        # to the generic reconstruction with no gap, no tail and a
-        # single M run; unmapped flags clear the CIGAR as below
-        if (fstreams is not None and bb_vals is not None and fn == 1
-                and not (cf & CF_UNKNOWN_BASES)
-                and fstreams[0][fidx] == 98          # ord('b')
-                and fstreams[1][fidx] == 1
-                and rl > 0 and len(bb_vals[bidx]) == rl):
-            fidx += 1
-            payload = bb_vals[bidx]
-            bidx += 1
-            pos0 = ap - 1
-            seq = _CHAR_TO_NT16[np.frombuffer(payload, np.uint8)]
-            cigar_ops = [] if flag & 0x4 else [rl << 4]
+            nref_l[i] = rd.read_int(enc["NS"])
+            npos_l[i] = rd.read_int(enc["NP"]) - 1
+            tlen_l[i] = rd.read_int(enc["TS"])
+            detached += 1
+        elif cf & CF_HAS_MATE_DOWNSTREAM:
+            ups.append(i)
+            downs.append(i + rd.read_int(enc["NF"]) + 1)
+        tl = rd.read_int(enc["TL"])
+        if not 0 <= tl < len(comp.tag_lines):
+            raise ValueError(f"tag line index {tl} out of range")
+        tag_entries = [(key, rd.read_array(comp.tag_enc[key]))
+                       for key in comp.tag_lines[tl]]
+        pos0 = ap - 1
+        rid = int(refid_l[i])
+        seq = np.zeros(rl, dtype=np.uint8)
+        quals = bytearray(b"\xff" * rl)
+        cigar_ops: List[int] = []
+        if flag & 0x4 and spec_unmapped:
+            if not cf & CF_UNKNOWN_BASES:
+                seq = _CHAR_TO_NT16[np.frombuffer(
+                    bytes(rd.read_byte(enc["BA"]) for _ in range(rl)),
+                    np.uint8)]
+            mq = 0
+            rp, ref_pos = rl + 1, pos0
         else:
-            features = []
-            fpos = 0
-            for _ in range(fn):
-                if fstreams is not None:
-                    code = chr(fstreams[0][fidx])
-                    fpos += fstreams[1][fidx]
-                    fidx += 1
-                else:
-                    code = chr(rd.read_byte(enc["FC"]))
-                    fpos += rd.read_int(enc["FP"])
-                if code == "b":
-                    if bb_vals is not None:
-                        payload = bb_vals[bidx]
-                        bidx += 1
-                    else:
-                        payload = rd.read_array(enc["BB"])
-                elif code == "I":
-                    payload = rd.read_array(enc["IN"])
-                elif code == "S":
-                    payload = rd.read_array(enc["SC"])
-                elif code == "D":
-                    payload = rd.read_int(enc["DL"])
-                elif code == "N":
-                    payload = rd.read_int(enc["RS"])
-                elif code == "H":
-                    payload = rd.read_int(enc["HC"])
-                elif code == "P":
-                    payload = rd.read_int(enc["PD"])
-                else:
-                    raise ValueError(f"unsupported read feature {code!r}")
-                features.append((fpos, code, payload))
-
-            # reconstruct seq + cigar
-            pos0 = ap - 1
-            seq = np.zeros(rl, dtype=np.uint8)
-            cigar_ops: List[int] = []
-
-            def push(op_char: str, ln: int):
+            def push(op: int, ln: int):
                 if ln <= 0:
                     return
-                op = "MIDNSHP=X".index(op_char)
                 if cigar_ops and (cigar_ops[-1] & 0xF) == op:
                     cigar_ops[-1] += ln << 4
                 else:
                     cigar_ops.append((ln << 4) | op)
 
+            features = []
+            fpos = 0
+            for _ in range(rd.read_int(enc["FN"])):
+                code = chr(rd.read_byte(enc["FC"]))
+                fpos += rd.read_int(enc["FP"])
+                if code in ("b", "I", "S", "Q"):
+                    payload = rd.read_array(
+                        enc[{"b": "BB", "I": "IN", "S": "SC", "Q": "QQ"}[code]])
+                elif code in ("D", "N", "H", "P"):
+                    payload = rd.read_int(
+                        enc[{"D": "DL", "N": "RS", "H": "HC", "P": "PD"}[code]])
+                elif code == "X":
+                    payload = rd.read_byte(enc["BS"])
+                elif code == "B":
+                    payload = (rd.read_byte(enc["BA"]), rd.read_byte(enc["QS"]))
+                elif code == "i":
+                    payload = rd.read_byte(enc["BA"])
+                elif code == "q":
+                    payload = rd.read_byte(enc["QS"])
+                else:
+                    raise ValueError(f"unsupported read feature {code!r}")
+                feats[code] = feats.get(code, 0) + 1
+                features.append((fpos, code, payload))
             rp = 1
             ref_pos = pos0
             if cf & CF_UNKNOWN_BASES:
@@ -1268,89 +1080,82 @@ def _decode_slice(
                 gap = fpos - rp
                 if gap > 0:
                     # reference-matching M stretch
-                    if ref_fetch is None:
-                        raise MissingReferenceError(
-                            "reference required to decode this CRAM slice "
-                            "(set reference_source_path)"
-                        )
-                    rb = ref_fetch(int(refid_l[i]), ref_pos, gap)
-                    if rb is None or len(rb) < gap:
-                        raise MissingReferenceError(
-                            f"reference contig for refid {int(refid_l[i])} is "
-                            f"missing or too short in the configured FASTA"
-                        )
+                    rb = _reference_run(ref_fetch, rid, ref_pos, gap)
                     seq[rp - 1: rp - 1 + gap] = _CHAR_TO_NT16[
-                        np.frombuffer(rb.upper(), np.uint8)
-                    ]
-                    push("M", gap)
+                        np.frombuffer(rb, np.uint8)]
+                    push(0, gap)
                     rp += gap
                     ref_pos += gap
-                if code == "b":
-                    ln = len(payload)
-                    seq[rp - 1: rp - 1 + ln] = _CHAR_TO_NT16[
-                        np.frombuffer(payload, np.uint8)
-                    ]
-                    push("M", ln)
+                if code in ("b", "I", "S", "X", "B", "i"):
+                    if code in ("b", "I", "S"):
+                        bases = _CHAR_TO_NT16[np.frombuffer(payload, np.uint8)]
+                    elif code == "X":
+                        if sub is None:
+                            raise ValueError("X read feature without a "
+                                             "substitution matrix")
+                        rb = _reference_run(ref_fetch, rid, ref_pos, 1)
+                        bases = _CHAR_TO_NT16[sub[_SM_ROW[rb[0]], payload]]
+                    elif code == "B":
+                        bases = _CHAR_TO_NT16[payload[0]]
+                        quals[fpos - 1] = payload[1]
+                    else:
+                        bases = _CHAR_TO_NT16[payload]
+                    ln = np.size(bases)
+                    seq[rp - 1: rp - 1 + ln] = bases
+                    op = 1 if code in ("I", "i") else 4 if code == "S" else 0
+                    push(op, ln)
                     rp += ln
-                    ref_pos += ln
-                elif code in ("I", "S"):
-                    ln = len(payload)
-                    seq[rp - 1: rp - 1 + ln] = _CHAR_TO_NT16[
-                        np.frombuffer(payload, np.uint8)
-                    ]
-                    push(code, ln)
-                    rp += ln
+                    if op == 0:
+                        ref_pos += ln
                 elif code in ("D", "N"):
-                    push(code, payload)
+                    push(2 if code == "D" else 3, payload)
                     ref_pos += payload
                 elif code in ("H", "P"):
-                    push(code, payload)
+                    push(5 if code == "H" else 6, payload)
+                elif code == "q":
+                    quals[fpos - 1] = payload
+                else:                                  # Q
+                    quals[fpos - 1: fpos - 1 + len(payload)] = payload
             tail = rl - (rp - 1)
             if tail > 0 and not (cf & CF_UNKNOWN_BASES):
-                if (flag & 0x4) == 0 and int(refid_l[i]) >= 0:
-                    if ref_fetch is None:
-                        raise MissingReferenceError(
-                            "reference required to decode this CRAM slice "
-                            "(set reference_source_path)"
-                        )
-                    rb = ref_fetch(int(refid_l[i]), ref_pos, tail)
-                    if rb is None or len(rb) < tail:
-                        raise MissingReferenceError(
-                            f"reference contig for refid {int(refid_l[i])} is "
-                            f"missing or too short in the configured FASTA"
-                        )
-                    seq[rp - 1:] = _CHAR_TO_NT16[np.frombuffer(rb.upper(), np.uint8)]
-                    push("M", tail)
+                if (flag & 0x4) == 0 and rid >= 0:
+                    rb = _reference_run(ref_fetch, rid, ref_pos, tail)
+                    seq[rp - 1:] = _CHAR_TO_NT16[np.frombuffer(rb, np.uint8)]
+                    push(0, tail)
+                    ref_pos += tail
                 else:
                     raise ValueError("unmapped record with missing base features")
-
             if flag & 0x4:
                 # Unmapped records carry no CIGAR ('*'); any cover-all 'b'
                 # feature existed only to transport the bases.
                 cigar_ops = []
-        mq = cols["MQ"][i] if cols is not None else rd.read_int(enc["MQ"])
-        if qs_blob is not None:
-            quals = qs_blob[qoff: qoff + rl]
-            qoff += rl
-        else:
-            quals = (rd.read_bytes_len(enc["QS"], rl)
-                     if cf & CF_QS_STORED else b"\xff" * rl)
+                ref_pos = pos0
+            mq = rd.read_int(enc["MQ"])
+        if cf & CF_QS_STORED:
+            quals = rd.read_bytes_len(enc["QS"], rl)
+        if cf & CF_UNKNOWN_BASES:
+            seq = seq[:0]
+            quals = quals[:0]
         pos_l[i] = pos0
         mapq_l[i] = mq
         flag_l[i] = flag
-        nref_l[i] = ns
-        npos_l[i] = np_ - 1
-        tlen_l[i] = ts
+        end_l[i] = max(ref_pos, pos0 + 1)
         names += name
         name_lens.append(len(name))
         cig_flat.extend(cigar_ops)
         cig_lens.append(len(cigar_ops))
         seqs_l += seq.data
-        seq_lens.append(rl)
-        quals_l += quals     # always length rl — seq_lens covers both
+        seq_lens.append(len(seq))
+        quals_l += quals
         tb = join_tags(tag_entries)
         tags_l += tb
         tag_lens.append(len(tb))
+
+    attached = 0
+    if ups:
+        attached = _mates(np.array(ups, np.int64), np.array(downs, np.int64),
+                          n, refid_l, pos_l, end_l, flag_l, nref_l, npos_l,
+                          tlen_l)
 
     def ragged(lens, buf, dtype):
         off = np.zeros(n + 1, dtype=np.int64)
@@ -1371,14 +1176,20 @@ def _decode_slice(
     if cig_lens:
         np.cumsum(cig_lens, out=cigar_off[1:])
     cigars_f = np.asarray(cig_flat, dtype=np.uint32)
+    pos32 = pos_l.astype(np.int32)
     # bin: recompute (CRAM does not store it) — vectorized over the
     # whole slice, shared with the SAM text parser
-    bin_l = bins_from_cigars(cigars_f, cigar_off, pos_l).astype(bin_l.dtype)
-    return ReadBatch(
-        refid=refid_l, pos=pos_l, mapq=mapq_l, bin=bin_l, flag=flag_l,
-        next_refid=nref_l, next_pos=npos_l, tlen=tlen_l,
+    bin_l = bins_from_cigars(cigars_f, cigar_off, pos32).astype(np.uint16)
+    batch = ReadBatch(
+        refid=refid_l.astype(np.int32), pos=pos32,
+        mapq=mapq_l.astype(np.uint8), bin=bin_l,
+        flag=flag_l.astype(np.uint16),
+        next_refid=nref_l.astype(np.int32),
+        next_pos=npos_l.astype(np.int32), tlen=tlen_l.astype(np.int32),
         name_offsets=name_off, names=names_f,
         cigar_offsets=cigar_off, cigars=cigars_f,
         seq_offsets=seq_off, seqs=seqs_f, quals=quals_f,
         tag_offsets=tag_off, tags=tags_f,
     )
+    return batch, {"features": feats, "attached": attached,
+                   "detached": detached}

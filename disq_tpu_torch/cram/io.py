@@ -140,6 +140,28 @@ def read_ltf8(data, offset: int) -> Tuple[int, int]:
     return v, off
 
 
+def itf8_table(data) -> Tuple[np.ndarray, np.ndarray]:
+    """The ITF8 value (int32) and byte length (uint8) of a value that
+    would start at each byte of ``data``."""
+    # uint32 arithmetic wraps exactly like the scalar reader's masked
+    # shifts; .view(int32) restores the signed contract
+    a = np.frombuffer(data, np.uint8).astype(np.uint32)
+    n = len(a)
+    p = np.concatenate([a, np.zeros(4, np.uint32)])
+    b0 = p[:n]
+    b1, b2, b3, b4 = p[1:n + 1], p[2:n + 2], p[3:n + 3], p[4:n + 4]
+    conds = [b0 < 0x80, b0 < 0xC0, b0 < 0xE0, b0 < 0xF0]
+    v = np.select(conds, [
+        b0,
+        ((b0 & 0x7F) << 8) | b1,
+        ((b0 & 0x3F) << 16) | (b1 << 8) | b2,
+        ((b0 & 0x1F) << 24) | (b1 << 16) | (b2 << 8) | b3,
+    ], ((b0 & 0x0F) << 28) | (b1 << 20) | (b2 << 12) | (b3 << 4)
+       | (b4 & 0x0F))
+    return v.view(np.int32), np.select(conds, [1, 2, 3, 4], 5).astype(
+        np.uint8)
+
+
 class Cursor:
     """Sequential reader over a bytes-like object.
 
@@ -162,23 +184,7 @@ class Cursor:
         self._ni = 0 if itf8_table else -(1 << 60)
 
     def _build_itf8_table(self) -> None:
-        # uint32 arithmetic wraps exactly like the scalar reader's
-        # masked shifts; .view(int32) restores the signed contract
-        a = np.frombuffer(self.data, np.uint8).astype(np.uint32)
-        n = len(a)
-        p = np.concatenate([a, np.zeros(4, np.uint32)])
-        b0 = p[:n]
-        b1, b2, b3, b4 = p[1:n + 1], p[2:n + 2], p[3:n + 3], p[4:n + 4]
-        conds = [b0 < 0x80, b0 < 0xC0, b0 < 0xE0, b0 < 0xF0]
-        v = np.select(conds, [
-            b0,
-            ((b0 & 0x7F) << 8) | b1,
-            ((b0 & 0x3F) << 16) | (b1 << 8) | b2,
-            ((b0 & 0x1F) << 24) | (b1 << 16) | (b2 << 8) | b3,
-        ], ((b0 & 0x0F) << 28) | (b1 << 20) | (b2 << 12) | (b3 << 4)
-           | (b4 & 0x0F))
-        self._v = v.view(np.int32)
-        self._nb = np.select(conds, [1, 2, 3, 4], 5).astype(np.uint8)
+        self._v, self._nb = itf8_table(self.data)
 
     def itf8(self) -> int:
         v = self._v

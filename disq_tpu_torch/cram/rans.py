@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from disq_tpu_torch.runtime import counters
+from disq_tpu_torch.runtime.tracing import span
 
 TF_SHIFT = 12
 TOTFREQ = 1 << TF_SHIFT      # 4096
@@ -302,20 +303,27 @@ def rans_decode(data: bytes) -> bytes:
     order, comp_size, raw_size = struct.unpack_from("<BII", data, 0)
     if raw_size == 0:
         return b""
-    if order in (0, 1):
-        counters.book_host_rans(order)
-        try:
-            from disq_tpu_torch.native import rans_decode_native
+    if order not in (0, 1):
+        raise ValueError(f"unknown rANS order {order}")
+    counters.book_rans_streams(order, "host")
+    if order == 1:
+        with span("cram.rans1", bytes=raw_size):
+            return _decode_host(data, order, comp_size, raw_size)
+    return _decode_host(data, order, comp_size, raw_size)
 
-            return rans_decode_native(data)
-        except ImportError:
-            pass
+
+def _decode_host(data: bytes, order: int, comp_size: int,
+                 raw_size: int) -> bytes:
+    try:
+        from disq_tpu_torch.native import rans_decode_native
+
+        return rans_decode_native(data)
+    except ImportError:
+        pass
     body = memoryview(data)[9:9 + comp_size]
     if order == 0:
         return _decode0(body, raw_size)
-    if order == 1:
-        return _decode1(body, raw_size)
-    raise ValueError(f"unknown rANS order {order}")
+    return _decode1(body, raw_size)
 
 
 def _decode0(body, raw_size: int) -> bytes:

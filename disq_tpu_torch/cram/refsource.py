@@ -8,6 +8,7 @@ are cached per contig. Works over any ``FileSystemWrapper``.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Tuple
 
 from disq_tpu_torch.fsw.filesystem import FileSystemWrapper, resolve_path
@@ -19,6 +20,8 @@ class CramReferenceSource:
         self.path = path
         self._fai = self._load_fai()
         self._cache: Dict[str, bytes] = {}
+        # one load of a contig, whichever split's worker asks first
+        self._load_lock = threading.Lock()
         self._names: List[str] = list(self._fai)
 
     def _load_fai(self) -> Dict[str, Tuple[int, int, int, int]]:
@@ -70,12 +73,16 @@ class CramReferenceSource:
             total, offset, linebases, linewidth = self._fai[name]
             if linebases <= 0:
                 return b""
-            n_lines = -(-total // linebases)
-            raw = self.fs.read_range(
-                self.path, offset, n_lines * linewidth
-            )
-            seq = raw.replace(b"\n", b"").replace(b"\r", b"")[:total].upper()
-            self._cache[name] = seq
+            with self._load_lock:
+                seq = self._cache.get(name)
+                if seq is None:
+                    n_lines = -(-total // linebases)
+                    raw = self.fs.read_range(
+                        self.path, offset, n_lines * linewidth
+                    )
+                    seq = raw.replace(b"\n", b"").replace(
+                        b"\r", b"")[:total].upper()
+                    self._cache[name] = seq
         return seq[start0: start0 + length]
 
     def fetcher(self, contig_names: List[str]):

@@ -76,7 +76,7 @@ from disq_tpu_torch.runtime.errors import (
     context_for_storage,
     is_transient,
 )
-from disq_tpu_torch.runtime.tracing import wrap_span
+from disq_tpu_torch.runtime.tracing import span, wrap_span
 
 # errors that are not corrupt input: configuration, and CUDA build or
 # launch failures
@@ -341,7 +341,8 @@ class CramSource:
                 errors[ci] = _corruption(e)
         decoded: Dict[Tuple[int, int], bytes] = {}
         if device is not None:
-            decoded = self._decode_rans0(stored, device, errors)
+            with span("cram.rans0.batch", containers=len(items)):
+                decoded = self._decode_rans0(stored, device, errors)
         batches = []
         for ci, (off, _hdr_size, raw) in enumerate(items):
             error = errors.get(ci)
@@ -366,6 +367,7 @@ class CramSource:
         marks its container in ``errors`` (its lowest such stream's
         error); the other streams keep their output."""
         from disq_tpu_torch.cram.rans import rans0_decode_streams
+        from disq_tpu_torch.runtime.counters import book_rans_streams
 
         keys = [(ci, bi) for ci, blocks in stored.items()
                 for bi, b in enumerate(blocks) if b.is_rans0]
@@ -374,6 +376,7 @@ class CramSource:
         bad: Dict[int, BaseException] = {}
         outs = rans0_decode_streams(
             [stored[ci][bi].comp for ci, bi in keys], device, bad)
+        book_rans_streams(0, "device", len(keys))
         for k in sorted(bad):
             errors.setdefault(keys[k][0], bad[k])
         return {key: out for key, out in zip(keys, outs) if out is not None}

@@ -18,7 +18,10 @@ Process-wide books, views over the telemetry registry
   the registry's ``device.bytes_to_device`` / ``device.bytes_to_host``;
 - ``host_rans_streams["rans0" | "rans1"]``: rANS streams the host codec
   decoded, by order (on ``cuda`` every order-0 stream goes to a kernel,
-  so ``rans0`` stays 0 there; a port-only book);
+  so ``rans0`` stays 0 there); the ``route="host"`` series of the
+  registry's ``cram.rans.streams{order=, route=}``, whose
+  ``route="device"`` series counts the streams B3 or B5 decoded (a
+  port-only book);
 - the kernels' ``last_stats`` dicts, updated through ``add_stats``.
 
 ``reset()`` zeroes the books, so a caller can read exactly what one run
@@ -48,7 +51,6 @@ REFERENCE_KERNEL = {
 _PORT_KERNEL = {v: k for k, v in REFERENCE_KERNEL.items()}
 
 _lock = threading.Lock()
-host_rans_streams: Counter = Counter()
 
 
 def _launch_counter():
@@ -76,9 +78,24 @@ def book_transfer(direction: str, nbytes: int) -> None:
     count_transfer(direction, nbytes)
 
 
-def book_host_rans(order: int) -> None:
-    with _lock:
-        host_rans_streams[f"rans{order}"] += 1
+def _rans_counter():
+    return REGISTRY.counter("cram.rans.streams")
+
+
+def book_rans_streams(order: int, route: str, n: int = 1) -> None:
+    """``n`` rANS streams of ``order`` decoded on ``route`` (``host`` or
+    ``device``)."""
+    _rans_counter().inc(n, order=str(order), route=route)
+
+
+def host_rans_streams() -> Dict[str, int]:
+    with REGISTRY._lock:
+        out = Counter()
+        for key, v in _rans_counter()._values.items():
+            labels = dict(key)
+            if v and labels.get("route") == "host":
+                out[f"rans{labels['order']}"] += int(v)
+    return dict(out)
 
 
 def add_stats(stats: Dict[str, int], **increments: int) -> None:
@@ -102,19 +119,16 @@ def launches() -> Dict[str, int]:
 
 def reset() -> None:
     with REGISTRY._lock:
-        for c in (_launch_counter(), _fallback_counter(),
+        for c in (_launch_counter(), _fallback_counter(), _rans_counter(),
                   *_transfer_counters().values()):
             c._reset()
-    with _lock:
-        host_rans_streams.clear()
 
 
 def snapshot() -> Dict[str, Dict[str, int]]:
     with REGISTRY._lock:
         transfer = {d: int(c.value()) for d, c in _transfer_counters().items()
                     if c.value()}
-    with _lock:
-        rans = dict(host_rans_streams)
+    rans = host_rans_streams()
     return {
         "launches": launches(),
         "host_fallback_blocks": _by_label(_fallback_counter(), "reason"),
