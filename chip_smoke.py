@@ -2259,11 +2259,8 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
     Then W1 and W2 at (a)'s shapes against their plain versions, and (a)'s
     stages replayed one by one. Returns (W1 and W2 kernel entries, e2e
     fields)."""
-    from disq_tpu_torch.bam.sink import (
-        _batch_digest,
-        _LazySlice,
-        voffsets_from_csizes,
-    )
+    from disq_tpu_torch.bam.codec import GatheredRecords
+    from disq_tpu_torch.bam.sink import _batch_digest, voffsets_from_csizes
     from disq_tpu_torch.bgzf.codec import compress_to_bgzf
     from disq_tpu_torch.index.bai import build_bai
     from disq_tpu_torch.ops import cuda_build
@@ -2392,7 +2389,7 @@ def device_write_legs(torch, port, args, g, perm_want, ds, work, dev):
 
     def index():
         voffs, end_voffs = voffsets_from_csizes(csizes, shard.record_offsets)
-        part = _LazySlice(sorted_ds.reads, 0, n)
+        part = GatheredRecords.parse(host, shard.record_offsets)
         return build_bai(part.refid, part.pos, part.alignment_ends(),
                          part.flag, voffs, end_voffs, len(REFS))
 

@@ -372,6 +372,15 @@ class GatheredRecords:
         self.pos = fields["pos"]
         self.flag = fields["flag"]
 
+    @classmethod
+    def parse(cls, data: np.ndarray, offsets: np.ndarray
+              ) -> "GatheredRecords":
+        """Records already laid out as BAM record bytes (``data`` at
+        shard-local ``offsets``, as ``EncodedShard.host_payload`` holds
+        a shard of the device write), with their fields parsed from
+        those bytes."""
+        return cls(data, offsets, _record_fields(data, offsets))
+
     @property
     def count(self) -> int:
         return len(self.offsets) - 1

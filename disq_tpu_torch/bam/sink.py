@@ -39,10 +39,14 @@ With ``DisqOptions.device_deflate`` armed every deflate (parts, header
 block, directory parts) runs the device coder on the storage's device
 (``ops/deflate.py``), and a sorted batch with an encode source gathers
 each shard's records on the device too (``runtime/device_write.py``,
-route ``gathered``): then the index fragments read host columns only
-when an index is asked for (``_LazySlice``). The knob is part of the
-stage manifest's params, so flipping it between a crash and the resume
-starts the staging afresh.
+route ``gathered``): then the index fragments read their fields from
+the shard's bytes the deflate gathered on the host for its footers
+(``EncodedShard.host_payload``), as the host gathered route does, and
+no record of the batch is parsed on the host. The fields' source is
+counted per indexed shard by ``bam.write.index_fields{source}``:
+``bytes`` on both gathered routes, ``columns`` on the ``encoded`` one.
+The knob is part of the stage manifest's params, so flipping it between
+a crash and the resume starts the staging afresh.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from disq_tpu_torch.bam.codec import (
+    GatheredRecords,
     encode_records,
     encode_records_with_offsets,
     gather_records,
@@ -140,30 +145,6 @@ def bgzf_compress_with_voffsets(blob: bytes, record_offsets: np.ndarray,
     return comp, voffs, end_voffs
 
 
-class _LazySlice:
-    """A shard's records for the index fragments of the device write
-    path: host columns materialize only when an index reads them."""
-
-    __slots__ = ("_batch", "_lo", "_hi", "_part")
-
-    def __init__(self, batch, lo: int, hi: int) -> None:
-        self._batch = batch
-        self._lo, self._hi = lo, hi
-        self._part = None
-
-    @property
-    def count(self) -> int:
-        return self._hi - self._lo
-
-    def _mat(self):
-        if self._part is None:
-            self._part = self._batch.slice(self._lo, self._hi)
-        return self._part
-
-    def __getattr__(self, name: str):
-        return getattr(self._mat(), name)
-
-
 class BamSink:
     """Single-file BAM write."""
 
@@ -242,13 +223,14 @@ class BamSink:
     def _encode_shard(self, batch, bounds, k, resident=None):
         """Shard ``k``'s record bytes: with the device write path's
         encoder, a W1 gather on the device (the payload stays there for
-        the deflate); from the batch's decoded record blob, a host
-        gather; else the slice's records encoded on the host."""
+        the deflate, and the records' view is built after it); from the
+        batch's decoded record blob, a host gather; else the slice's
+        records encoded on the host."""
         lo, hi = int(bounds[k]), int(bounds[k + 1])
         if resident is not None:
             enc = resident.encode_shard(lo, hi)
             _count_shard("gathered")
-            return _LazySlice(batch, lo, hi), enc, enc.record_offsets
+            return None, enc, enc.record_offsets
         part = gathered_shard(batch, lo, hi)
         if part is not None:
             _count_shard("gathered")
@@ -262,7 +244,8 @@ class BamSink:
         ``bam.write.compress`` span), then the part's SBI and BAI
         fragments (part-local offsets; a ``bam.write.index`` span when
         either is asked for) of shard ``k``. A shard encoded on the
-        device deflates there from its payload."""
+        device deflates there from its payload, and its fragments read
+        the fields of the host copy of its bytes."""
         part, blob, rec_offs = payload
         with span("bam.write.compress", shard=k):
             if hasattr(blob, "deflate"):  # runtime/device_write.EncodedShard
@@ -275,6 +258,11 @@ class BamSink:
         if not (write_sbi or write_bai):
             return comp, sbi_frag, bai_frag
         with span("bam.write.index", shard=k):
+            if part is None:
+                part = GatheredRecords.parse(blob.host_payload(), rec_offs)
+            counter("bam.write.index_fields").inc(
+                source="bytes" if isinstance(part, GatheredRecords)
+                else "columns")
             if write_sbi:
                 sbi_frag = SbiIndex.build(
                     voffs, int(end_voffs[-1]) if part.count else 0, 0,

@@ -18,8 +18,11 @@ shards on its device, and only compressed blocks cross d2h.
 
 The host keeps what it already has: the shard's bytes gathered from the
 host blob (``host_payload``) give the CRC32 and ISIZE footers and the
-expanded lanes' zlib route, so no device byte comes back for them. The
-table's histogram is counted on the device (256 counts come back).
+expanded lanes' zlib route, so no device byte comes back for them, and
+after the deflate the index fragments parse the fields they need from
+those same bytes (``bam/sink.py``), so no record of the sorted batch is
+parsed on the host. The table's histogram is counted on the device (256
+counts come back).
 
 Armed by ``DisqOptions.device_deflate`` / ``DISQ_TPU_TORCH_DEVICE_DEFLATE``;
 off, this module is not imported.
@@ -107,7 +110,8 @@ class EncodedShard:
         return DF.join_blocks(blocks)
 
     def release(self) -> None:
-        """Drop the device payload."""
+        """Drop the device payload (the host copy stays: the index
+        fragments read it after the deflate)."""
         self._payload = None
 
 
